@@ -1,0 +1,110 @@
+"""Dense-cache decode attention: the hand-written CUDA kernel and its plain
+version.
+
+Replaces `dense_decode_attention` of `sparktts_tpu/kernels/decode_attention.py`
+(`_decode_kernel`): one query token per batch row against the `layer` plane
+of the stacked `(L, B, S, Hkv, D)` KV cache, keys valid in
+`[start[b], pos[b]]`, fp32 accumulation.  An empty window gives zeros.  The
+kernel is `csrc/decode_attention.cu`; its header says how it is laid out,
+what bounds it on an H100 and what the design does about it.
+
+`dense_decode_attention` runs the plain version for CPU tensors only; for
+CUDA tensors it launches the kernel or raises.  `launches` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sparktts_tpu_torch.kernels import build
+
+SOURCE = "sparktts_tpu_torch/kernels/csrc/decode_attention.cu"
+REPLACES = "sparktts_tpu/kernels/decode_attention.py:169"
+HEAD_DIM = 64
+GROUP = 7  # query heads per KV head the kernel is built for (Qwen2.5-0.5B)
+
+launches = 0
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("decode_attention").dense_decode_attention_bf16
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def dense_decode_plain(
+    q: torch.Tensor,        # (B, Hq, D)
+    cache_k: torch.Tensor,  # (L, B, S, Hkv, D)
+    cache_v: torch.Tensor,
+    layer: int,
+    start: torch.Tensor,    # (B,) first valid key slot
+    pos: torch.Tensor,      # (B,) last valid key slot, inclusive
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """Dense fp32 decode attention over cache[layer]; (B, Hq, D) in q.dtype."""
+    b, hq, d = q.shape
+    ck, cv = cache_k[layer].float(), cache_v[layer].float()  # (B, S, Hkv, D)
+    s, hkv = ck.shape[1], ck.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, ck) * sm_scale
+    j = torch.arange(s, device=q.device)[None, :]
+    valid = (j >= start.to(q.device)[:, None]) & (j <= pos.to(q.device)[:, None])  # (B, S)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p, cv) / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def dense_decode_attention(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    layer: int,
+    start: torch.Tensor,
+    pos: torch.Tensor,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """Decode attention over the dense stacked cache; returns (B, Hq, D)."""
+    if q.device.type == "cpu":
+        return dense_decode_plain(q, cache_k, cache_v, layer, start, pos, sm_scale)
+    global launches
+    b, hq, d = q.shape
+    n_layers, cb, s, hkv, cd = cache_k.shape
+    if any(x.device != q.device for x in (cache_k, cache_v, start, pos)):
+        raise ValueError("dense_decode_attention: all inputs must be on one device")
+    if any(x.dtype != torch.bfloat16 for x in (q, cache_k, cache_v)):
+        raise TypeError("dense_decode_attention: the CUDA kernel takes bf16 q and cache")
+    if d != HEAD_DIM or cd != d or cb != b or cache_v.shape != cache_k.shape:
+        raise ValueError(f"dense_decode_attention: unsupported shapes {q.shape} {cache_k.shape}")
+    if hq != hkv * GROUP:
+        raise ValueError(f"dense_decode_attention: {hq} query heads over {hkv} KV heads")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"dense_decode_attention: layer {layer} of {n_layers}")
+    if not all(x.is_contiguous() for x in (q, cache_k, cache_v, start, pos)):
+        raise ValueError("dense_decode_attention: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, cache_k, cache_v)):
+        raise ValueError("dense_decode_attention: q and cache must be 16-byte aligned")
+    if any(x.dtype != torch.int32 or x.shape != (b,) for x in (start, pos)):
+        raise ValueError("dense_decode_attention: start/pos must be (B,) int32 tensors")
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    err = _kernel()(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), start.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), int(layer), b, s, hkv, hq,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    launches += 1
+    if err != 0:
+        raise RuntimeError(f"dense_decode_attention: CUDA launch failed with error {err}")
+    return out

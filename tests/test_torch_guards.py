@@ -1,0 +1,92 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points do not fall back to the CPU, and its random init has the
+JAX init's tree at the full Spark-TTS-0.5B widths."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from sparktts_tpu.codec.bicodec import init_bicodec as jax_init_bicodec
+from sparktts_tpu.config import SparkTTSConfig as JaxConfig
+from sparktts_tpu.lm.qwen import init_qwen as jax_init_qwen
+from sparktts_tpu_torch import weights
+from sparktts_tpu_torch.config import SparkTTSConfig
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import sparktts_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sparktts_tpu_torch.__path__, "sparktts_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "sparktts_tpu" or m.startswith("sparktts_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "sparktts_tpu_torch.pipeline" in res["modules"]
+    assert "sparktts_tpu_torch.kernels.flash_attention" in res["modules"]
+    assert res["bad"] == []
+
+
+def test_pipeline_without_device_needs_a_card(monkeypatch):
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparkTTSPipeline()
+
+
+def _shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_shapes(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
+def test_random_init_has_the_jax_tree_at_full_width():
+    """Same keys and shapes as jax.eval_shape of the JAX init (which
+    allocates nothing); the torch side is built on the meta device."""
+    jcfg, tcfg = JaxConfig(), SparkTTSConfig()
+    assert tcfg.llm.num_hidden_layers == 24 and tcfg.bicodec.decoder.channels == 1536
+    key = jax.random.PRNGKey(0)
+    jq = jax.eval_shape(lambda k: jax_init_qwen(k, jcfg.llm), key)
+    jb = jax.eval_shape(lambda k: jax_init_bicodec(k, jcfg.bicodec), key)
+    tq = weights.init_qwen(tcfg.llm, device="meta")
+    tb = weights.init_bicodec(tcfg.bicodec, device="meta")
+    assert _shapes(tq) == _shapes(jq)
+    assert _shapes(tb) == _shapes(weights.bicodec_slice(jb))
+    # the skipped subtrees are exactly the encode side
+    assert set(jb) - set(weights.BICODEC_SLICE) == {"encoder", "postnet"}
+    assert set(jb["speaker_encoder"]) - {"quantizer", "project"} == {
+        "speaker_encoder", "perceiver_sampler",
+    }
+
+
+def test_numpy_tree_converts_with_dtypes():
+    tree = {"a": np.ones((2, 3), np.float32), "b": [np.zeros(4, np.float64)], "i": np.arange(3)}
+    out = weights.qwen_state(tree, "cpu", torch.bfloat16)
+    assert out["a"].dtype == torch.bfloat16 and out["b"][0].dtype == torch.bfloat16
+    assert out["i"].dtype == torch.int64
