@@ -1,9 +1,8 @@
 """WaveGenerator vocoder: DAC-style transposed-conv upsampling stack.
 
-Port of `wave_generator_apply` of `sparktts_tpu/codec/wave_generator.py`
-with the plain ResidualUnit (snake -> dilated k7 conv -> snake -> 1x1 conv,
-residual).  The fused ResidualUnit kernel of the JAX package
-(`kernels/vocoder_fusion.py`) is off by default there and not ported yet.
+Port of `wave_generator_apply` of `sparktts_tpu/codec/wave_generator.py`.
+Every ResidualUnit goes through `kernels/vocoder_fusion.fused_residual_unit`:
+the hand-written CUDA kernel on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -11,24 +10,18 @@ from __future__ import annotations
 import torch
 
 from sparktts_tpu_torch.config import WaveGeneratorConfig
+from sparktts_tpu_torch.kernels.vocoder_fusion import fused_residual_unit
 from sparktts_tpu_torch.nn.layers import conv1d_apply, conv_transpose1d_apply, snake_apply
 
 DILATIONS = (1, 3, 9)
 
 
-def _residual_unit_apply(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
-    y = snake_apply(p["snake1"], x)
-    y = conv1d_apply(p["conv1"], y, padding=3 * dilation, dilation=dilation)
-    y = snake_apply(p["snake2"], y)
-    y = conv1d_apply(p["conv2"], y)
-    return x + y
-
-
 def _decoder_block_apply(p, x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
     y = snake_apply(p["snake"], x)
     y = conv_transpose1d_apply(p["upsample"], y, stride=stride, padding=(kernel_size - stride) // 2)
+    y = y.contiguous()  # the kernel reads (B, T, C) rows; the conv returns a transposed view
     for ru, dil in zip(p["res_units"], DILATIONS):
-        y = _residual_unit_apply(ru, y, dil)
+        y = fused_residual_unit(ru, y, dil)
     return y
 
 

@@ -1,6 +1,7 @@
 """Functional NN primitives on channels-last `(B, T, C)` tensors.
 
-Port of the float paths of `sparktts_tpu/nn/layers.py`.  Params are plain
+Port of the float paths of `sparktts_tpu/nn/layers.py`, plus `full_fp32`,
+which pins the codec's precision on the card.  Params are plain
 dicts of tensors with the JAX package's keys and layouts:
 
   * linear weights are `(in, out)`;
@@ -13,6 +14,8 @@ serves both packages.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +98,42 @@ def rms_norm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["gamma"]
+
+
+def batch_norm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval-form BatchNorm over the last (channel) dim, running statistics."""
+    inv = torch.rsqrt(p["var"] + eps)
+    return (x - p["mean"]) * inv * p["gamma"] + p["beta"]
+
+
+def l2norm_scale_apply(p, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """The Perceiver's RMSNorm variant: x / max(||x||, 1e-12) * scale * gamma."""
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=1e-12) * scale * p["gamma"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x, approximate="none")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run fp32 convolutions and matmuls in full fp32 inside the block (or
+    the decorated function), and restore the caller's settings after it.
+    PyTorch's default lets cuDNN run fp32 convolutions in TF32 (about three
+    decimal digits); the codec is meant to be fp32 whoever calls it.  The
+    flags are process-wide, so the codec's entry points (which run under
+    this) are not safe to call while another thread runs TF32 work: that
+    thread loses TF32 for the duration, and flags it sets meanwhile are
+    overwritten on exit."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

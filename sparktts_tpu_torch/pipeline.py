@@ -1,16 +1,18 @@
-"""End-to-end Spark-TTS voice creation: the port's public API.
+"""End-to-end Spark-TTS: the port's public API.
 
-Port of `SparkTTSPipeline` of `sparktts_tpu/pipeline.py` in voice-creation
-mode (gender/pitch/speed): build the control prompt, generate with the
-Qwen2.5 LM (which emits both the global speaker tokens and the semantic
-tokens), and vocode with the BiCodec decoder into a 16 kHz waveform.
-Voice cloning (a prompt wav, through the codec encode stack) is not ported
-yet and raises.
+Port of `SparkTTSPipeline` of `sparktts_tpu/pipeline.py` in its two modes:
 
-The pipeline runs on the CUDA card unless the caller passes `device="cpu"`;
-without a card the default raises instead of falling back to the CPU.
-Weights are random (from `seed`) unless numpy param trees with the JAX
-package's keys are passed in.
+  * voice creation (gender/pitch/speed): the control prompt; the Qwen2.5 LM
+    emits both the global speaker tokens and the semantic tokens;
+  * voice cloning (a prompt wav): wav2vec2 features and the BiCodec encoder
+    tokenize the wav into global and semantic ids, which go into the clone
+    prompt; the LM emits semantic tokens only.
+
+Both vocode with the BiCodec decoder into a 16 kHz waveform.  The pipeline
+runs on the CUDA card unless the caller passes `device="cpu"`; without a
+card the default raises instead of falling back to the CPU.  Weights are
+random (from `seed`) unless numpy param trees with the JAX package's keys
+are passed in.
 """
 
 from __future__ import annotations
@@ -22,29 +24,52 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize
+from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
 from sparktts_tpu_torch.config import SparkTTSConfig
+from sparktts_tpu_torch.io.audio import get_ref_clip, load_audio
 from sparktts_tpu_torch.lm.generate import generate
+from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
 from sparktts_tpu_torch.prompt import (
     SyntheticSparkTokenizer,
+    build_clone_prompt,
     build_control_prompt,
     extract_semantic_ids,
     padded_global_tokens,
 )
-from sparktts_tpu_torch.weights import bicodec_state, init_bicodec, init_qwen, qwen_state
+from sparktts_tpu_torch.weights import (
+    bicodec_state,
+    init_bicodec,
+    init_qwen,
+    init_wav2vec2,
+    qwen_state,
+    wav2vec2_state,
+)
 
 logger = logging.getLogger(__name__)
 
 PROMPT_BUCKET = 64  # prompts are left-padded to a multiple of this many tokens
 VOCODE_BUCKET = 50  # semantic tokens are edge-padded to a multiple of this
+MODES = ("control", "clone")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def codec_tokenize(
+    w2v_params, bicodec_params, cfg: SparkTTSConfig, wav, feature_mask, ref_wav
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device half of audio tokenization, on the params' device:
+    (wav (B, P), feature_mask (B, F), ref_wav (B, R)) -> (global ids
+    (B, token_num), semantic ids (B, F / enc_ratio))."""
+    feat = wav2vec2_features(w2v_params, wav, cfg.wav2vec2, feature_mask)
+    semantic, global_ids = bicodec_tokenize(bicodec_params, cfg.bicodec, feat, ref_wav)
+    return global_ids, semantic
+
+
 class SparkTTSPipeline:
-    """Voice creation at the config's widths (default: Spark-TTS-0.5B)."""
+    """Voice creation and voice cloning at the config's widths (default:
+    Spark-TTS-0.5B)."""
 
     def __init__(
         self,
@@ -55,6 +80,7 @@ class SparkTTSPipeline:
         max_new_tokens: Optional[int] = None,
         llm_params=None,
         bicodec_params=None,
+        wav2vec2_params=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -76,10 +102,16 @@ class SparkTTSPipeline:
             self.bicodec_params = init_bicodec(bc, gen, self.device)
         else:
             self.bicodec_params = bicodec_state(bicodec_params, self.device)
+        if wav2vec2_params is None:
+            self.w2v_params = init_wav2vec2(self.config.wav2vec2, gen, self.device)
+        else:
+            self.w2v_params = wav2vec2_state(wav2vec2_params, self.device)
 
         self.sample_rate = self.config.sample_rate
+        self.wav_bucket = self.sample_rate  # prompt wavs are zero-padded to whole seconds
         self.max_new_tokens = max_new_tokens or self.config.sampling.max_new_tokens
         self.lm_dtype = lm_dtype
+        self._enc_ratio = int(np.prod(bc.encoder.sample_ratios))  # wav2vec2 frames per semantic id
         self._wave_upsample = int(np.prod(bc.decoder.rates)) * int(np.prod(bc.prenet.sample_ratios))
 
     def inference(
@@ -97,7 +129,9 @@ class SparkTTSPipeline:
         seed: int = 0,
         greedy: bool = False,
     ) -> np.ndarray:
-        """Text + voice attributes -> 16 kHz waveform (float32)."""
+        """Text -> 16 kHz waveform (float32), in the voice of
+        `prompt_speech_path` (a wav path or a 16 kHz float array; with
+        `prompt_text`, its transcript) or of gender/pitch/speed."""
         wav, _ = self._synthesize_segment(
             text,
             prompt_speech_path=prompt_speech_path,
@@ -129,13 +163,25 @@ class SparkTTSPipeline:
         seed: int = 0,
         greedy: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """One prompt -> (wav, the LM-emitted codec global ids)."""
-        if gender is None:
-            raise NotImplementedError(
-                "voice cloning (prompt_speech_path, the codec encode stack) is not ported yet: "
-                "ROADMAP.md lists it as port slice 2; pass gender/pitch/speed for voice creation"
+        """One prompt -> (wav, the codec global ids it was vocoded with: the
+        prompt wav's in voice cloning, the LM-emitted ones in voice creation)."""
+        if gender is not None:
+            ids = build_control_prompt(self.tokenizer, text, gender, pitch, speed)
+            mode = "control"
+        elif prompt_speech_path is not None:
+            global_ids, prompt_semantic = self.tokenize_audio(prompt_speech_path)
+            ids = build_clone_prompt(
+                self.tokenizer,
+                text,
+                global_ids,
+                prompt_semantic if prompt_text is not None else None,
+                prompt_text,
             )
-        ids = build_control_prompt(self.tokenizer, text, gender, pitch, speed)
+            mode = "clone"
+        else:
+            raise ValueError(
+                "pass prompt_speech_path (voice cloning) or gender/pitch/speed (voice creation)"
+            )
         generated = self.generate_tokens(
             ids,
             temperature=temperature,
@@ -144,31 +190,78 @@ class SparkTTSPipeline:
             max_new_tokens=max_new_tokens,
             seed=seed,
             greedy=greedy,
+            mode=mode,
         )
         semantic_ids = extract_semantic_ids(self.tokenizer, generated)
-        global_ids = padded_global_tokens(
-            self.tokenizer, generated, self.config.bicodec.speaker_encoder.token_num, warn=True
-        )
+        if mode == "control":
+            global_ids = padded_global_tokens(
+                self.tokenizer, generated, self.config.bicodec.speaker_encoder.token_num, warn=True
+            )
         if semantic_ids.size == 0:
             logger.warning("no semantic tokens generated; returning silence")
             return np.zeros(0, dtype=np.float32), global_ids
         return self.detokenize(global_ids, semantic_ids[None, :]), global_ids
 
-    def guided_constraint(self):
-        """(vocab_slice, extra_ids) for guided decoding: voice creation emits
-        global and semantic tokens, their start/end markers and EOS."""
-        tok = self.tokenizer
-        lo = min(tok.semantic_base, tok.global_base)
-        hi = max(tok.semantic_base + tok.n_semantic, tok.global_base + tok.n_global)
-        extras = tuple(tok.eos_ids) + tuple(
-            tok.token_id(t)
-            for t in (
-                "<|start_global_token|>",
-                "<|end_global_token|>",
-                "<|start_semantic_token|>",
-                "<|end_semantic_token|>",
+    def tokenize_host_prep(self, audio) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """Host half of audio tokenization.  A path is loaded at 16 kHz (with
+        the config's loudness normalisation); an array is taken as it is.
+        Returns (wav (1, P) float32: the normalised wav zero-padded to whole
+        seconds; feature_mask (1, F) bool: its true wav2vec2 frames; ref_wav
+        (1, R) float32: the 6 s reference clip; the true semantic id count)."""
+        if isinstance(audio, (str, Path)):
+            wav = load_audio(
+                audio, sampling_rate=self.sample_rate, volume_normalize=self.config.volume_normalize
             )
+        else:
+            wav = np.asarray(audio, dtype=np.float64)
+        cfg = self.config
+        ref_wav = get_ref_clip(wav, self.sample_rate, cfg.ref_segment_duration,
+                               cfg.latent_hop_length)
+        true_len = len(wav)
+        pad_len = _round_up(max(true_len, self.wav_bucket), self.wav_bucket)
+        wav_in = np.zeros((1, pad_len), np.float32)
+        wav_in[0, :true_len] = (
+            normalize_input(wav[None, :])[0] if cfg.wav2vec2.do_normalize else wav
         )
+        true_frames = feature_lengths(cfg.wav2vec2, true_len)
+        feature_mask = np.arange(feature_lengths(cfg.wav2vec2, pad_len))[None, :] < true_frames
+        ref = ref_wav.astype(np.float32)[None, :]
+        return wav_in, feature_mask, ref, true_frames // self._enc_ratio
+
+    @torch.inference_mode()
+    def tokenize_audio(self, audio) -> Tuple[np.ndarray, np.ndarray]:
+        """Audio path or float array -> (global ids (1, token_num), semantic
+        ids (1, T)), the semantic ids cropped to the wav's true frames."""
+        *arrays, true_sem = self.tokenize_host_prep(audio)
+        global_ids, semantic = codec_tokenize(
+            self.w2v_params, self.bicodec_params, self.config,
+            *(torch.from_numpy(a).to(self.device) for a in arrays),
+        )
+        return global_ids.cpu().numpy(), semantic[:, :true_sem].cpu().numpy()
+
+    def guided_constraint(self, mode: str = "control"):
+        """(vocab_slice, extra_ids) for guided decoding.  Voice creation
+        ("control") emits global and semantic tokens, their start/end
+        markers and EOS; voice cloning ("clone") emits semantic tokens and
+        EOS only."""
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        tok = self.tokenizer
+        if mode == "control":
+            lo = min(tok.semantic_base, tok.global_base)
+            hi = max(tok.semantic_base + tok.n_semantic, tok.global_base + tok.n_global)
+            extras = tuple(tok.eos_ids) + tuple(
+                tok.token_id(t)
+                for t in (
+                    "<|start_global_token|>",
+                    "<|end_global_token|>",
+                    "<|start_semantic_token|>",
+                    "<|end_semantic_token|>",
+                )
+            )
+        else:
+            lo, hi = tok.semantic_base, tok.semantic_base + tok.n_semantic
+            extras = tuple(tok.eos_ids)
         return (lo, hi), tuple(e for e in extras if not lo <= e < hi)
 
     def generate_tokens(
@@ -180,13 +273,14 @@ class SparkTTSPipeline:
         max_new_tokens: Optional[int] = None,
         seed: int = 0,
         greedy: bool = False,
+        mode: str = "control",
     ) -> np.ndarray:
-        """Run the LM on one prompt; returns the generated ids (new tokens
-        only, up to and including EOS)."""
+        """Run the LM on one prompt under `mode`'s guided vocabulary; returns
+        the generated ids (new tokens only, up to and including EOS)."""
         max_new = max_new_tokens or self.max_new_tokens
         input_ids, mask = self.prompt_inputs(prompt_ids)
         t_pad = input_ids.shape[1]
-        vocab_slice, extra_ids = self.guided_constraint()
+        vocab_slice, extra_ids = self.guided_constraint(mode)
         tokens, lengths = generate(
             self.llm_params,
             self.config.llm,

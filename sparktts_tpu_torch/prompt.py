@@ -1,7 +1,7 @@
 """Prompt assembly and token-id arithmetic (host code).
 
 A copy of the parts of `sparktts_tpu/prompt.py` and `sparktts_tpu/utils/tokens.py`
-that voice creation needs.  Every `<|bicodec_semantic_N|>` /
+that voice creation and voice cloning need.  Every `<|bicodec_semantic_N|>` /
 `<|bicodec_global_N|>` is one tokenizer id at a contiguous base offset, so
 audio-token <-> LLM-token conversion is addition.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import logging
 import re
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -90,6 +90,28 @@ class SyntheticSparkTokenizer:
             pos = m.end()
         ids.extend(text[pos:].encode("utf-8"))
         return ids
+
+
+def build_clone_prompt(
+    tok: SyntheticSparkTokenizer,
+    text: str,
+    global_tokens: np.ndarray,
+    semantic_tokens: Optional[np.ndarray] = None,
+    prompt_text: Optional[str] = None,
+) -> List[int]:
+    """Voice-cloning prompt (reference `cli/SparkTTS.py:53-108`): the text
+    (after `prompt_text` when given), the prompt wav's codec global ids and,
+    with `prompt_text`, its semantic ids, which the LM continues."""
+    ids: List[int] = [tok.token_id(TASK_TOKEN_MAP["tts"]), tok.token_id("<|start_content|>")]
+    ids.extend(tok.encode(text if prompt_text is None else prompt_text + text))
+    ids.append(tok.token_id("<|end_content|>"))
+    ids.append(tok.token_id("<|start_global_token|>"))
+    ids.extend(int(g) + tok.global_base for g in np.asarray(global_tokens).reshape(-1))
+    ids.append(tok.token_id("<|end_global_token|>"))
+    if prompt_text is not None and semantic_tokens is not None:
+        ids.append(tok.token_id("<|start_semantic_token|>"))
+        ids.extend(int(s) + tok.semantic_base for s in np.asarray(semantic_tokens).reshape(-1))
+    return ids
 
 
 def build_control_prompt(

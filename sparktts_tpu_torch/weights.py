@@ -1,18 +1,14 @@
 """Param trees for the port: conversion from numpy and a random init.
 
 The port's params are nested dicts (and lists) of tensors with the same keys,
-shapes and layouts as the JAX package's `init_qwen` (`lm/qwen.py:84`) and
-`init_bicodec` (`codec/bicodec.py:36`).  `qwen_state` / `bicodec_state` turn
-a numpy tree of those keys (for instance a JAX init passed through
-`np.asarray`) into port state; `init_qwen` / `init_bicodec` build random
-weights of the same keys and shapes directly in torch, from an explicit
-`torch.Generator`, with the JAX init's distributions.
-
-Voice creation runs only the BiCodec decode side, so `bicodec_state` and
-`init_bicodec` cover the subtrees in `BICODEC_SLICE`.  The encode-side
-subtrees (`encoder`, `postnet`, and the speaker encoder's ECAPA
-`speaker_encoder` and `perceiver_sampler`) belong to voice cloning and are
-skipped until that slice is ported.
+shapes and layouts as the JAX package's `init_qwen` (`lm/qwen.py:84`),
+`init_bicodec` (`codec/bicodec.py:36`, the whole tree, encode side included)
+and `init_wav2vec2` (`nn/wav2vec2.py:38`).  `qwen_state` / `bicodec_state` /
+`wav2vec2_state` turn a numpy tree of those keys (for instance a JAX init
+passed through `np.asarray`) into port state; `init_qwen` / `init_bicodec` /
+`init_wav2vec2` build random weights of the same keys and shapes directly in
+torch, from an explicit `torch.Generator`, with the JAX init's
+distributions.
 """
 
 from __future__ import annotations
@@ -22,15 +18,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparktts_tpu_torch.config import BiCodecConfig, DecoderConfig, QwenConfig, WaveGeneratorConfig
-
-# top-level BiCodec subtree -> the keys of it the decode path reads (None: all)
-BICODEC_SLICE = {
-    "quantizer": None,
-    "speaker_encoder": ("quantizer", "project"),
-    "prenet": None,
-    "decoder": None,
-}
+from sparktts_tpu_torch.config import (
+    BiCodecConfig,
+    DecoderConfig,
+    EncoderConfig,
+    QwenConfig,
+    SpeakerEncoderConfig,
+    WaveGeneratorConfig,
+    Wav2Vec2Config,
+)
 
 
 def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
@@ -47,20 +43,16 @@ def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def bicodec_slice(tree) -> dict:
-    """The subtrees of a full BiCodec tree that the decode path reads."""
-    return {
-        name: tree[name] if keys is None else {k: tree[name][k] for k in keys}
-        for name, keys in BICODEC_SLICE.items()
-    }
-
-
 def qwen_state(tree, device, dtype: torch.dtype = torch.bfloat16):
     return to_torch(tree, device, dtype)
 
 
-def bicodec_state(tree, device):
-    return to_torch(bicodec_slice(tree), device, torch.float32)
+def fp32_state(tree, device):
+    """The codec and wav2vec2 run in fp32 whatever the tree holds."""
+    return to_torch(tree, device, torch.float32)
+
+
+bicodec_state = wav2vec2_state = fp32_state
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +132,86 @@ class _Init:
             "linear": self.linear(d, cfg.out_channels),
         }
 
+    def feat_encoder(self, cfg: EncoderConfig) -> dict:
+        d = cfg.vocos_dim
+        return {
+            "encoder": self.vocos(cfg.input_channels, d, cfg.vocos_intermediate_dim,
+                                  cfg.vocos_num_layers),
+            "downsample": [
+                {
+                    "sampler": {"conv_downsampler": self.conv(2 * r, 1, d)} if r > 1 else {},
+                    "vocos": self.vocos(d, d, cfg.vocos_intermediate_dim, 2),
+                }
+                for r in cfg.sample_ratios
+            ],
+            "project": self.linear(d, cfg.out_channels),
+        }
+
+    def batch_norm(self, dim: int) -> dict:
+        """Eval-form BatchNorm: running statistics baked in."""
+        return {"gamma": self.full((dim,), 1.0), "beta": self.full((dim,), 0.0),
+                "mean": self.full((dim,), 0.0), "var": self.full((dim,), 1.0)}
+
+    def ecapa(self, feat_dim: int, embed_dim: int, channels: int, latent_dim: int) -> dict:
+        def conv_bn(cin, cout, k):
+            return {"conv": self.conv(k, cin, cout), "bn": self.batch_norm(cout)}
+
+        width = channels // 8  # Res2 scale 8
+
+        def se_res2_block():
+            return {
+                "in_conv": conv_bn(channels, channels, 1),
+                "res2": {"convs": [self.conv(3, width, width) for _ in range(7)],
+                         "bns": [self.batch_norm(width) for _ in range(7)]},
+                "out_conv": conv_bn(channels, channels, 1),
+                "se": {"l1": self.linear(channels, 128), "l2": self.linear(128, channels)},
+            }
+
+        return {
+            "layer1": conv_bn(feat_dim, channels, 5),
+            "layer2": se_res2_block(),
+            "layer3": se_res2_block(),
+            "layer4": se_res2_block(),
+            "conv": self.conv(1, channels * 3, latent_dim),
+            "pool": {"linear1": self.linear(latent_dim * 3, 128),
+                     "linear2": self.linear(128, latent_dim)},
+            "bn": self.batch_norm(latent_dim * 2),
+            "linear": self.linear(latent_dim * 2, embed_dim),
+        }
+
+    def perceiver(self, cfg: SpeakerEncoderConfig) -> dict:
+        dim, inner = cfg.latent_dim, cfg.perceiver_dim_head * cfg.perceiver_heads
+        ff_inner = int(dim * cfg.perceiver_ff_mult * 2 / 3)
+        p = {
+            "latents": self.normal((cfg.token_num, dim), 0.02),
+            "layers": [
+                {
+                    "attn": {"to_q": self.linear(dim, inner, bias=False),
+                             "to_kv": self.linear(dim, 2 * inner, bias=False),
+                             "to_out": self.linear(inner, dim, bias=False)},
+                    "ff": {"w1": self.linear(dim, 2 * ff_inner), "w2": self.linear(ff_inner, dim)},
+                }
+                for _ in range(cfg.perceiver_depth)
+            ],
+            "norm": {"gamma": self.full((dim,), 1.0)},
+        }
+        if cfg.perceiver_dim_context != dim:
+            p["proj_context"] = self.linear(cfg.perceiver_dim_context, dim)
+        return p
+
+    def speaker_encoder(self, cfg: SpeakerEncoderConfig) -> dict:
+        fsq = {}
+        if len(cfg.fsq_levels) != cfg.latent_dim:
+            fsq["project_in"] = self.linear(cfg.latent_dim, len(cfg.fsq_levels))
+            fsq["project_out"] = self.linear(len(cfg.fsq_levels), cfg.latent_dim)
+        return {
+            "speaker_encoder": self.ecapa(cfg.input_dim, cfg.out_dim, cfg.ecapa_channels,
+                                          cfg.perceiver_dim_context),
+            "perceiver_sampler": self.perceiver(cfg),
+            "quantizer": fsq,
+            "project": self.linear(cfg.latent_dim * cfg.token_num, cfg.out_dim),
+        }
+
     def residual_unit(self, dim: int) -> dict:
         return {
             "snake1": {"alpha": self.full((dim,), 1.0)},
@@ -199,25 +271,53 @@ def init_qwen(
 def init_bicodec(
     cfg: BiCodecConfig, generator: Optional[torch.Generator] = None, device="cuda"
 ) -> dict:
-    """Random fp32 params of the BiCodec subtrees in `BICODEC_SLICE`."""
+    """Random fp32 params of the whole BiCodec tree."""
     ini = _Init(generator, device)
-    q, se = cfg.quantizer, cfg.speaker_encoder
+    q = cfg.quantizer
     quantizer = {"codebook": ini.normal((q.codebook_size, q.codebook_dim))}
     if q.input_dim != q.codebook_dim:
         quantizer["in_project"] = ini.linear(q.input_dim, q.codebook_dim)
         quantizer["out_project"] = ini.linear(q.codebook_dim, q.input_dim)
-    fsq = {}
-    if len(se.fsq_levels) != se.latent_dim:
-        fsq["project_in"] = ini.linear(se.latent_dim, len(se.fsq_levels))
-        fsq["project_out"] = ini.linear(len(se.fsq_levels), se.latent_dim)
     return {
+        "encoder": ini.feat_encoder(cfg.encoder),
         "quantizer": quantizer,
-        "speaker_encoder": {
-            "quantizer": fsq,
-            "project": ini.linear(se.latent_dim * se.token_num, se.out_dim),
-        },
+        "speaker_encoder": ini.speaker_encoder(cfg.speaker_encoder),
         "prenet": ini.feat_decoder(cfg.prenet),
+        "postnet": ini.feat_decoder(cfg.postnet),
         "decoder": ini.wave_generator(cfg.decoder),
+    }
+
+
+def init_wav2vec2(
+    cfg: Wav2Vec2Config, generator: Optional[torch.Generator] = None, device="cuda"
+) -> dict:
+    """Random fp32 wav2vec2 params."""
+    ini = _Init(generator, device)
+    h, pos_groups = cfg.hidden_size, cfg.num_conv_pos_embedding_groups
+    conv_layers, in_c = [], 1
+    for dim, k in zip(cfg.conv_dim, cfg.conv_kernel):
+        conv = ini.conv(k, in_c, dim) if cfg.conv_bias else {"w": ini.trunc((k, in_c, dim))}
+        conv_layers.append({"conv": conv, "ln": ini.layer_norm(dim)})
+        in_c = dim
+    return {
+        "conv_layers": conv_layers,
+        "fp_ln": ini.layer_norm(cfg.conv_dim[-1]),
+        "fp_proj": ini.linear(cfg.conv_dim[-1], h),
+        "pos_conv": ini.conv(cfg.num_conv_pos_embeddings, h // pos_groups, h),
+        "layers": [
+            {
+                "ln1": ini.layer_norm(h),
+                "q": ini.linear(h, h),
+                "k": ini.linear(h, h),
+                "v": ini.linear(h, h),
+                "o": ini.linear(h, h),
+                "ln2": ini.layer_norm(h),
+                "ff_in": ini.linear(h, cfg.intermediate_size),
+                "ff_out": ini.linear(cfg.intermediate_size, h),
+            }
+            for _ in range(cfg.num_hidden_layers)
+        ],
+        "final_ln": ini.layer_norm(h),
     }
 
 

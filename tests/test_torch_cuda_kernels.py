@@ -6,17 +6,23 @@ runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-bf16 tolerance 2e-2: both sides read the same bf16 inputs and accumulate in
-fp32, so they differ by the bf16 rounding of the output (2^-8 relative) on
-values of magnitude O(1), plus fp32 summation order.
+Attention, bf16 tolerance 2e-2: both sides read the same bf16 inputs and
+accumulate in fp32, so they differ by the bf16 rounding of the output (2^-8
+relative) on values of magnitude O(1), plus fp32 summation order.  The
+vocoder's ResidualUnit is fp32 on both sides; see its test.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sparktts_tpu_torch.config import Wav2Vec2Config
 from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
+from sparktts_tpu_torch.kernels import vocoder_fusion as vf
+from sparktts_tpu_torch.nn.layers import full_fp32
+from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
+from sparktts_tpu_torch.weights import init_wav2vec2, to_torch
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 HQ, HKV, D = 14, 2, 64  # Qwen2.5-0.5B attention heads
@@ -33,9 +39,13 @@ def _randn(rng, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,starts", [(1, 64, [9]), (1, 128, [70]), (4, 77, [0, 3, 40, 76])])
+@pytest.mark.parametrize(
+    "b,t,starts",
+    [(1, 64, [9]), (1, 128, [70]), (4, 77, [0, 3, 40, 76]), (1, 448, [29])],
+)
 def test_flash_kernel_matches_plain(b, t, starts):
-    """Inputs laid out (B, T, H, D) and passed transposed, as the LM does."""
+    """Inputs laid out (B, T, H, D) and passed transposed, as the LM does.
+    T = 448 from 29 is the bucket and left pad of a 6 s clone prompt."""
     dev = _cuda()
     rng = np.random.default_rng(0)
     q = _randn(rng, (b, t, HQ, D), dev).transpose(1, 2)
@@ -54,15 +64,20 @@ def test_flash_kernel_matches_plain(b, t, starts):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,starts,poss",
-    [(1, [0], [300]), (8, [0, 5, 9, 60, 0, 1, 63, 40], [600, 100, 9, 70, 1, 640, 62, 639])],
+    "b,s,starts,poss",
+    [
+        (1, 704, [0], [300]),
+        (8, 704, [0, 5, 9, 60, 0, 1, 63, 40], [600, 100, 9, 70, 1, 640, 62, 639]),
+        (1, 960, [29], [946]),
+    ],
 )
-def test_decode_kernel_matches_plain(b, starts, poss):
-    """Windows of many lengths, one of them empty (pos < start: zeros)."""
+def test_decode_kernel_matches_plain(b, s, starts, poss):
+    """Windows of many lengths, one of them empty (pos < start: zeros).
+    S = 960 with 918 keys is the last decode step of a clone request."""
     dev = _cuda()
     rng = np.random.default_rng(1)
     q = _randn(rng, (b, HQ, D), dev)
-    ck, cv = (_randn(rng, (2, b, 704, HKV, D), dev) for _ in range(2))
+    ck, cv = (_randn(rng, (2, b, s, HKV, D), dev) for _ in range(2))
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
     pos = torch.tensor(poss, dtype=torch.int32, device=dev)
     before = da.launches
@@ -70,6 +85,62 @@ def test_decode_kernel_matches_plain(b, starts, poss):
     assert da.launches == before + 1
     want = da.dense_decode_plain(q, ck, cv, 1, start, pos, sm_scale=0.125)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **BF16_TOL)
+
+
+def _residual_unit(c, dev, seed=0):
+    """fp32 unit params at width c, non-trivial alphas and biases."""
+    g = torch.Generator().manual_seed(seed)
+    p = {
+        "snake1": {"alpha": 0.5 + torch.rand(c, generator=g)},
+        "conv1": {"w": 0.02 * torch.randn((7, c, c), generator=g),
+                  "b": 0.1 * torch.randn(c, generator=g)},
+        "snake2": {"alpha": 0.5 + torch.rand(c, generator=g)},
+        "conv2": {"w": 0.02 * torch.randn((1, c, c), generator=g),
+                  "b": 0.1 * torch.randn(c, generator=g)},
+    }
+    return {k: {n: v.to(dev) for n, v in d.items()} for k, d in p.items()}
+
+
+@pytest.mark.cuda
+# 333: ragged; (768, 4000): the first block of a 500-token vocode
+@pytest.mark.parametrize("c,t", [(96, 2560), (192, 1280), (384, 640), (768, 333), (768, 4000)])
+@pytest.mark.parametrize("dilation", (1, 3, 9))
+def test_vocoder_kernel_matches_plain(c, t, dilation):
+    """fp32 on both sides with TF32 off: they differ only in the order of the
+    7C + C-term sums, so max|kernel - plain| <= 1e-4 max|plain|."""
+    dev = _cuda()
+    p = _residual_unit(c, dev)
+    x = torch.randn((2, t, c), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = vf.launches
+    got = vf.fused_residual_unit(p, x, dilation)
+    assert vf.launches == before + 1
+    with full_fp32():
+        want = vf.fused_residual_unit_plain(p, x, dilation)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_codec_is_full_fp32_under_pytorch_defaults():
+    """wav2vec2's convs on the card, with PyTorch's default flags (cuDNN may
+    use TF32), against a float64 CPU run of the same function (its
+    LayerNorms normalise in fp32): 1e-5 of the peak.  TF32 would miss by
+    ~1e-3.  The caller's flags are restored after the call."""
+    dev = _cuda()
+    assert torch.backends.cudnn.allow_tf32  # PyTorch's default, left as it is
+    cfg = Wav2Vec2Config(conv_dim=(256, 256, 256), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                         hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+                         intermediate_size=512, num_conv_pos_embeddings=16,
+                         num_conv_pos_embedding_groups=4, hidden_state_mix=(1, 2))
+    p = init_wav2vec2(cfg, torch.Generator().manual_seed(0), "cpu")
+    wav = torch.randn((1, 16000), generator=torch.Generator().manual_seed(1))
+    want = wav2vec2_features(to_torch(p, "cpu", torch.float64), wav.double(), cfg)
+    got = wav2vec2_features(to_torch(p, dev), wav.to(dev), cfg).cpu().double()
+    assert torch.backends.cudnn.allow_tf32
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
 
 
 @pytest.mark.cuda
@@ -85,3 +156,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     cache = torch.zeros((1, 1, 64, HKV, 32), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         da.dense_decode_attention(q, cache, cache, 0, start, start)
+    p = _residual_unit(96, dev)
+    with pytest.raises(TypeError):
+        vf.fused_residual_unit(p, torch.zeros((1, 64, 96), dtype=torch.bfloat16, device=dev), 1)
+    with pytest.raises(ValueError):
+        vf.fused_residual_unit(_residual_unit(64, dev), torch.zeros((1, 64, 64), device=dev), 1)
+    with pytest.raises(ValueError):
+        vf.fused_residual_unit(p, torch.zeros((1, 96, 64), device=dev).transpose(1, 2), 1)

@@ -15,6 +15,7 @@ import torch
 from sparktts_tpu.codec.bicodec import init_bicodec as jax_init_bicodec
 from sparktts_tpu.config import SparkTTSConfig as JaxConfig
 from sparktts_tpu.lm.qwen import init_qwen as jax_init_qwen
+from sparktts_tpu.nn.wav2vec2 import init_wav2vec2 as jax_init_wav2vec2
 from sparktts_tpu_torch import weights
 from sparktts_tpu_torch.config import SparkTTSConfig
 
@@ -39,8 +40,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "sparktts_tpu_torch.pipeline" in res["modules"]
-    assert "sparktts_tpu_torch.kernels.flash_attention" in res["modules"]
+    for name in ("pipeline", "kernels.flash_attention", "kernels.decode_attention",
+                 "kernels.vocoder_fusion", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
+                 "nn.perceiver", "codec.feat_encoder", "codec.fsq", "codec.fvq",
+                 "codec.speaker_encoder", "codec.bicodec"):
+        assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -67,22 +71,23 @@ def _shapes(tree, prefix=""):
 
 
 def test_random_init_has_the_jax_tree_at_full_width():
-    """Same keys and shapes as jax.eval_shape of the JAX init (which
-    allocates nothing); the torch side is built on the meta device."""
+    """Same keys and shapes as jax.eval_shape of the JAX inits (which
+    allocate nothing), for the LM, the whole BiCodec tree (encode and decode
+    sides) and wav2vec2; the torch side is built on the meta device."""
     jcfg, tcfg = JaxConfig(), SparkTTSConfig()
     assert tcfg.llm.num_hidden_layers == 24 and tcfg.bicodec.decoder.channels == 1536
+    assert tcfg.wav2vec2.num_hidden_layers == 24 and tcfg.wav2vec2.hidden_size == 1024
     key = jax.random.PRNGKey(0)
     jq = jax.eval_shape(lambda k: jax_init_qwen(k, jcfg.llm), key)
     jb = jax.eval_shape(lambda k: jax_init_bicodec(k, jcfg.bicodec), key)
+    jw = jax.eval_shape(lambda k: jax_init_wav2vec2(k, jcfg.wav2vec2), key)
     tq = weights.init_qwen(tcfg.llm, device="meta")
     tb = weights.init_bicodec(tcfg.bicodec, device="meta")
+    tw = weights.init_wav2vec2(tcfg.wav2vec2, device="meta")
     assert _shapes(tq) == _shapes(jq)
-    assert _shapes(tb) == _shapes(weights.bicodec_slice(jb))
-    # the skipped subtrees are exactly the encode side
-    assert set(jb) - set(weights.BICODEC_SLICE) == {"encoder", "postnet"}
-    assert set(jb["speaker_encoder"]) - {"quantizer", "project"} == {
-        "speaker_encoder", "perceiver_sampler",
-    }
+    assert _shapes(tb) == _shapes(jb)
+    assert set(tb) == {"encoder", "quantizer", "speaker_encoder", "prenet", "postnet", "decoder"}
+    assert _shapes(tw) == _shapes(jw)
 
 
 def test_numpy_tree_converts_with_dtypes():

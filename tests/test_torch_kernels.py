@@ -1,9 +1,11 @@
-"""The port's attention kernel modules against the JAX package's Pallas
-kernels (interpret mode on the CPU).
+"""The port's kernel modules against the JAX package's Pallas kernels
+(interpret mode on the CPU).
 
 On the CPU the port's wrappers run their plain PyTorch versions, so these
 tests hold that arithmetic against the Pallas kernels in fp32.  Tolerance
-1e-5: the same fp32 math summed in another order.  The CUDA kernels
+1e-5 for attention, the same fp32 math summed in another order; 2e-5 for
+the vocoder's ResidualUnit, the JAX package's own tolerance for its fused
+unit against the unfused one (two convs of 7C + C terms).  The CUDA kernels
 themselves are held against the plain versions on the card by
 `test_torch_cuda_kernels.py` (marked `cuda`, skipped without a card) and by
 chip_smoke.py.
@@ -18,8 +20,11 @@ import torch
 from sparktts_tpu.kernels.decode_attention import dense_decode_attention as jax_decode
 from sparktts_tpu.kernels.flash_attention import flash_attention_prefill as jax_flash
 from sparktts_tpu.kernels.flash_attention import reference_attention
+from sparktts_tpu.kernels.vocoder_fusion import fused_residual_unit as jax_residual_unit
 from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
+from sparktts_tpu_torch.kernels import vocoder_fusion as vf
+from sparktts_tpu_torch.weights import to_torch
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -122,3 +127,47 @@ def test_decode_plain_matches_pallas(b, s_len, block_s, starts, poss):
         np.testing.assert_allclose(got[live], want[live], **FP32_TOL)
         assert np.all(got[~live] == 0)
     assert da.launches == before
+
+
+def _residual_unit(c, seed):
+    """Unit params with the non-trivial alphas and biases of
+    tests/test_vocoder_kernel.py, as numpy."""
+    rng = np.random.default_rng(seed)
+    w = lambda *s: (0.02 * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    return {
+        "snake1": {"alpha": (0.5 + rng.uniform(size=c)).astype(np.float32)},
+        "conv1": {"w": w(7, c, c), "b": (0.1 * rng.standard_normal(c)).astype(np.float32)},
+        "snake2": {"alpha": (0.5 + rng.uniform(size=c)).astype(np.float32)},
+        "conv2": {"w": w(1, c, c), "b": (0.1 * rng.standard_normal(c)).astype(np.float32)},
+    }
+
+
+def _vocoder_case(p, x, dilation, block_t, variant):
+    """(port's unit on CPU tensors, JAX's Pallas unit in interpret mode)."""
+    want = np.asarray(jax_residual_unit(jax.tree.map(jnp.asarray, p), jnp.asarray(x), dilation,
+                                        block_t=block_t, interpret=True, variant=variant))
+    before = vf.launches
+    got = vf.fused_residual_unit(to_torch(p, "cpu"), torch.from_numpy(x), dilation).numpy()
+    assert vf.launches == before  # CPU tensors take the plain version
+    return got, want
+
+
+@pytest.mark.parametrize("variant", ("tiles", "carry"))
+@pytest.mark.parametrize("dilation", (1, 3, 9))
+def test_vocoder_unit_plain_matches_pallas(dilation, variant):
+    """block_t 32 over T 96: interior tiles and both sequence edges (the
+    halo of 27 rows at dilation 9 spans most of a tile)."""
+    p = _residual_unit(16, seed=dilation)
+    x = np.random.default_rng(9).standard_normal((2, 96, 16)).astype(np.float32)
+    got, want = _vocoder_case(p, x, dilation, 32, variant)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("variant", ("tiles", "carry"))
+@pytest.mark.parametrize("t,block_t", [(50, 32), (20, 64)])
+def test_vocoder_unit_plain_ragged_and_single_tile(t, block_t, variant):
+    """A T no tile divides, and a T smaller than one tile (both edges in it)."""
+    p = _residual_unit(8, seed=7)
+    x = np.random.default_rng(t).standard_normal((1, t, 8)).astype(np.float32)
+    got, want = _vocoder_case(p, x, 3, block_t, variant)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
