@@ -23,24 +23,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
    vocode);
 5. the prompt wav's tokenization on the card and on the CPU (the same
    weights): ids must agree in at least 95% of positions;
-6. hold each kernel against its plain PyTorch version on the card, at the
-   shapes each request of phases 3 and 4 gave it, within a stated
-   tolerance, and time kernel, plain version and, where one exists, the
-   PyTorch library call that computes the same function
-   (scaled_dot_product_attention, a yardstick only): flash prefill at each
-   prompt's bucket and left-pad start, decode over each request's cache at
-   its middle and last step's window, both in bf16; the vocoder's
-   ResidualUnit in fp32 at the 12 (channels, length, dilation) of each
-   request's bucketed vocode and at one ragged length;
-7. one prefill of the full-width LM (Qwen2.5-0.5B, random weights) on each
+6. voice cloning with the weight-only int8 LM (`quantize_qwen_int8` of the
+   same bf16 params, on the card): 24 int8 MLP kernel launches per decode
+   step, no int4 launch, the same attention and vocoder counts, a finite
+   waveform of 320 samples per semantic token, and its breakdown;
+7. voice creation with the int4 LM (`quantize_qwen_int4`, group 128): 96
+   int4 matvec launches per decode step (qkv, o, gate/up, down in 24
+   layers), none at prefill, no int8 MLP launch;
+8. the int8 codec (`quantize_bicodec_int8`): phase 6's tokens vocoded with
+   it must stay within 0.05 relative L2 of the fp32 vocode, with no vocoder
+   kernel launch (int8 ResidualUnits take the unfused unit);
+9. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the requests gave it, within a stated tolerance, and time kernel,
+   plain version and, where one exists, the PyTorch library call that
+   computes the same function (scaled_dot_product_attention, a yardstick
+   only): flash prefill at each prompt's bucket and left-pad start, decode
+   over each request's cache at its middle and last step's window, both in
+   bf16; the vocoder's ResidualUnit in fp32 at the 12 (channels, length,
+   dilation) of each request's bucketed vocode and at one ragged length;
+   the int8 MLP at 1, 4 and 16 rows and the int4 matvec at the four layer
+   shapes, bf16, on the quantized LMs' own weights, timed over all 24
+   layers' weights in turn (as a decode step streams them from HBM);
+10. one prefill of the full-width LM (Qwen2.5-0.5B, random weights) on each
    request's prompt with the flash kernel and with the plain dense
-   attention: last-position logits must agree.
+   attention: last-position logits must agree;
+11. one full-width decode step of the int8 and of the int4 LM on the card
+   and on the CPU (the same weights moved with .cpu(), each side prefilled
+   from the same prompt): guided logits must agree, with the same argmax.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches are the sum over the runs of phases 3 and 4, its times those of
-the voice-creation shapes); the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card, or run from a directory
-without the sparktts_tpu_torch package, it exits 2 and prints no result.
+launches are the sum over the four requests of phases 3, 4, 6 and 7, its
+times those of the voice-creation shapes, for the int8 MLP one call at one
+row, for the int4 matvec the four calls of one layer at one row); the last
+line is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
+directory without the sparktts_tpu_torch package, it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -89,6 +106,17 @@ VOCODER_REL_TOL = 1e-4
 # rounding may flip a few ids under another summation order; a layout bug
 # agrees almost nowhere.
 TOKENIZE_AGREEMENT = 0.95
+# Fused int8 MLP kernel vs plain, bf16, relative to max|plain|: the two sum
+# in another order, so a bf16 value of h may round one ulp (2^-8) apart and
+# carry into the down projection.
+INT8_MLP_REL_TOL = 2e-2
+# int4 matvec kernel vs plain, bf16 output, relative to max|plain|: the
+# output's bf16 rounding plus fp32 summation order.
+INT4_REL_TOL = 1e-2
+# int8 codec vs fp32 codec on the same tokens: the JAX package's gate
+# (tests/test_codec_quant.py).
+CODEC_INT8_REL_L2 = 0.05
+INT4_GROUP = 128
 
 
 def _time_ms(fn, dev, iters=20, reps=10) -> float:
@@ -434,7 +462,8 @@ def _request(pipe, modules, **request):
 
 def _breakdown(pipe, modules, prompt, mode: str, global_ids_of):
     """The request in parts: generate, prefill alone at the prompt's bucket
-    (mean of 5), and the vocode of the generated tokens."""
+    (mean of 5), and the vocode of the generated tokens.  Returns (the
+    breakdown, the (global, semantic) ids it vocoded)."""
     import torch
 
     from sparktts_tpu_torch.lm.generate import prefill
@@ -468,18 +497,24 @@ def _breakdown(pipe, modules, prompt, mode: str, global_ids_of):
     prefill_ms = (time.perf_counter() - t0) * 1e3 / 5
 
     semantic = extract_semantic_ids(pipe.tokenizer, generated)
+    global_ids = global_ids_of(generated)
     t0 = time.perf_counter()
-    wav = pipe.detokenize(global_ids_of(generated), semantic[None, :])
+    wav = pipe.detokenize(global_ids, semantic[None, :])
     _sync(dev)
     vocode_ms = (time.perf_counter() - t0) * 1e3
-    return dict(prompt_tokens=len(prompt), prompt_bucket=int(ids_t.shape[1]),
-                generated_tokens=int(len(generated)), semantic_tokens=int(semantic.size),
-                decode_steps=decode_steps, prefill_ms=prefill_ms, generate_ms=generate_ms,
-                decode_ms_per_token=(generate_ms - prefill_ms) / max(decode_steps, 1),
-                vocode_ms=vocode_ms, wav_samples_in_parts=int(len(wav)))
+    summary = dict(prompt_tokens=len(prompt), prompt_bucket=int(ids_t.shape[1]),
+                   generated_tokens=int(len(generated)), semantic_tokens=int(semantic.size),
+                   decode_steps=decode_steps, prefill_ms=prefill_ms, generate_ms=generate_ms,
+                   decode_ms_per_token=(generate_ms - prefill_ms) / max(decode_steps, 1),
+                   vocode_ms=vocode_ms, wav_samples_in_parts=int(len(wav)))
+    return summary, (global_ids, semantic[None, :])
 
 
-def _check_request(label, pipe, wav, launches, summary):
+def _check_request(label, pipe, wav, launches, summary, mlp_per_layer=0, int4_per_layer=0):
+    """Launch counts of one inference call: per decode step, one decode
+    attention launch per layer, plus `mlp_per_layer` int8 MLP and
+    `int4_per_layer` int4 matvec launches per layer (none at prefill); the
+    finite waveform of 320 samples per semantic token."""
     import numpy as np
 
     n_layers = pipe.config.llm.num_hidden_layers
@@ -492,6 +527,10 @@ def _check_request(label, pipe, wav, launches, summary):
         raise AssertionError(f"{label}: expected {n_layers} decode launches per step")
     if launches["fused_residual_unit"] != VOCODER_UNITS:
         raise AssertionError(f"{label}: expected {VOCODER_UNITS} vocoder launches for one vocode")
+    for name, per_layer in (("int8_mlp_matvec", mlp_per_layer), ("int4_matvec", int4_per_layer)):
+        if launches[name] != per_layer * n_layers * steps:
+            raise AssertionError(f"{label}: {launches[name]} {name} launches, expected "
+                                 f"{per_layer} per layer and decode step ({steps:.0f} steps)")
     if not (wav.size > 0 and np.isfinite(wav).all()):
         raise AssertionError(f"{label}: waveform is empty or not finite")
     bc = pipe.config.bicodec
@@ -501,26 +540,27 @@ def _check_request(label, pipe, wav, launches, summary):
                              f"{summary['semantic_tokens']} semantic tokens (want x{hop})")
 
 
-def run_voice_creation(pipe, modules):
+def run_voice_creation(pipe, modules, label="voice creation", **expected):
     """Voice creation end to end; returns (its launch counts, its prompt
-    ids, its breakdown)."""
+    ids, its breakdown, the ids it vocoded).  `expected`: per-layer launch
+    counts of the quantized kernels (`_check_request`)."""
     from sparktts_tpu_torch.prompt import build_control_prompt, padded_global_tokens
 
     wav, launches, total_s, peak_gib = _request(pipe, modules, **VOICE)
     token_num = pipe.config.bicodec.speaker_encoder.token_num
     prompt = build_control_prompt(pipe.tokenizer, TEXT, **VOICE)
-    summary = _breakdown(pipe, modules, prompt, "control",
-                         lambda g: padded_global_tokens(pipe.tokenizer, g, token_num))
+    summary, tokens = _breakdown(pipe, modules, prompt, "control",
+                                 lambda g: padded_global_tokens(pipe.tokenizer, g, token_num))
     audio_s = len(wav) / pipe.sample_rate
     summary.update(wav_samples=int(len(wav)), audio_s=audio_s, inference_s=total_s,
                    rtf=total_s / audio_s if audio_s else float("inf"), peak_mem_gib=peak_gib)
-    _check_request("voice creation", pipe, wav, launches, summary)
-    return launches, prompt, summary
+    _check_request(label, pipe, wav, launches, summary, **expected)
+    return launches, prompt, summary, tokens
 
 
-def run_voice_cloning(pipe, modules, wav_path: Path):
+def run_voice_cloning(pipe, modules, wav_path: Path, label="voice cloning", **expected):
     """Voice cloning end to end from the prompt wav; returns (its launch
-    counts, its prompt ids, its breakdown)."""
+    counts, its prompt ids, its breakdown, the ids it vocoded)."""
     import numpy as np
 
     from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths
@@ -542,14 +582,23 @@ def run_voice_cloning(pipe, modules, wav_path: Path):
             and sem.max() < tok.n_semantic):
         raise AssertionError("voice cloning: prompt ids out of range")
     prompt = build_clone_prompt(tok, TEXT, glob, sem, PROMPT_TEXT)
-    summary = _breakdown(pipe, modules, prompt, "clone", lambda _: glob)
+    summary, tokens = _breakdown(pipe, modules, prompt, "clone", lambda _: glob)
     audio_s = len(wav) / pipe.sample_rate
     summary.update(prompt_global_ids=int(glob.shape[1]), prompt_semantic_ids=int(sem.shape[1]),
                    tokenize_ms=tokenize_ms, wav_samples=int(len(wav)), audio_s=audio_s,
                    inference_s=total_s, rtf=total_s / audio_s if audio_s else float("inf"),
                    peak_mem_gib=peak_gib)
-    _check_request("voice cloning", pipe, wav, launches, summary)
-    return launches, prompt, summary
+    _check_request(label, pipe, wav, launches, summary, **expected)
+    return launches, prompt, summary, tokens
+
+
+def _cpu(tree):
+    """A param tree's tensors moved to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 def check_tokenize_on_cpu(pipe, wav_path: Path):
@@ -561,18 +610,11 @@ def check_tokenize_on_cpu(pipe, wav_path: Path):
 
     from sparktts_tpu_torch.pipeline import codec_tokenize
 
-    def cpu(tree):
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cpu(v) for v in tree]
-        return tree.cpu()
-
     glob, sem = pipe.tokenize_audio(wav_path)
     *arrays, true_sem = pipe.tokenize_host_prep(wav_path)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        glob_cpu, sem_cpu = codec_tokenize(cpu(pipe.w2v_params), cpu(pipe.bicodec_params),
+        glob_cpu, sem_cpu = codec_tokenize(_cpu(pipe.w2v_params), _cpu(pipe.bicodec_params),
                                            pipe.config, *(torch.from_numpy(a) for a in arrays))
     cpu_s = time.perf_counter() - t0
     glob_cpu, sem_cpu = glob_cpu.numpy(), sem_cpu[:, :true_sem].numpy()
@@ -582,6 +624,214 @@ def check_tokenize_on_cpu(pipe, wav_path: Path):
           f"{int((sem == sem_cpu).sum())}/{sem.size} (need {TOKENIZE_AGREEMENT})")
     if min(agree.values()) < TOKENIZE_AGREEMENT:
         raise AssertionError(f"tokenize: card and CPU disagree: {agree}")
+
+
+def check_int8_codec(pipe, modules, tokens):
+    """Vocode `tokens` ((global, semantic) ids) with the fp32 codec and with
+    its weight-only int8 tree: relative L2 within CODEC_INT8_REL_L2, and no
+    vocoder kernel launch in the int8 call."""
+    import numpy as np
+
+    from sparktts_tpu_torch.codec.quant import quantize_bicodec_int8, quantized_bytes
+
+    fp32_params = pipe.bicodec_params
+    want = pipe.detokenize(*tokens).astype(np.float64)
+    pipe.bicodec_params = quantize_bicodec_int8(fp32_params)
+    try:
+        pipe.detokenize(*tokens)  # warm-up
+        _sync(pipe.device)
+        vf = modules["fused_residual_unit"]
+        before = vf.launches
+        t0 = time.perf_counter()
+        got = pipe.detokenize(*tokens).astype(np.float64)
+        vocode_ms = (time.perf_counter() - t0) * 1e3
+        unit_launches = vf.launches - before
+        int8_bytes = quantized_bytes(pipe.bicodec_params)
+    finally:
+        pipe.bicodec_params = fp32_params
+    rel = float(np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-12))
+    print(f"int8 codec: vocode of {tokens[1].shape[1]} semantic tokens {vocode_ms:.2f} ms, "
+          f"relative L2 to fp32 {rel:.4e} (gate {CODEC_INT8_REL_L2}), params "
+          f"{int8_bytes / 2**20:.1f} MiB (fp32 {quantized_bytes(fp32_params) / 2**20:.1f}), "
+          f"vocoder kernel launches {unit_launches}")
+    if not (got.shape == want.shape and np.isfinite(got).all() and rel < CODEC_INT8_REL_L2):
+        raise AssertionError(f"int8 codec: waveform off the fp32 one (relative L2 {rel})")
+    if unit_launches != 0:
+        raise AssertionError("int8 codec: an int8 ResidualUnit went to the fp32 vocoder kernel")
+
+
+def _rotating(fns):
+    """One callable that calls fns[0], fns[1], ... in turn: timed over the
+    24 layers' weights, a graph of 24 calls streams them from HBM as a
+    decode step does (one layer's 13 MB would stay in the 50 MB L2)."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+
+    return call
+
+
+def _check_close(label, got, want, rel_tol):
+    import torch
+
+    _sync(got.device)
+    err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    line = (f"{label}: max_abs_err={err:.3e}, max|plain|={scale:.3e}, relative "
+            f"{err / scale:.3e} (tol {rel_tol})")
+    print(line)
+    if not (bool(torch.isfinite(got).all()) and err <= rel_tol * scale):
+        raise AssertionError(f"kernel disagrees with its plain version: {line}")
+    return err
+
+
+def check_int8_mlp(dev, int8_layers):
+    """The fused int8 MLP kernel vs its plain version at 1, 4 and 16 rows on
+    the int8 LM's own layers (bf16 x), plus a ragged intermediate width;
+    each row count timed over the 24 layers.  Returns the kernels-line
+    entry (without launches) with the times of one row."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import int8_mlp as i8
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    weights = [(lay["gateup"]["w_q"], lay["gateup"]["scale"], lay["down"]["w_q"],
+                lay["down"]["scale"]) for lay in int8_layers]
+    k, i = weights[0][2].shape[1], weights[0][2].shape[0]
+    max_err, timed = 0.0, {}
+    for r in (1, 4, 16):
+        x = torch.randn((r, k), generator=gen, device=dev).to(torch.bfloat16)
+        for w in (weights[0], weights[-1]):
+            max_err = max(max_err, _check_close(f"int8_mlp_matvec R={r} K={k} I={i}",
+                                                i8.int8_mlp_matvec(x, *w),
+                                                i8.int8_mlp_matvec_plain(x, *w), INT8_MLP_REL_TOL))
+        ms = _time_ms(_rotating([functools.partial(i8.int8_mlp_matvec, x, *w) for w in weights]),
+                      dev, iters=len(weights), reps=10)
+        plain_ms = _time_ms(_rotating([functools.partial(i8.int8_mlp_matvec_plain, x, *w)
+                                       for w in weights]), dev, iters=len(weights), reps=3)
+        nbytes = 3 * i * k + 4 * (2 * i + k) + 2 * 2 * r * k  # int8 weights, scales, x in, out
+        bound_ms, bound_by = _bound(nbytes, 6 * r * k * i)
+        print(f"int8_mlp_matvec R={r}: device {ms:.4f} ms per call over {len(weights)} layers' "
+              f"weights (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
+              f"{nbytes / ms / 1e6:.1f} GB/s)")
+        timed[r] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    # a ragged intermediate width (no 32- or 256-column tiling) at 3 rows
+    g = torch.Generator(device=dev).manual_seed(5)
+    i_r = 1000
+    gu = torch.randint(-127, 128, (k, 2 * i_r), generator=g, device=dev, dtype=torch.int8)
+    dq = torch.randint(-127, 128, (i_r, k), generator=g, device=dev, dtype=torch.int8)
+    gs = 1e-3 * (1 + torch.rand(2 * i_r, generator=g, device=dev))
+    ds = 1e-3 * (1 + torch.rand(k, generator=g, device=dev))
+    x = torch.randn((3, k), generator=g, device=dev).to(torch.bfloat16)
+    max_err = max(max_err, _check_close(f"int8_mlp_matvec R=3 K={k} I={i_r} (ragged)",
+                                        i8.int8_mlp_matvec(x, gu, gs, dq, ds),
+                                        i8.int8_mlp_matvec_plain(x, gu, gs, dq, ds),
+                                        INT8_MLP_REL_TOL))
+    return dict(name="int8_mlp_matvec", route="cuda", source=i8.SOURCE, replaces=i8.REPLACES,
+                max_abs_err=max_err, library_ms=None, **timed[1])
+
+
+def check_int4(dev, int4_layers):
+    """The int4 matvec kernel vs its plain version at the four layer shapes
+    of the int4 LM (its own weights, B = 1), down at B = 32 and one ragged
+    `out`; each B = 1 shape timed over the 24 layers.  Returns the
+    kernels-line entry (without launches): times summed over one layer's
+    four calls at B = 1."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import int4_matmul as i4
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = 0.0
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for name in ("qkv", "o", "gateup", "down"):
+        weights = [(lay[name]["w_p4"], lay[name]["gscale"]) for lay in int4_layers]
+        (half, d_out), groups = weights[0][0].shape, weights[0][1].shape[0]
+        batches = (1, 32) if name == "down" else (1,)
+        for b in batches:
+            x = torch.randn((b, 2 * half), generator=gen, device=dev).to(torch.bfloat16)
+            for w in (weights[0], weights[-1]):
+                max_err = max(max_err, _check_close(
+                    f"int4_matvec {name} B={b} in={2 * half} out={d_out} groups={groups}",
+                    i4.int4_matvec(x, *w), i4.int4_matvec_plain(x, *w), INT4_REL_TOL))
+            ms = _time_ms(_rotating([functools.partial(i4.int4_matvec, x, *w) for w in weights]),
+                          dev, iters=len(weights), reps=10)
+            plain_ms = _time_ms(_rotating([functools.partial(i4.int4_matvec_plain, x, *w)
+                                           for w in weights]), dev, iters=len(weights), reps=3)
+            nbytes = half * d_out + 4 * groups * d_out + 2 * b * (2 * half + d_out)
+            bound_ms, bound_by = _bound(nbytes, 4 * b * half * d_out)
+            print(f"int4_matvec {name} B={b}: device {ms:.4f} ms per call over {len(weights)} "
+                  f"layers' weights (plain {plain_ms:.4f}, bound {bound_ms:.5f} by {bound_by}, "
+                  f"{nbytes / ms / 1e6:.1f} GB/s)")
+            if b == 1:
+                total["ms"] += ms
+                total["plain_ms"] += plain_ms
+                total["bound_ms"] += bound_ms
+    g = torch.Generator(device=dev).manual_seed(7)
+    packed = torch.randint(-128, 128, (448, 1000), generator=g, device=dev, dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((7, 1000), generator=g, device=dev))
+    x = torch.randn((3, 896), generator=g, device=dev).to(torch.bfloat16)
+    max_err = max(max_err, _check_close("int4_matvec B=3 in=896 out=1000 (ragged)",
+                                        i4.int4_matvec(x, packed, gscale),
+                                        i4.int4_matvec_plain(x, packed, gscale), INT4_REL_TOL))
+    print(f"int4_matvec, one layer's four calls at B=1: device {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms")
+    return dict(name="int4_matvec", route="cuda", source=i4.SOURCE, replaces=i4.REPLACES,
+                max_abs_err=max_err, bound_by="bytes", library_ms=None, **total)
+
+
+def check_decode_step_on_cpu(pipe, params, label, prompt, mode):
+    """One full-width decode step of `params` (a quantized LM) on the card,
+    through its kernels, and on the CPU, through the plain versions (the
+    same weights moved with .cpu()); each side prefills its own cache from
+    `prompt` first.  Guided logits must agree within LOGITS_REL_TOL of the
+    largest logit, with the same argmax."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import int4_matmul as i4
+    from sparktts_tpu_torch.kernels import int8_mlp as i8
+    from sparktts_tpu_torch.lm.qwen import (
+        aligned_cache_len,
+        init_kv_cache,
+        prefill_positions,
+        qwen_forward,
+    )
+
+    cfg = pipe.config.llm
+    ids, mask = (t.cpu() for t in pipe.prompt_inputs(prompt))
+    t_pad = ids.shape[1]
+    vocab_slice, extra_ids = pipe.guided_constraint(mode)
+    start = (t_pad - mask.sum(1)).to(torch.int32)
+    token = torch.tensor([[pipe.tokenizer.semantic_base + 7]])
+    logits, launches = {}, {}
+    t0 = time.perf_counter()
+    for side, dev, p in (("card", pipe.device, params), ("cpu", torch.device("cpu"), _cpu(params))):
+        with torch.inference_mode():
+            cache = init_kv_cache(cfg, 1, aligned_cache_len(t_pad + 1), pipe.lm_dtype, dev)
+            qwen_forward(p, cfg, ids.to(dev), prefill_positions(mask).to(dev), cache, 0, None,
+                         flash_start=start.to(dev), vocab_slice=vocab_slice, extra_ids=extra_ids,
+                         logits_last_only=True)
+            counts = (i8.launches, i4.launches)
+            out, _ = qwen_forward(
+                p, cfg, token.to(dev), mask.sum(1, keepdim=True).to(dev), cache, t_pad, None,
+                decode_window=(start.to(dev), torch.full_like(start, t_pad).to(dev)),
+                vocab_slice=vocab_slice, extra_ids=extra_ids,
+            )
+            launches[side] = (i8.launches - counts[0], i4.launches - counts[1])
+        logits[side] = out[0, -1].float().cpu()
+    card, cpu = logits["card"], logits["cpu"]
+    scale, err = float(cpu.abs().max()), float((card - cpu).abs().max())
+    same_top = int(card.argmax()) == int(cpu.argmax())
+    print(f"{label} decode step, card vs CPU ({time.perf_counter() - t0:.1f} s; card launches "
+          f"int8_mlp/int4 {launches['card']}): guided logits max|card - cpu| = {err:.4e}, "
+          f"max|logit| = {scale:.4e}, relative {err / scale:.3e} (tol {LOGITS_REL_TOL}), "
+          f"same argmax: {same_top}")
+    if not (math.isfinite(err) and err <= LOGITS_REL_TOL * scale and same_top):
+        raise AssertionError(f"{label}: the decode step on the card disagrees with the CPU")
+    if launches["card"] == (0, 0):
+        raise AssertionError(f"{label}: the card's decode step launched no quantized kernel")
 
 
 def main() -> int:
@@ -598,8 +848,11 @@ def main() -> int:
     from sparktts_tpu_torch.kernels import build
     from sparktts_tpu_torch.kernels import decode_attention as da
     from sparktts_tpu_torch.kernels import flash_attention as fa
+    from sparktts_tpu_torch.kernels import int4_matmul as i4
+    from sparktts_tpu_torch.kernels import int8_mlp as i8
     from sparktts_tpu_torch.kernels import vocoder_fusion as vf
-    from sparktts_tpu_torch.lm.qwen import aligned_cache_len
+    from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
+    from sparktts_tpu_torch.lm.qwen import aligned_cache_len, unstack_layers
     from sparktts_tpu_torch.pipeline import VOCODE_BUCKET, SparkTTSPipeline
 
     smi = subprocess.run(
@@ -616,7 +869,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    logs = build.build_all(["flash_attention", "decode_attention", "vocoder_fusion"])
+    logs = build.build_all(["flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp",
+                            "int4_matmul"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernel_build.log").write_text(
@@ -628,14 +882,28 @@ def main() -> int:
 
     pipe = SparkTTSPipeline(device=dev, seed=SEED)
     modules = {"flash_attention_prefill": fa, "dense_decode_attention": da,
-               "fused_residual_unit": vf}
+               "fused_residual_unit": vf, "int8_mlp_matvec": i8, "int4_matvec": i4}
     creation = run_voice_creation(pipe, modules)
     wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
     cloning = run_voice_cloning(pipe, modules, wav_path)
     check_tokenize_on_cpu(pipe, wav_path)
 
-    # every kernel at the shapes the two requests gave it (creation first)
-    runs = [summary for _, _, summary in (creation, cloning)]
+    # the weight-only quantized LMs, quantized on the card from the same bf16
+    # params, through the same entry point
+    bf16_params = pipe.llm_params
+    int8_params = quantize_qwen_int8(bf16_params)
+    int4_params = quantize_qwen_int4(bf16_params, group=INT4_GROUP)
+    pipe.llm_params = int8_params
+    cloning_int8 = run_voice_cloning(pipe, modules, wav_path, label="voice cloning, int8 LM",
+                                     mlp_per_layer=1)
+    pipe.llm_params = int4_params
+    creation_int4 = run_voice_creation(pipe, modules, label="voice creation, int4 LM",
+                                       int4_per_layer=4)
+    pipe.llm_params = bf16_params
+    check_int8_codec(pipe, modules, cloning_int8[3])
+
+    # every kernel at the shapes the requests gave it (creation first)
+    runs = [summary for _, _, summary, _ in (creation, cloning)]
     starts = [r["prompt_bucket"] - r["prompt_tokens"] for r in runs]
     cfg = pipe.config.llm
     entries = [
@@ -647,10 +915,15 @@ def main() -> int:
                       list(dict.fromkeys(-(-r["semantic_tokens"] // VOCODE_BUCKET) * VOCODE_BUCKET
                                          for r in runs))),  # the vocoder's bucketed lengths
     ]
-    for _, prompt, _ in (creation, cloning):
+    entries.append(check_int8_mlp(dev, unstack_layers(int8_params["layers"])))
+    entries.append(check_int4(dev, unstack_layers(int4_params["layers"])))
+    for _, prompt, _, _ in (creation, cloning):
         check_lm_prefill(pipe, prompt)
+    check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
+    check_decode_step_on_cpu(pipe, int4_params, "int4 LM", creation[1], "control")
+    requests = (creation, cloning, cloning_int8, creation_int4)
     for e in entries:
-        e["launches"] = creation[0][e["name"]] + cloning[0][e["name"]]
+        e["launches"] = sum(r[0][e["name"]] for r in requests)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

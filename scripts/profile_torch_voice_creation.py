@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of voice creation goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/profile_torch_voice_creation.py [--steps 32]
+    python3 scripts/profile_torch_voice_creation.py [--steps 32] [--lm bf16|int8|int4]
 
 Builds `sparktts_tpu_torch.SparkTTSPipeline` at the full Spark-TTS-0.5B
-widths with random weights (seed 0), runs the request of `chip_smoke.py`
+widths with random weights (seed 0), with the LM in bf16 or quantized
+weight-only to int8 or int4 (group 128) as a user would
+(`pipe.llm_params = quantize_qwen_int8(pipe.llm_params)`), runs the request
+of `chip_smoke.py`
 once unprofiled, then traces three windows with `torch.profiler`: one
 prefill, `--steps` decode steps, and the vocoder over the request's
 semantic tokens.  For each window it prints the host-clock wall time, the
@@ -84,6 +87,8 @@ def _profile(name: str, fn) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=32, help="decode steps to trace")
+    ap.add_argument("--lm", choices=("bf16", "int8", "int4"), default="bf16",
+                    help="the LM's weights: bf16, or weight-only int8 or int4")
     args = ap.parse_args()
 
     import torch
@@ -94,6 +99,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as smoke
     from sparktts_tpu_torch.lm.generate import decode_step, prefill
+    from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
     from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
     from sparktts_tpu_torch.pipeline import SparkTTSPipeline
     from sparktts_tpu_torch.prompt import (
@@ -111,6 +117,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     pipe = SparkTTSPipeline(device=dev, seed=smoke.SEED)
+    if args.lm == "int8":
+        pipe.llm_params = quantize_qwen_int8(pipe.llm_params)
+    elif args.lm == "int4":
+        pipe.llm_params = quantize_qwen_int4(pipe.llm_params, group=smoke.INT4_GROUP)
     cfg, tok = pipe.config.llm, pipe.tokenizer
 
     # the chip_smoke request, unprofiled: warms every shape and gives the
@@ -141,8 +151,8 @@ def main() -> int:
                             tok.pad_id, vocab_slice=vs, extra_ids=ex)
         state["s"] = s
 
-    result = {"card": smi, "device": torch.cuda.get_device_name(0), "decode_steps": args.steps,
-              "semantic_tokens": int(semantic.size)}
+    result = {"card": smi, "device": torch.cuda.get_device_name(0), "lm": args.lm,
+              "decode_steps": args.steps, "semantic_tokens": int(semantic.size)}
     with torch.inference_mode():
         result["prefill"] = _profile("prefill", run_prefill)
         result["decode"] = _profile("decode", run_decode)
@@ -156,7 +166,7 @@ def main() -> int:
         r = result[name]
         print(f"{name}: wall {r['wall_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
               f"idle share {r['device_idle_share']:.4f}, {r['kernels_launched']} kernels")
-        for k in r["top_kernels"][:6]:
+        for k in r["top_kernels"][:8]:
             print(f"    {k['device_ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
     print(json.dumps(result))
     return 0

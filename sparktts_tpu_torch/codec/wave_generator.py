@@ -1,8 +1,11 @@
 """WaveGenerator vocoder: DAC-style transposed-conv upsampling stack.
 
 Port of `wave_generator_apply` of `sparktts_tpu/codec/wave_generator.py`.
-Every ResidualUnit goes through `kernels/vocoder_fusion.fused_residual_unit`:
-the hand-written CUDA kernel on the card, its plain version on the CPU.
+Every ResidualUnit with float weights goes through
+`kernels/vocoder_fusion.fused_residual_unit`: the hand-written CUDA kernel on
+the card, its plain version on the CPU.  A unit of an int8 tree
+(`codec/quant.py`) runs the unfused unit, as in the JAX package: the kernel
+takes fp32 weights only.
 """
 
 from __future__ import annotations
@@ -10,7 +13,10 @@ from __future__ import annotations
 import torch
 
 from sparktts_tpu_torch.config import WaveGeneratorConfig
-from sparktts_tpu_torch.kernels.vocoder_fusion import fused_residual_unit
+from sparktts_tpu_torch.kernels.vocoder_fusion import (
+    fused_residual_unit,
+    fused_residual_unit_plain,
+)
 from sparktts_tpu_torch.nn.layers import conv1d_apply, conv_transpose1d_apply, snake_apply
 
 DILATIONS = (1, 3, 9)
@@ -21,7 +27,8 @@ def _decoder_block_apply(p, x: torch.Tensor, kernel_size: int, stride: int) -> t
     y = conv_transpose1d_apply(p["upsample"], y, stride=stride, padding=(kernel_size - stride) // 2)
     y = y.contiguous()  # the kernel reads (B, T, C) rows; the conv returns a transposed view
     for ru, dil in zip(p["res_units"], DILATIONS):
-        y = fused_residual_unit(ru, y, dil)
+        unit = fused_residual_unit if "w" in ru["conv1"] else fused_residual_unit_plain
+        y = unit(ru, y, dil)
     return y
 
 

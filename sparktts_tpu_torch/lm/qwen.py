@@ -14,7 +14,13 @@ Attention goes through the two kernel modules: prefill through
 through `kernels.decode_attention`.  Both run their plain version on CPU
 tensors and their CUDA kernel on CUDA tensors.  Without `flash_start`,
 prefill runs the dense masked-bias attention below.  RoPE runs in fp32 and
-logits are fp32; everything else follows the params dtype.
+logits are fp32; everything else follows the params dtype (for a quantized
+tree, the dtype of its norm gains).
+
+Weight-only quantized trees (`lm/quant.py`) run as in the JAX package: int8
+or int4 linears through `nn/layers.linear_apply`, an int8 embedding with its
+per-row scale in the lookup and the tied logits, and on a decode step an
+int8 MLP through the fused kernel module `kernels.int8_mlp`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch.nn.functional as F
 from sparktts_tpu_torch.config import QwenConfig
 from sparktts_tpu_torch.kernels.decode_attention import dense_decode_attention
 from sparktts_tpu_torch.kernels.flash_attention import flash_attention_prefill
+from sparktts_tpu_torch.kernels.int8_mlp import MAX_ROWS as MLP_MATVEC_ROWS
+from sparktts_tpu_torch.kernels.int8_mlp import int8_mlp_matvec
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
 
 
@@ -155,9 +163,26 @@ def _attention_block(
     return linear_apply(layer["o"], out)
 
 
-def mlp_block(layer, x: torch.Tensor) -> torch.Tensor:
-    gate, up = linear_apply(layer["gateup"], x).chunk(2, dim=-1)
-    return linear_apply(layer["down"], F.silu(gate) * up)
+def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False) -> torch.Tensor:
+    """SwiGLU MLP.  On a decode step (`decode_fused`) of at most
+    MLP_MATVEC_ROWS rows whose gate/up and down are int8 without biases, the
+    fused kernel module computes it (its numbers are the unfused path's up
+    to fp32 summation order); otherwise the unfused path below."""
+    gu_p, down_p = layer["gateup"], layer["down"]
+    b, t, h = x.shape
+    if (
+        decode_fused
+        and "w_q" in gu_p
+        and "w_q" in down_p
+        and "b" not in gu_p
+        and "b" not in down_p
+        and b * t <= MLP_MATVEC_ROWS
+    ):
+        y = int8_mlp_matvec(x.reshape(b * t, h).contiguous(), gu_p["w_q"], gu_p["scale"],
+                            down_p["w_q"], down_p["scale"])
+        return y.reshape(b, t, h)
+    gate, up = linear_apply(gu_p, x).chunk(2, dim=-1)
+    return linear_apply(down_p, F.silu(gate) * up)
 
 
 def qwen_forward(
@@ -190,7 +215,7 @@ def qwen_forward(
             flash_start=flash_start, decode_window=decode_window,
         )
         y = rms_norm_apply(layer["ln2"], x, eps=cfg.rms_norm_eps)
-        x = x + mlp_block(layer, y)
+        x = x + mlp_block(layer, y, decode_fused=decode_window is not None and y.shape[1] == 1)
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm_apply(params["final_ln"], x, eps=cfg.rms_norm_eps)
@@ -198,7 +223,13 @@ def qwen_forward(
 
 
 def embed_lookup(params, input_ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(input_ids, params["embed"])
+    """Embedding rows; an int8 table's rows are cast to the dtype of the norm
+    gains and times their row scale in that dtype."""
+    emb = params["embed"]
+    if isinstance(emb, dict):
+        dt = params["final_ln"]["gamma"].dtype
+        return emb["w_q"][input_ids].to(dt) * emb["scale"][input_ids].to(dt)
+    return F.embedding(input_ids, emb)
 
 
 def _select_vocab_rows(w: torch.Tensor, vocab_slice, extra_ids) -> torch.Tensor:
@@ -215,11 +246,16 @@ def lm_logits(
     extra_ids: Tuple[int, ...] = (),
 ) -> torch.Tensor:
     """Tied-embedding logits in fp32 (products of the params-dtype values,
-    summed in fp32)."""
-    w = params["embed"]
+    summed in fp32).  An int8 table's fp32 row scale multiplies the fp32
+    logits; with vocab_slice, the scale rows are selected as the table's."""
+    emb = params["embed"]
+    w, scale = (emb["w_q"], emb["scale"][:, 0]) if isinstance(emb, dict) else (emb, None)
     if vocab_slice is not None:
         w = _select_vocab_rows(w, vocab_slice, extra_ids)
-    return torch.matmul(x.float(), w.float().T)
+        if scale is not None:
+            scale = _select_vocab_rows(scale, vocab_slice, extra_ids)
+    logits = torch.matmul(x.float(), w.float().T)
+    return logits if scale is None else logits * scale
 
 
 # ---------------------------------------------------------------------------

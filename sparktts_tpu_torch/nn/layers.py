@@ -1,8 +1,8 @@
 """Functional NN primitives on channels-last `(B, T, C)` tensors.
 
-Port of the float paths of `sparktts_tpu/nn/layers.py`, plus `full_fp32`,
-which pins the codec's precision on the card.  Params are plain
-dicts of tensors with the JAX package's keys and layouts:
+Port of `sparktts_tpu/nn/layers.py`, plus `full_fp32`, which pins the
+codec's precision on the card.  Params are plain dicts of tensors with the
+JAX package's keys and layouts:
 
   * linear weights are `(in, out)`;
   * conv kernels are WIO `(K, Cin // groups, Cout)`;
@@ -10,7 +10,10 @@ dicts of tensors with the JAX package's keys and layouts:
     spatially FLIPPED relative to torch's `ConvTranspose1d` weight.
 
 The `F.conv*` calls below undo those layouts per call, so one param tree
-serves both packages.
+serves both packages.  Weight-only quantized params (`lm/quant.py`,
+`codec/quant.py`) take their own paths: int8 `{"w_q", "scale"}` computes in
+the activation dtype with the scale on the output, before the bias; int4
+`{"w_p4", "gscale"}` linears go through `kernels/int4_matmul.py`.
 """
 
 from __future__ import annotations
@@ -20,13 +23,54 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from sparktts_tpu_torch.kernels.int4_matmul import MAX_ROWS as INT4_MATVEC_ROWS
+from sparktts_tpu_torch.kernels.int4_matmul import int4_matvec, int4_matvec_plain
+
 
 def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """Weights define the compute dtype (bf16 params -> bf16 matmul)."""
-    w = p["w"]
-    y = torch.matmul(x.to(w.dtype), w)
+    """Float weights define the compute dtype (bf16 params -> bf16 matmul).
+
+    int4: up to INT4_MATVEC_ROWS rows of x (decode) go through the int4
+    matvec kernel module, which streams the packed weights; wider x
+    (prefill) unpacks once and sums fp32 group partials times the fp32
+    group scales.  int8: x times the weights cast to x's dtype, times the
+    per-column scale in x's dtype."""
+    if "w_p4" in p:
+        packed, gscale = p["w_p4"], p["gscale"]
+        rows = x.numel() // x.shape[-1]
+        if rows <= INT4_MATVEC_ROWS:
+            y = int4_matvec(x.reshape(rows, x.shape[-1]).contiguous(), packed, gscale)
+            y = y.reshape(*x.shape[:-1], packed.shape[-1])
+        else:
+            y = int4_matvec_plain(x, packed, gscale)
+    elif "w_q" in p:
+        y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        w = p["w"]
+        y = torch.matmul(x.to(w.dtype), w)
     if "b" in p:
         y = y + p["b"]
+    return y
+
+
+def _conv_weight(p, x: torch.Tensor):
+    """(kernel, bias for F.conv*) of a conv's params; the kernel's dtype is
+    the compute dtype.  A float kernel carries its bias; an int8 kernel is
+    cast to x's dtype and leaves the bias to `_conv_output`, after the
+    scale."""
+    if "w_q" in p:
+        return p["w_q"].to(x.dtype), None
+    return p["w"], p.get("b")
+
+
+def _conv_output(p, y: torch.Tensor) -> torch.Tensor:
+    """(B, Cout, T') conv output -> (B, T', Cout), with an int8 kernel's
+    per-out-channel scale and then its bias."""
+    y = y.transpose(1, 2)
+    if "w_q" in p:
+        y = y * p["scale"].to(y.dtype)
+        if "b" in p:
+            y = y + p["b"]
     return y
 
 
@@ -34,17 +78,17 @@ def conv1d_apply(
     p, x: torch.Tensor, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1
 ) -> torch.Tensor:
     """x: (B, T, C) -> (B, T', Cout).  `padding` is symmetric, torch-style."""
-    w = p["w"]
+    w, b = _conv_weight(p, x)
     y = F.conv1d(
         x.to(w.dtype).transpose(1, 2),
         w.permute(2, 1, 0),  # WIO -> (Cout, Cin // groups, K)
-        p.get("b"),
+        b,
         stride=stride,
         padding=padding,
         dilation=dilation,
         groups=groups,
     )
-    return y.transpose(1, 2)
+    return _conv_output(p, y)
 
 
 def _torch_transposed_kernel(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -66,17 +110,17 @@ def conv_transpose1d_apply(
 ) -> torch.Tensor:
     """Torch-semantics ConvTranspose1d on (B, T, C):
     out_len = (T - 1) * stride - 2 * padding + K + output_padding."""
-    w = p["w"]
+    w, b = _conv_weight(p, x)
     y = F.conv_transpose1d(
         x.to(w.dtype).transpose(1, 2),
         _torch_transposed_kernel(w, groups),
-        p.get("b"),
+        b,
         stride=stride,
         padding=padding,
         output_padding=output_padding,
         groups=groups,
     )
-    return y.transpose(1, 2)
+    return _conv_output(p, y)
 
 
 def layer_norm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -8,7 +8,8 @@ and `init_wav2vec2` (`nn/wav2vec2.py:38`).  `qwen_state` / `bicodec_state` /
 passed through `np.asarray`) into port state; `init_qwen` / `init_bicodec` /
 `init_wav2vec2` build random weights of the same keys and shapes directly in
 torch, from an explicit `torch.Generator`, with the JAX init's
-distributions.
+distributions.  Weight-only quantized trees (`lm/quant.py`,
+`codec/quant.py`) convert too: int8 leaves stay int8 and scales stay fp32.
 """
 
 from __future__ import annotations
@@ -29,18 +30,32 @@ from sparktts_tpu_torch.config import (
 )
 
 
+# Leaves under these keys are the fp32 scales of a weight-only quantized
+# linear (`lm/quant.py`, `codec/quant.py`): they stay fp32 in a tree of any
+# dtype, as in the JAX package.
+SCALE_KEYS = ("scale", "gscale")
+
+
 def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
     """numpy-like tree -> same tree of tensors on `device`; float leaves cast
-    to `dtype` (default: float32)."""
+    to `dtype` (default: float32), except quantization scales (fp32);
+    integer leaves (int8 quantized weights, ids) keep their dtype."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+        return {
+            k: to_torch(v, device, torch.float32 if k in SCALE_KEYS and not _is_tree(v) else dtype)
+            for k, v in tree.items()
+        }
+    if _is_tree(tree):
         return [to_torch(v, device, dtype) for v in tree]
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         return t.to(device=device, dtype=dtype or torch.float32)
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _is_tree(node) -> bool:
+    return isinstance(node, (dict, list, tuple))
 
 
 def qwen_state(tree, device, dtype: torch.dtype = torch.bfloat16):

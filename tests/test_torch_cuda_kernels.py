@@ -9,7 +9,11 @@ runs where only PyTorch is installed:
 Attention, bf16 tolerance 2e-2: both sides read the same bf16 inputs and
 accumulate in fp32, so they differ by the bf16 rounding of the output (2^-8
 relative) on values of magnitude O(1), plus fp32 summation order.  The
-vocoder's ResidualUnit is fp32 on both sides; see its test.
+vocoder's ResidualUnit is fp32 on both sides; see its test.  The quantized
+kernels at the full Qwen2.5-0.5B widths, bf16 x: the fused int8 MLP within
+2e-2 of max|plain| (the two sum in another order, so a bf16 value of h may
+round one ulp apart and carry into the down projection), the int4 matvec
+within 1e-2 of max|plain| (bf16 output rounding plus summation order).
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ import torch
 from sparktts_tpu_torch.config import Wav2Vec2Config
 from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
+from sparktts_tpu_torch.kernels import int4_matmul as i4
+from sparktts_tpu_torch.kernels import int8_mlp as i8
 from sparktts_tpu_torch.kernels import vocoder_fusion as vf
 from sparktts_tpu_torch.nn.layers import full_fp32
 from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
@@ -26,6 +32,7 @@ from sparktts_tpu_torch.weights import init_wav2vec2, to_torch
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 HQ, HKV, D = 14, 2, 64  # Qwen2.5-0.5B attention heads
+HIDDEN, INTER = 896, 4864  # Qwen2.5-0.5B hidden and intermediate widths
 
 
 def _cuda():
@@ -163,3 +170,75 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         vf.fused_residual_unit(_residual_unit(64, dev), torch.zeros((1, 64, 64), device=dev), 1)
     with pytest.raises(ValueError):
         vf.fused_residual_unit(p, torch.zeros((1, 96, 64), device=dev).transpose(1, 2), 1)
+
+
+def _int8_mlp_weights(dev, k=HIDDEN, i=INTER, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gu = torch.randint(-127, 128, (k, 2 * i), generator=g, device=dev, dtype=torch.int8)
+    down = torch.randint(-127, 128, (i, k), generator=g, device=dev, dtype=torch.int8)
+    gs = 1e-3 * (1 + torch.rand(2 * i, generator=g, device=dev))
+    ds = 1e-3 * (1 + torch.rand(k, generator=g, device=dev))
+    return gu, gs, down, ds
+
+
+def _rel_err(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", (1, 4, 16))
+def test_int8_mlp_kernel_matches_plain(rows):
+    dev = _cuda()
+    w = _int8_mlp_weights(dev)
+    x = torch.randn((rows, HIDDEN), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    before = i8.launches
+    got = i8.int8_mlp_matvec(x, *w)
+    assert i8.launches == before + 1 and got.dtype == torch.bfloat16
+    assert _rel_err(got, i8.int8_mlp_matvec_plain(x, *w)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out", [(896, 1152), (896, 896), (896, 9728), (4864, 896)])
+@pytest.mark.parametrize("b", (1, 8, 32))
+def test_int4_kernel_matches_plain(d_in, d_out, b):
+    """The four layer shapes of the int4 LM, group 128."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d_in + d_out + b)
+    packed = torch.randint(-128, 128, (d_in // 2, d_out), generator=g, device=dev,
+                           dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((d_in // 128, d_out), generator=g, device=dev))
+    x = torch.randn((b, d_in), generator=g, device=dev).to(torch.bfloat16)
+    before = i4.launches
+    got = i4.int4_matvec(x, packed, gscale)
+    assert i4.launches == before + 1 and got.dtype == torch.bfloat16
+    assert _rel_err(got, i4.int4_matvec_plain(x, packed, gscale)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _cuda()
+    gu, gs, down, ds = _int8_mlp_weights(dev, k=64, i=96)
+    x = torch.zeros((17, 64), dtype=torch.bfloat16, device=dev)  # 17 rows
+    with pytest.raises(ValueError):
+        i8.int8_mlp_matvec(x, gu, gs, down, ds)
+    with pytest.raises(TypeError):
+        i8.int8_mlp_matvec(x[:4].float(), gu, gs, down, ds)
+    with pytest.raises(ValueError):
+        i8.int8_mlp_matvec(torch.zeros((64, 4), dtype=torch.bfloat16, device=dev).t(), gu, gs,
+                           down, ds)
+    with pytest.raises(ValueError):
+        i8.int8_mlp_matvec(x[:4], gu, gs, down[:, :32], ds)
+    packed = torch.zeros((32, 40), dtype=torch.int8, device=dev)
+    gscale = torch.ones((4, 40), device=dev)
+    x = torch.zeros((33, 64), dtype=torch.bfloat16, device=dev)  # 33 rows
+    with pytest.raises(ValueError):
+        i4.int4_matvec(x, packed, gscale)
+    with pytest.raises(TypeError):
+        i4.int4_matvec(x[:2].float(), packed, gscale)
+    with pytest.raises(ValueError):
+        i4.int4_matvec(torch.zeros((64, 2), dtype=torch.bfloat16, device=dev).t(), packed, gscale)
+    with pytest.raises(ValueError):
+        i4.int4_matvec(x[:2, :32], packed, gscale)  # in != 2 packed rows

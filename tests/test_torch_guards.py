@@ -13,11 +13,16 @@ import pytest
 import torch
 
 from sparktts_tpu.codec.bicodec import init_bicodec as jax_init_bicodec
+from sparktts_tpu.codec.quant import quantize_bicodec_int8 as jax_quantize_bicodec
 from sparktts_tpu.config import SparkTTSConfig as JaxConfig
+from sparktts_tpu.lm.quant import quantize_qwen_int4 as jax_quantize_int4
+from sparktts_tpu.lm.quant import quantize_qwen_int8 as jax_quantize_int8
 from sparktts_tpu.lm.qwen import init_qwen as jax_init_qwen
 from sparktts_tpu.nn.wav2vec2 import init_wav2vec2 as jax_init_wav2vec2
 from sparktts_tpu_torch import weights
+from sparktts_tpu_torch.codec.quant import quantize_bicodec_int8
 from sparktts_tpu_torch.config import SparkTTSConfig
+from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -41,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("pipeline", "kernels.flash_attention", "kernels.decode_attention",
-                 "kernels.vocoder_fusion", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
+                 "kernels.vocoder_fusion", "kernels.int8_mlp", "kernels.int4_matmul",
+                 "lm.quant", "codec.quant", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
                  "nn.perceiver", "codec.feat_encoder", "codec.fsq", "codec.fvq",
                  "codec.speaker_encoder", "codec.bicodec"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
@@ -95,3 +101,29 @@ def test_numpy_tree_converts_with_dtypes():
     out = weights.qwen_state(tree, "cpu", torch.bfloat16)
     assert out["a"].dtype == torch.bfloat16 and out["b"][0].dtype == torch.bfloat16
     assert out["i"].dtype == torch.int64
+
+
+def _shapes_and_dtypes(tree):
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {jax.tree_util.keystr(path): (tuple(leaf.shape), str(leaf.dtype).split(".")[-1])
+            for path, leaf in leaves}
+
+
+def test_quantized_trees_have_the_jax_keys_shapes_and_dtypes_at_full_width():
+    """int8 and int4 (group 128) LM trees from bf16 params, and the int8
+    BiCodec tree: the same keys, shapes and dtypes (int8 weights, fp32
+    scales) as the JAX package's, via jax.eval_shape and the meta device."""
+    jcfg, tcfg = JaxConfig(), SparkTTSConfig()
+    key = jax.random.PRNGKey(0)
+    jq = jax.eval_shape(lambda k: jax_init_qwen(k, jcfg.llm, dtype=jax.numpy.bfloat16), key)
+    tq = weights.init_qwen(tcfg.llm, device="meta")
+    for jax_fn, torch_fn in ((jax_quantize_int8, quantize_qwen_int8),
+                             (jax_quantize_int4, quantize_qwen_int4)):
+        want = _shapes_and_dtypes(jax.eval_shape(jax_fn, jq))
+        got = _shapes_and_dtypes(torch_fn(tq))
+        assert got == want
+    assert got["['layers']['down']['gscale']"] == ((24, 38, 896), "float32")
+    jb = jax.eval_shape(lambda k: jax_quantize_bicodec(jax_init_bicodec(k, jcfg.bicodec)), key)
+    got = _shapes_and_dtypes(quantize_bicodec_int8(weights.init_bicodec(tcfg.bicodec,
+                                                                        device="meta")))
+    assert got == _shapes_and_dtypes(jb)

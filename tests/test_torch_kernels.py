@@ -5,10 +5,15 @@ On the CPU the port's wrappers run their plain PyTorch versions, so these
 tests hold that arithmetic against the Pallas kernels in fp32.  Tolerance
 1e-5 for attention, the same fp32 math summed in another order; 2e-5 for
 the vocoder's ResidualUnit, the JAX package's own tolerance for its fused
-unit against the unfused one (two convs of 7C + C terms).  The CUDA kernels
-themselves are held against the plain versions on the card by
-`test_torch_cuda_kernels.py` (marked `cuda`, skipped without a card) and by
-chip_smoke.py.
+unit against the unfused one (two convs of 7C + C terms).  The quantized
+kernels run in bf16 as on the main path: the int8 MLP within 5e-2 (the JAX
+package's bound between its kernel and its unfused path; measured
+1.95e-3, one bf16 ulp of outputs under 0.54, from fp32 sums taken in
+another order), the int4 matvec within 5e-3 of the largest output
+(`tests/test_int4_kernel.py`'s bound; measured 2.7e-7 relative at most).
+The CUDA kernels themselves are held against the plain versions on the card
+by `test_torch_cuda_kernels.py` (marked `cuda`, skipped without a card) and
+by chip_smoke.py.
 """
 
 import jax
@@ -20,9 +25,15 @@ import torch
 from sparktts_tpu.kernels.decode_attention import dense_decode_attention as jax_decode
 from sparktts_tpu.kernels.flash_attention import flash_attention_prefill as jax_flash
 from sparktts_tpu.kernels.flash_attention import reference_attention
+from sparktts_tpu.kernels.int4_matmul import int4_matvec as jax_int4_matvec
+from sparktts_tpu.kernels.int4_matmul import reference_int4_matvec
+from sparktts_tpu.kernels.int8_mlp import int8_mlp_matvec as jax_int8_mlp
 from sparktts_tpu.kernels.vocoder_fusion import fused_residual_unit as jax_residual_unit
+from sparktts_tpu.lm.quant import quantize_linear_int4, quantize_linear_int8
 from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
+from sparktts_tpu_torch.kernels import int4_matmul as i4
+from sparktts_tpu_torch.kernels import int8_mlp as i8
 from sparktts_tpu_torch.kernels import vocoder_fusion as vf
 from sparktts_tpu_torch.weights import to_torch
 
@@ -171,3 +182,42 @@ def test_vocoder_unit_plain_ragged_and_single_tile(t, block_t, variant):
     x = np.random.default_rng(t).standard_normal((1, t, 8)).astype(np.float32)
     got, want = _vocoder_case(p, x, 3, block_t, variant)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _bf16(a):
+    """numpy fp32 -> (JAX bf16, torch bf16) of the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("r,k,i", [(1, 128, 512), (4, 64, 256), (16, 64, 256)])
+def test_int8_mlp_plain_matches_pallas(r, k, i):
+    """bf16 x and weights quantized from bf16, as the int8 LM holds them."""
+    rng = np.random.default_rng(r + k + i)
+    gu = quantize_linear_int8({"w": _bf16(0.05 * rng.standard_normal((k, 2 * i)))[0]})
+    down = quantize_linear_int8({"w": _bf16(0.05 * rng.standard_normal((i, k)))[0]})
+    jx, tx = _bf16(rng.standard_normal((r, k)))
+    want = np.asarray(jax_int8_mlp(jx, gu["w_q"], gu["scale"], down["w_q"], down["scale"],
+                                   block_i=128, interpret=True), np.float32)
+    before = i8.launches
+    got = i8.int8_mlp_matvec(tx, *(torch.from_numpy(np.asarray(a)) for a in
+                                   (gu["w_q"], gu["scale"], down["w_q"], down["scale"])))
+    assert i8.launches == before and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("d_in,d_out,group,b", [(64, 512, 16, 3), (896, 1152, 128, 1),
+                                                (4864, 896, 128, 2)])
+def test_int4_matvec_plain_matches_pallas(d_in, d_out, group, b):
+    rng = np.random.default_rng(d_in + d_out)
+    q = quantize_linear_int4({"w": jnp.asarray(rng.standard_normal((d_in, d_out)), jnp.float32)},
+                             group=group)
+    jx, tx = _bf16(rng.standard_normal((b, d_in)))
+    packed, gscale = (torch.from_numpy(np.asarray(q[n])) for n in ("w_p4", "gscale"))
+    before = i4.launches
+    got = i4.int4_matvec(tx, packed, gscale).float().numpy()
+    assert i4.launches == before
+    for ref in (jax_int4_matvec(jx, q["w_p4"], q["gscale"], interpret=True),
+                reference_int4_matvec(jx, q["w_p4"], q["gscale"])):
+        ref = np.asarray(ref, np.float32)
+        assert np.abs(got - ref).max() <= 5e-3 * np.abs(ref).max()

@@ -14,11 +14,14 @@ import pytest
 import torch
 
 from sparktts_tpu.config import tiny_test_config
+from sparktts_tpu.lm.quant import quantize_qwen_int4 as jax_quantize_int4
+from sparktts_tpu.lm.quant import quantize_qwen_int8 as jax_quantize_int8
 from sparktts_tpu.pipeline import SparkTTSPipeline as JaxPipeline
 from sparktts_tpu.prompt import build_clone_prompt as jax_clone_prompt
 from sparktts_tpu.prompt import build_control_prompt as jax_control_prompt
 from sparktts_tpu_torch.config import tiny_test_config as torch_tiny_config
 from sparktts_tpu_torch.io.audio import write_wav
+from sparktts_tpu_torch.lm.quant import quantize_qwen_int8
 from sparktts_tpu_torch.pipeline import SparkTTSPipeline
 from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
 
@@ -140,3 +143,36 @@ def test_inference_needs_a_voice(pipelines):
     _, tpipe = pipelines
     with pytest.raises(ValueError, match="prompt_speech_path"):
         tpipe.inference("hello")
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_lm_voice_creation_greedy_matches_jax(pipelines, kind):
+    """Voice creation with a weight-only quantized LM, as users get one: the
+    int8 LM by quantizing `pipe.llm_params` in place, the int4 LM (group 16
+    on hidden 64) by passing the JAX package's numpy tree to the
+    constructor.  Greedy ids equal, waveform within 1e-4 of its peak."""
+    jpipe, tpipe = pipelines
+    jax_params, torch_params = jpipe.llm_params, tpipe.llm_params
+    try:
+        if kind == "int8":
+            jpipe.llm_params = jax_quantize_int8(jax_params)
+            tpipe.llm_params = quantize_qwen_int8(torch_params)
+            pipe = tpipe
+        else:
+            jpipe.llm_params = jax_quantize_int4(jax_params, group=16)
+            pipe = SparkTTSPipeline(
+                config=torch_tiny_config(), device="cpu", lm_dtype=torch.float32,
+                max_new_tokens=24, llm_params=jax.tree.map(np.asarray, jpipe.llm_params),
+                bicodec_params=jax.tree.map(np.asarray, jpipe.bicodec_params),
+            )
+        text = "Quantized speech."
+        ids = build_control_prompt(pipe.tokenizer, text, **VOICE)
+        np.testing.assert_array_equal(pipe.generate_tokens(ids, greedy=True),
+                                      jpipe.generate_tokens(ids, greedy=True, mode="control"))
+        want = jpipe.inference(text, greedy=True, **VOICE)
+        got = pipe.inference(text, greedy=True, **VOICE)
+        assert got.shape == want.shape and got.size > 0
+        peak = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=WAV_REL_TOL, atol=WAV_REL_TOL * peak)
+    finally:
+        jpipe.llm_params, tpipe.llm_params = jax_params, torch_params
