@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the two main paths from
+2. build every CUDA kernel of the main paths from
    sparktts_tpu_torch/kernels/csrc/ for sm_90a, one nvcc per source, in
    parallel (nvcc's register/shared-memory report goes to chiprun_out/);
 3. voice creation end to end at the full Spark-TTS-0.5B widths through
@@ -49,13 +49,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    attention: last-position logits must agree;
 11. one full-width decode step of the int8 and of the int4 LM on the card
    and on the CPU (the same weights moved with .cpu(), each side prefilled
-   from the same prompt): guided logits must agree, with the same argmax.
+   from the same prompt): guided logits must agree, with the same argmax;
+12. continuous batching, paged: the PagedContinuousEngine sized as
+   ContinuousTTSServer(paged=True) sizes it (8 slots, 256-token pages, 4
+   pages a slot, a pool of 17 pages: half the worst case), bf16, the
+   control superset with clone narrowing, sampling, serves eight requests
+   (four voice creations, four clones of phase 4's prompt wav, two with its
+   transcript): six submitted at once, two after the first 64-step
+   dispatch, each AdmissionDeferred retried after every step.  Counters are
+   0 just before and read just after: 24 paged-kernel launches per decode
+   step, no other attention kernel; every request ends with 500 ids (or at
+   an EOS that sampling drew), all in its mode's guided set; at least one
+   deferral; every page back in the pool;
+   one creation and one clone vocoded to finite waveforms of 320 samples
+   per semantic token;
+13. continuous batching, dense: the ContinuousBatchingEngine (cache 960)
+   serves the same eight requests with the same checks, its 24 decode
+   launches per step on the dense kernel; KV bytes against the pool's;
+14. one decode step's guided logits through each engine's forward from its
+   state after the first dispatch, on the card and on the CPU (params and
+   state moved with .cpu()): within 5e-2 of the largest logit on every live
+   row, and each row's argmax on the card the CPU's or, where the row's top
+   logits lie closer than that, within 5e-2 of the CPU's top logit;
+15. the paged kernel against its plain version on the paged engine's own
+   pools, table and lengths after that dispatch, and at lengths 1, P, P + 1,
+   the full table and one past it; timed at the engine's state.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches are the sum over the four requests of phases 3, 4, 6 and 7, its
-times those of the voice-creation shapes, for the int8 MLP one call at one
-row, for the int4 matvec the four calls of one layer at one row); the last
-line is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
+launches are the sum over the six main-path runs of phases 3, 4, 6, 7, 12
+and 13, its times those of the voice-creation shapes, for the int8 MLP one
+call at one row, for the int4 matvec the four calls of one layer at one row,
+for the paged kernel one layer at the paged engine's state); the last line
+is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
 result.
 """
@@ -117,6 +142,22 @@ INT4_REL_TOL = 1e-2
 # (tests/test_codec_quant.py).
 CODEC_INT8_REL_L2 = 0.05
 INT4_GROUP = 128
+
+# The engine phases, sized as ContinuousTTSServer sizes its engines (8 slots,
+# 256-token pages); the dense cache holds the clone prompt's bucket (448)
+# and the budget, which the server's default of 768 would refuse.
+ENGINE_SLOTS = 8
+PAGE_SIZE = 256
+DENSE_CACHE_LEN = 960
+ENGINE_DISPATCH = 64
+ENGINE_CREATIONS = (
+    (TEXT, ("female", "moderate", "moderate")),
+    ("Eight voices share one card and none of them waits.", ("male", "low", "high")),
+    ("Pages come and go as the requests run.", ("female", "high", "low")),
+    ("A burst of requests, served together.", ("male", "very_low", "moderate")),
+)
+# at most TEXT's length: with the transcript, the prompt stays in the 448 bucket
+ENGINE_CLONE_TEXTS = (TEXT, "One card serves eight voices here.")
 
 
 def _time_ms(fn, dev, iters=20, reps=10) -> float:
@@ -527,6 +568,8 @@ def _check_request(label, pipe, wav, launches, summary, mlp_per_layer=0, int4_pe
         raise AssertionError(f"{label}: expected {n_layers} decode launches per step")
     if launches["fused_residual_unit"] != VOCODER_UNITS:
         raise AssertionError(f"{label}: expected {VOCODER_UNITS} vocoder launches for one vocode")
+    if launches["paged_decode_attention"] != 0:
+        raise AssertionError(f"{label}: the pipeline launched the paged kernel")
     for name, per_layer in (("int8_mlp_matvec", mlp_per_layer), ("int4_matvec", int4_per_layer)):
         if launches[name] != per_layer * n_layers * steps:
             raise AssertionError(f"{label}: {launches[name]} {name} launches, expected "
@@ -834,6 +877,328 @@ def check_decode_step_on_cpu(pipe, params, label, prompt, mode):
         raise AssertionError(f"{label}: the card's decode step launched no quantized kernel")
 
 
+def engine_requests(pipe, wav_path: Path):
+    """The eight requests of the engine phases, in submission order: four
+    voice creations (different texts and attributes), then four clones of
+    the prompt wav, two with its transcript (the 419-token prompt) and two
+    without.  Each is (label, prompt ids, mode)."""
+    from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+    tok = pipe.tokenizer
+    glob, sem = pipe.tokenize_audio(wav_path)
+    out = [(f"creation {i}", build_control_prompt(tok, text, *voice), "control")
+           for i, (text, voice) in enumerate(ENGINE_CREATIONS)]
+    for i, text in enumerate(ENGINE_CLONE_TEXTS):
+        out.append((f"clone {i}, transcript", build_clone_prompt(tok, text, glob, sem, PROMPT_TEXT),
+                    "clone"))
+        out.append((f"clone {i}, no transcript", build_clone_prompt(tok, text, glob), "clone"))
+    return out, glob
+
+
+def _engine_kwargs(pipe):
+    """What ContinuousTTSServer passes both engines: one engine serves both
+    modes under the control superset, clone slots narrowed per slot."""
+    from sparktts_tpu_torch.pipeline import PROMPT_BUCKET
+
+    vocab_slice, extra_ids = pipe.guided_constraint("control")
+    clone_slice, clone_extras = pipe.guided_constraint("clone")
+    return dict(prompt_pad=PROMPT_BUCKET, eos_ids=tuple(pipe.tokenizer.eos_ids),
+                pad_id=pipe.tokenizer.pad_id, cache_dtype=pipe.lm_dtype, vocab_slice=vocab_slice,
+                extra_ids=extra_ids, clone_slice=clone_slice, clone_extras=clone_extras,
+                seed=SEED, device=pipe.device)
+
+
+def _clone_state(state, device=None):
+    """A copy of an engine state (nested NamedTuples of tensors), on
+    `device` when given."""
+    if isinstance(state, tuple):
+        return type(state)(*(_clone_state(x, device) for x in state))
+    return state.clone() if device is None else state.to(device)
+
+
+def serve_burst(label, pipe, eng, requests, glob, modules):
+    """The engine phases' main path: submit the first six requests, dispatch
+    ENGINE_DISPATCH steps through the three-phase step protocol, queue the
+    other two, and after every step retry the waiting requests in order
+    (each AdmissionDeferred counts once), as the server does, until all are
+    done; then vocode one creation and one clone (the clone with the prompt
+    wav's global ids `glob`).  Every launch counter is 0 just before and
+    read just after.  Returns a summary with the finished ids, the
+    launches, the state after the first dispatch and the metrics."""
+    import torch
+
+    from sparktts_tpu_torch.lm.continuous import AdmissionDeferred
+    from sparktts_tpu_torch.prompt import extract_semantic_ids, padded_global_tokens
+
+    dev = pipe.device
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for m in modules.values():
+        m.launches = 0
+    waiting, req_ids = list(range(6)), {}
+    deferrals = steps = dispatches = 0
+    step_s, snapshot = 0.0, None
+
+    def admit():
+        nonlocal deferrals
+        while waiting:
+            i = waiting[0]
+            try:
+                req_ids[i] = eng.submit(requests[i][1], MAX_NEW_TOKENS, mode=requests[i][2])
+            except AdmissionDeferred:
+                deferrals += 1
+                return
+            waiting.pop(0)
+
+    t0 = time.perf_counter()
+    admit()
+    while waiting or any(o is not None for o in eng.owner):
+        ts = time.perf_counter()
+        handle = eng.step_begin(ENGINE_DISPATCH)
+        if handle is None:
+            raise AssertionError(f"{label}: requests wait but no slot is live")
+        eng.step_commit(handle, eng.step_fetch(handle))
+        step_s += time.perf_counter() - ts
+        steps += handle[2]
+        dispatches += 1
+        if snapshot is None:
+            snapshot = _clone_state(eng.slots)
+            waiting += [6, 7]
+        admit()
+    _sync(dev)
+    serve_s = time.perf_counter() - t0
+    finished = {i: eng.finished[r] for i, r in req_ids.items()}
+    tok = pipe.tokenizer
+    token_num = pipe.config.bicodec.speaker_encoder.token_num
+    wavs = {}
+    for i in (0, 4):  # one creation, one clone
+        semantic = extract_semantic_ids(tok, finished[i])
+        voice = padded_global_tokens(tok, finished[i], token_num) if i == 0 else glob
+        wavs[i] = (pipe.detokenize(voice, semantic[None, :]), semantic.size)
+    _sync(dev)
+    launches = {name: m.launches for name, m in modules.items()}
+    n_tokens = sum(len(v) for v in finished.values())
+    summary = dict(requests=len(requests), tokens=n_tokens, decode_steps=steps,
+                   dispatches=dispatches, deferrals=deferrals, serve_s=serve_s,
+                   tokens_per_s=n_tokens / serve_s, ms_per_step=step_s * 1e3 / steps,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30
+                   if dev.type == "cuda" else float("nan"))
+    return dict(summary=summary, finished=finished, launches=launches, snapshot=snapshot,
+                wavs=wavs)
+
+
+def check_burst(label, pipe, run, requests, kernel, n_layers):
+    """The engine phases' checks: every request finishes, with
+    MAX_NEW_TOKENS ids or at its first EOS, all in its mode's guided set
+    (clone: semantic ids and EOS only); `kernel` launched n_layers times per
+    decode step and no other
+    attention kernel; each vocoded waveform finite at 320 samples per
+    semantic token."""
+    import numpy as np
+
+    launches, steps = run["launches"], run["summary"]["decode_steps"]
+    print(f"{label}:", json.dumps(run["summary"]))
+    print(f"launch counters over the {label} run:", json.dumps(launches))
+    tok = pipe.tokenizer
+    for i, (name, _, mode) in enumerate(requests):
+        ids = run["finished"].get(i)
+        if ids is None:
+            raise AssertionError(f"{label}: {name} did not finish")
+        # sampling may draw EOS, rarely, from random weights: a request ends
+        # at its budget or at its one EOS, which it keeps
+        eos = np.isin(ids, tok.eos_ids)
+        ended = len(ids) == MAX_NEW_TOKENS or (len(ids) < MAX_NEW_TOKENS and bool(eos[-1]))
+        if not ended or eos[:-1].any():
+            raise AssertionError(f"{label}: {name} finished with {len(ids)} ids, EOS at "
+                                 f"{np.flatnonzero(eos).tolist()}")
+        if len(ids) < MAX_NEW_TOKENS:
+            print(f"{label}: {name} drew EOS after {len(ids) - 1} ids")
+        (lo, hi), extras = pipe.guided_constraint(mode)
+        legal = ((ids >= lo) & (ids < hi)) | np.isin(ids, extras)
+        if mode == "clone":
+            legal &= ((ids >= tok.semantic_base) & (ids < tok.semantic_base + tok.n_semantic)
+                      ) | np.isin(ids, tok.eos_ids)
+        if not legal.all():
+            raise AssertionError(f"{label}: {name} emitted ids outside its guided set")
+    others = ("flash_attention_prefill", "dense_decode_attention", "paged_decode_attention")
+    for name in others:
+        want = n_layers * steps if name == kernel else 0
+        if launches[name] != want:
+            raise AssertionError(f"{label}: {launches[name]} {name} launches, expected {want}")
+    if launches["int8_mlp_matvec"] or launches["int4_matvec"]:
+        raise AssertionError(f"{label}: a quantized kernel launched in a bf16 run")
+    if launches["fused_residual_unit"] != 2 * VOCODER_UNITS:
+        raise AssertionError(f"{label}: expected {2 * VOCODER_UNITS} vocoder launches")
+    bc = pipe.config.bicodec
+    hop = int(np.prod(bc.decoder.rates) * np.prod(bc.prenet.sample_ratios))
+    for i, (wav, n_sem) in run["wavs"].items():
+        if not (n_sem > 0 and np.isfinite(wav).all() and len(wav) == n_sem * hop):
+            raise AssertionError(f"{label}: {requests[i][0]} vocoded to {len(wav)} samples for "
+                                 f"{n_sem} semantic tokens (want x{hop}, finite)")
+
+
+def check_engine_forward(label, eng, snapshot, step_logits):
+    """One decode step's guided logits through the engine's forward
+    (`step_logits`) from the state after the first dispatch, on the card
+    (its kernels) and on the CPU (the plain versions; params and state moved
+    with .cpu()): within LOGITS_REL_TOL of the largest logit on every live
+    row, and the card's argmax of each row within it of the CPU's top."""
+    import torch
+
+    from sparktts_tpu_torch.lm.sample import NEG_INF
+
+    t0 = time.perf_counter()
+    live = (snapshot.active & ~snapshot.done).cpu()
+    allowed = eng.clone_allowed
+    with torch.inference_mode():
+        card = step_logits(eng.params, eng.cfg, _clone_state(snapshot), eng.vocab_slice,
+                           eng.extra_ids, allowed).float().cpu()
+        cpu = step_logits(_cpu(eng.params), eng.cfg, _clone_state(snapshot, "cpu"),
+                          eng.vocab_slice, eng.extra_ids, allowed.cpu()).float()
+    card, cpu = card[live], cpu[live]
+    # clone rows hold -1e9 outside semantic ids and EOS: compare the rest
+    legal = cpu > NEG_INF / 2
+    if not torch.equal(legal, card > NEG_INF / 2):
+        raise AssertionError(f"{label}: the card and the CPU mask different logits")
+    scale, err = float(cpu[legal].abs().max()), float((card - cpu)[legal].abs().max())
+    # random weights give near-flat logits over ~12k ids, where the top two
+    # of a row may lie closer than bf16 noise: the card's pick must be the
+    # CPU's, or within the tolerance of the CPU's largest logit of its row
+    top_card, top_cpu = card.argmax(-1), cpu.argmax(-1)
+    shortfall = cpu.max(-1).values - cpu.gather(1, top_card[:, None])[:, 0]
+    print(f"{label} forward, card vs CPU, {int(live.sum())} live rows "
+          f"({time.perf_counter() - t0:.1f} s): guided logits max|card - cpu| = {err:.4e}, "
+          f"max|logit| = {scale:.4e}, relative {err / scale:.3e} (tol {LOGITS_REL_TOL}); "
+          f"same argmax on {int((top_card == top_cpu).sum())} rows, the card's pick at most "
+          f"{float(shortfall.max()):.4e} below the CPU's top logit of its row")
+    if not (math.isfinite(err) and err <= LOGITS_REL_TOL * scale
+            and float(shortfall.max()) <= LOGITS_REL_TOL * scale):
+        raise AssertionError(f"{label}: the engine's forward on the card disagrees with the CPU")
+
+
+def check_paged(dev, cfg, snapshot):
+    """The paged kernel vs its plain version on the paged engine's pools,
+    table and lengths after its first dispatch, then at lengths 1, P, P + 1,
+    the full table and one past it (a finished slot) over the same pools;
+    the engine's case timed.  Returns the kernels-line entry (without
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparktts_tpu_torch.kernels import paged_attention as pa
+
+    hq, d, n_layers = cfg.num_attention_heads, cfg.head_dim, cfg.num_hidden_layers
+    scale = d**-0.5
+    kp, vp, table = snapshot.k_pages, snapshot.v_pages, snapshot.page_table
+    b, pps = table.shape
+    page, hkv = kp.shape[3], kp.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = snapshot.write_pos + 1
+    # a full table of valid pages (not the trash page), in no order
+    full_table = torch.randint(1, kp.shape[2], (b, pps), generator=gen, device=dev,
+                               dtype=torch.int32)
+    made = torch.tensor([1, page, page + 1, pps * page, pps * page + 1, 0, 2 * page - 1, 3],
+                        dtype=torch.int32, device=dev)[:b]
+    cases = [("engine", table, lengths), ("made", full_table, made)]
+    max_err = 0.0
+    for name, tab, lens in cases:
+        for layer in (0, n_layers - 1):
+            got = pa.paged_decode_attention(q, kp, vp, tab, lens, layer, sm_scale=scale).float()
+            want = pa.paged_decode_plain(q, kp, vp, tab, lens, layer, sm_scale=scale).float()
+            _sync(dev)
+            err = float((got - want).abs().max())
+            print(f"paged_decode_attention {name} B={b} P={page} pps={pps} layer={layer} "
+                  f"lengths={lens.tolist()}: max_abs_err={err:.3e} (tol {KERNEL_ATOL})")
+            if not (bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL):
+                raise AssertionError(f"paged kernel disagrees with its plain version: {err}")
+            max_err = max(max_err, err)
+
+    layer = n_layers // 2
+    kernel = functools.partial(pa.paged_decode_attention, q, kp, vp, table, lengths, layer,
+                               sm_scale=scale)
+    plain = functools.partial(pa.paged_decode_plain, q, kp, vp, table, lengths, layer,
+                              sm_scale=scale)
+    ms, plain_ms = _time_ms(kernel, dev), _time_ms(plain, dev)
+    # yardstick only, leaving out the gather: SDPA over each slot's K/V
+    # already gathered into (B, Hkv, pps P, D), masked past its length
+    idx = table.long()
+    gathered = [x[layer][:, idx].transpose(0, 1).reshape(b, hkv, pps * page, d).contiguous()
+                for x in (kp, vp)]
+    mask = (torch.arange(pps * page, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], *gathered, attn_mask=mask, scale=scale, enable_gqa=True), dev)
+    keys = int(torch.clamp(lengths, 0, pps * page).sum())
+    nbytes = 2 * (2 * q.numel() + 2 * keys * hkv * d) + 4 * (table.numel() + b)
+    bound_ms, bound_by = _bound(nbytes, 4 * d * hq * keys)
+    print(f"paged_decode_attention engine state B={b} keys={keys}: device {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, SDPA over a pre-gathered copy, gather left out, {sdpa_ms:.4f}; bound "
+          f"{bound_ms:.3e} by {bound_by}); eager call {_eager_ms(kernel, dev):.4f} ms "
+          f"(plain {_eager_ms(plain, dev):.4f})")
+    return dict(name="paged_decode_attention", route="cuda", source=pa.SOURCE,
+                replaces=pa.REPLACES, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def build_engines(pipe):
+    """(paged, dense) engines over the pipeline's LM, sized as
+    ContinuousTTSServer sizes them: the paged table holds the prompt region
+    (4 prompt buckets, in pages), the budget and one spare page, and the
+    pool half the worst case; the dense cache DENSE_CACHE_LEN."""
+    from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
+    from sparktts_tpu_torch.lm.paged import PagedContinuousEngine
+
+    cfg, kw = pipe.config.llm, _engine_kwargs(pipe)
+    prompt_cap = -(-4 * kw["prompt_pad"] // PAGE_SIZE)
+    pages_per_slot = prompt_cap + -(-MAX_NEW_TOKENS // PAGE_SIZE) + 1
+    n_pages = ENGINE_SLOTS * pages_per_slot // 2 + 1
+    paged = PagedContinuousEngine(pipe.llm_params, cfg, max_slots=ENGINE_SLOTS, n_pages=n_pages,
+                                  page_size=PAGE_SIZE, pages_per_slot=pages_per_slot, **kw)
+    dense = ContinuousBatchingEngine(pipe.llm_params, cfg, max_slots=ENGINE_SLOTS,
+                                     cache_len=DENSE_CACHE_LEN, **kw)
+    return paged, dense
+
+
+def run_engines(pipe, modules, wav_path: Path):
+    """Phases 12-15: the paged engine (as ContinuousTTSServer(paged=True)
+    builds it) and the dense engine serve the same eight requests; each
+    engine's forward card vs CPU; the paged kernel vs plain.  Returns (the
+    paged kernel's kernels-line entry, the launches of the two runs)."""
+    from sparktts_tpu_torch.lm.continuous import dense_step_logits
+    from sparktts_tpu_torch.lm.paged import paged_step_logits
+
+    cfg = pipe.config.llm
+    requests, glob = engine_requests(pipe, wav_path)
+    paged, dense = build_engines(pipe)
+    n_pages, pages_per_slot = paged.slots.k_pages.shape[2], paged.pages_per_slot
+    pool_bytes = paged.slots.k_pages.nbytes + paged.slots.v_pages.nbytes
+    run_p = serve_burst("paged engine", pipe, paged, requests, glob, modules)
+    run_p["summary"].update(pool_bytes=pool_bytes, n_pages=n_pages, pages_per_slot=pages_per_slot,
+                            page_size=PAGE_SIZE)
+    check_burst("paged engine", pipe, run_p, requests, "paged_decode_attention",
+                cfg.num_hidden_layers)
+    if run_p["summary"]["deferrals"] < 1:
+        raise AssertionError("paged engine: no admission was deferred")
+    if paged.pages_in_use() != 0 or len(paged.free_pages) != n_pages - 1:
+        raise AssertionError(f"paged engine: {paged.pages_in_use()} pages in use, "
+                             f"{len(paged.free_pages)} free at the end")
+
+    dense_bytes = dense.slots.cache.k.nbytes + dense.slots.cache.v.nbytes
+    run_d = serve_burst("dense engine", pipe, dense, requests, glob, modules)
+    run_d["summary"].update(kv_bytes=dense_bytes, cache_len=DENSE_CACHE_LEN)
+    check_burst("dense engine", pipe, run_d, requests, "dense_decode_attention",
+                cfg.num_hidden_layers)
+    print(f"KV memory: paged pool {pool_bytes / 2**20:.2f} MiB ({n_pages} pages of {PAGE_SIZE}), "
+          f"dense cache {dense_bytes / 2**20:.2f} MiB ({ENGINE_SLOTS} x {DENSE_CACHE_LEN}), "
+          f"ratio {pool_bytes / dense_bytes:.4f}")
+
+    check_engine_forward("paged engine", paged, run_p["snapshot"], paged_step_logits)
+    check_engine_forward("dense engine", dense, run_d["snapshot"], dense_step_logits)
+    entry = check_paged(pipe.device, cfg, run_p["snapshot"])
+    return entry, (run_p["launches"], run_d["launches"])
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -850,6 +1215,7 @@ def main() -> int:
     from sparktts_tpu_torch.kernels import flash_attention as fa
     from sparktts_tpu_torch.kernels import int4_matmul as i4
     from sparktts_tpu_torch.kernels import int8_mlp as i8
+    from sparktts_tpu_torch.kernels import paged_attention as pa
     from sparktts_tpu_torch.kernels import vocoder_fusion as vf
     from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
     from sparktts_tpu_torch.lm.qwen import aligned_cache_len, unstack_layers
@@ -870,7 +1236,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all(["flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp",
-                            "int4_matmul"])
+                            "int4_matmul", "paged_attention"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernel_build.log").write_text(
@@ -882,7 +1248,8 @@ def main() -> int:
 
     pipe = SparkTTSPipeline(device=dev, seed=SEED)
     modules = {"flash_attention_prefill": fa, "dense_decode_attention": da,
-               "fused_residual_unit": vf, "int8_mlp_matvec": i8, "int4_matvec": i4}
+               "fused_residual_unit": vf, "int8_mlp_matvec": i8, "int4_matvec": i4,
+               "paged_decode_attention": pa}
     creation = run_voice_creation(pipe, modules)
     wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
     cloning = run_voice_cloning(pipe, modules, wav_path)
@@ -921,9 +1288,15 @@ def main() -> int:
         check_lm_prefill(pipe, prompt)
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
     check_decode_step_on_cpu(pipe, int4_params, "int4 LM", creation[1], "control")
-    requests = (creation, cloning, cloning_int8, creation_int4)
+    del int8_params, int4_params
+    torch.cuda.empty_cache()
+
+    # continuous batching: the paged and the dense engine serve one burst
+    paged_entry, engine_launches = run_engines(pipe, modules, wav_path)
+    entries.append(paged_entry)
+    runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     for e in entries:
-        e["launches"] = sum(r[0][e["name"]] for r in requests)
+        e["launches"] = sum(run[e["name"]] for run in runs)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -1,0 +1,121 @@
+"""Paged-KV decode attention: the hand-written CUDA kernel and its plain
+version.
+
+Replaces `paged_decode_attention` of `sparktts_tpu/kernels/paged_attention.py`
+(`_paged_kernel`): one query token per slot against the `layer` plane of the
+stacked `(L, Hkv, n_pages, P, D)` K and V pools, keys `[0, lengths[b])` read
+through the slot's row of the `(B, pages_per_slot)` int32 page table, fp32
+accumulation, output in q's dtype.  A slot of length 0 gives zeros.  The
+kernel is `csrc/paged_attention.cu`; its header says how it is laid out,
+what bounds it on an H100 and what the design does about it.
+
+`paged_decode_attention` runs the plain version for CPU tensors only; for
+CUDA tensors it launches the kernel or raises.  `launches` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sparktts_tpu_torch.kernels import build
+
+SOURCE = "sparktts_tpu_torch/kernels/csrc/paged_attention.cu"
+REPLACES = "sparktts_tpu/kernels/paged_attention.py:158"
+HEAD_DIM = 64
+GROUP = 7  # query heads per KV head the kernel is built for (Qwen2.5-0.5B)
+
+launches = 0
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("paged_attention").paged_decode_attention_bf16
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def paged_decode_plain(
+    q: torch.Tensor,           # (B, Hq, D)
+    k_pages: torch.Tensor,     # (L, Hkv, n_pages, P, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, pages_per_slot) int32
+    lengths: torch.Tensor,     # (B,) valid keys per slot
+    layer: int,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """Gathers each slot's pages of pool[layer] and takes a masked fp32
+    softmax (-inf past the length, an empty row gives zeros); (B, Hq, D) in
+    q.dtype."""
+    b, hq, d = q.shape
+    kp, vp = k_pages[layer], v_pages[layer]  # (Hkv, n_pages, P, D)
+    hkv, _, page, _ = kp.shape
+    s = page_table.shape[1] * page
+    idx = page_table.long()
+    k = kp[:, idx].transpose(0, 1).reshape(b, hkv, s, d).float()  # (B, Hkv, S, D)
+    v = vp[:, idx].transpose(0, 1).reshape(b, hkv, s, d).float()
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k) * sm_scale
+    valid = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]  # (B, S)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v) / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    layer: int,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """Decode attention over the paged pools; returns (B, Hq, D)."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale)
+    global launches
+    b, hq, d = q.shape
+    if k_pages.dim() != 5 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_decode_attention: pools of shapes {k_pages.shape} {v_pages.shape}")
+    n_layers, hkv, n_pages, page, pd = k_pages.shape
+    if any(x.device != q.device for x in (k_pages, v_pages, page_table, lengths)):
+        raise ValueError("paged_decode_attention: all inputs must be on one device")
+    if any(x.dtype != torch.bfloat16 for x in (q, k_pages, v_pages)):
+        raise TypeError("paged_decode_attention: the CUDA kernel takes bf16 q and pools")
+    if d != HEAD_DIM or pd != d:
+        raise ValueError(f"paged_decode_attention: unsupported head dim {q.shape} {k_pages.shape}")
+    if hq != hkv * GROUP:
+        raise ValueError(f"paged_decode_attention: {hq} query heads over {hkv} KV heads")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"paged_decode_attention: layer {layer} of {n_layers}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"paged_decode_attention: page table {page_table.shape}, lengths "
+                         f"{lengths.shape} for {b} slots")
+    if any(x.dtype != torch.int32 for x in (page_table, lengths)):
+        raise ValueError("paged_decode_attention: page_table and lengths must be int32")
+    if not all(x.is_contiguous() for x in (q, k_pages, v_pages, page_table, lengths)):
+        raise ValueError("paged_decode_attention: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode_attention: q and pools must be 16-byte aligned")
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    err = _kernel()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), int(layer), b, hkv, hq, n_pages, page,
+        page_table.shape[1], float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    launches += 1
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention: CUDA launch failed with error {err}")
+    return out

@@ -40,6 +40,23 @@ class GenState(NamedTuple):
     prompt_len: torch.Tensor  # (B,) int64 true prompt lengths
 
 
+def packed_allowed_mask(
+    vocab_slice, extra_ids, allow_slice, allow_extras, device="cpu"
+) -> torch.Tensor:
+    """(W,) bool over the packed guided logit axis (slice rows then extras):
+    True where the packed row's full-vocab id lies in [allow_slice[0],
+    allow_slice[1]) or in allow_extras.  The continuous engines sample under
+    the control-mode superset and narrow clone-mode slots with this mask to
+    semantic ids and EOS."""
+    lo, hi = vocab_slice
+    ids = torch.cat([torch.arange(lo, hi), torch.tensor(extra_ids, dtype=torch.long)])
+    a_lo, a_hi = allow_slice
+    allowed = (ids >= a_lo) & (ids < a_hi)
+    if allow_extras:
+        allowed |= torch.isin(ids, torch.tensor(allow_extras, dtype=torch.long))
+    return allowed.to(device)
+
+
 def expand_constrained(idx: torch.Tensor, vocab_slice, extra_ids) -> torch.Tensor:
     """Packed constrained-logits index (slice rows then extras) -> full-vocab id."""
     if vocab_slice is None:

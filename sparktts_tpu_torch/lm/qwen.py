@@ -7,7 +7,9 @@ one `qkv` block and gate/up into one `gateup` block.  The cache is a pair of
 `(L, B, S, n_kv, hd)` tensors written IN PLACE (the JAX version threads it
 through a scan carry that XLA aliases).  Prompts are left-padded, so every
 row's cache is aligned at the right edge of the prefill window and decode
-writes one shared slot per step.
+writes one shared slot per step.  The continuous engine (`lm/continuous.py`)
+right-pads instead and passes a (B,) write position: each row's decode step
+writes at its own slot.
 
 Attention goes through the two kernel modules: prefill through
 `kernels.flash_attention` when `flash_start` is given, every decode step
@@ -122,7 +124,7 @@ def _attention_block(
     rope,
     cache: KVCache,
     layer_idx: int,
-    write_pos: int,
+    write_pos: int | torch.Tensor,
     key_mask_bias: Optional[torch.Tensor],
     cfg: QwenConfig,
     flash_start: Optional[torch.Tensor] = None,
@@ -131,7 +133,9 @@ def _attention_block(
     """Attention for prefill (T >= 1) and decode (T == 1).
 
     New K/V are written into cache plane `layer_idx` at [write_pos,
-    write_pos + T), in place.  flash_start (B,) int32: prefill from slot 0
+    write_pos + T), in place; a (B,) tensor write_pos (T == 1, the
+    continuous engine) writes row b at its own write_pos[b], which must lie
+    in [0, S).  flash_start (B,) int32: prefill from slot 0
     through the flash kernel module.  decode_window ((B,) start, (B,) pos)
     int32: T == 1 decode through the decode kernel module, keys valid in
     [start, pos].  Otherwise key_mask_bias (B, T, S), an additive fp32 bias
@@ -139,8 +143,13 @@ def _attention_block(
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q, k, v = project_qkv(layer, x, rope, cfg)
-    cache.k[layer_idx, :, write_pos : write_pos + t] = k
-    cache.v[layer_idx, :, write_pos : write_pos + t] = v
+    if isinstance(write_pos, torch.Tensor):
+        rows = (torch.arange(b, device=x.device), write_pos.long())
+        cache.k[layer_idx].index_put_(rows, k[:, 0].to(cache.k.dtype))
+        cache.v[layer_idx].index_put_(rows, v[:, 0].to(cache.v.dtype))
+    else:
+        cache.k[layer_idx, :, write_pos : write_pos + t] = k
+        cache.v[layer_idx, :, write_pos : write_pos + t] = v
 
     if flash_start is not None:
         out = flash_attention_prefill(
@@ -191,7 +200,7 @@ def qwen_forward(
     input_ids: torch.Tensor,    # (B, T) int64
     positions: torch.Tensor,    # (B, T) RoPE positions
     cache: KVCache,
-    write_pos: int,             # cache slot of input_ids[:, 0]
+    write_pos: int | torch.Tensor,  # cache slot of input_ids[:, 0]; (B,) per row
     key_mask_bias: Optional[torch.Tensor],  # (B, T, S) additive bias
     flash_start: Optional[torch.Tensor] = None,
     decode_window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

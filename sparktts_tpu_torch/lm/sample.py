@@ -18,9 +18,12 @@ import torch
 NEG_INF = -1e9
 
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
+#: A float for the whole batch, or a (B, 1) tensor: one value per row (the
+#: continuous engines keep each request's temperature and top_p per slot).
+PerRow = Union[float, torch.Tensor]
 
 
-def _warp(logits: torch.Tensor, temperature: float, top_k: int, top_p: float):
+def _warp(logits: torch.Tensor, temperature: PerRow, top_k: int, top_p: PerRow):
     """(filtered top-k logits with NEG_INF outside the nucleus, their ids)."""
     scaled = logits / temperature
     top_k = min(top_k, logits.shape[-1])
@@ -42,9 +45,9 @@ def _uniform(generator: Generators, shape, device) -> torch.Tensor:
 def sample_token(
     generator: Generators,
     logits: torch.Tensor,   # (B, V) fp32
-    temperature: float,
+    temperature: PerRow,
     top_k: int,
-    top_p: float,
+    top_p: PerRow,
 ) -> torch.Tensor:
     """Sampled ids (B,) int64, drawn by the Gumbel-max trick over the warped
     top-k support (the form `jax.random.categorical` uses)."""
@@ -61,7 +64,7 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 
 
 def warped_probs(
-    logits: torch.Tensor, temperature: float, top_k: int, top_p: float
+    logits: torch.Tensor, temperature: PerRow, top_k: int, top_p: PerRow
 ) -> torch.Tensor:
     """The full (B, V) distribution `sample_token` draws from (zero outside
     the warped support)."""

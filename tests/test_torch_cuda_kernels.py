@@ -6,9 +6,10 @@ runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Attention, bf16 tolerance 2e-2: both sides read the same bf16 inputs and
-accumulate in fp32, so they differ by the bf16 rounding of the output (2^-8
-relative) on values of magnitude O(1), plus fp32 summation order.  The
+Attention (flash, dense and paged decode), bf16 tolerance 2e-2: both sides
+read the same bf16 inputs and accumulate in fp32, so they differ by the bf16
+rounding of the output (2^-8 relative) on values of magnitude O(1), plus
+fp32 summation order.  The
 vocoder's ResidualUnit is fp32 on both sides; see its test.  The quantized
 kernels at the full Qwen2.5-0.5B widths, bf16 x: the fused int8 MLP within
 2e-2 of max|plain| (the two sum in another order, so a bf16 value of h may
@@ -25,6 +26,7 @@ from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
 from sparktts_tpu_torch.kernels import int4_matmul as i4
 from sparktts_tpu_torch.kernels import int8_mlp as i8
+from sparktts_tpu_torch.kernels import paged_attention as pa
 from sparktts_tpu_torch.kernels import vocoder_fusion as vf
 from sparktts_tpu_torch.nn.layers import full_fp32
 from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
@@ -92,6 +94,67 @@ def test_decode_kernel_matches_plain(b, s, starts, poss):
     assert da.launches == before + 1
     want = da.dense_decode_plain(q, ck, cv, 1, start, pos, sm_scale=0.125)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **BF16_TOL)
+
+
+def _paged_case(dev, page, lengths, pps=4, layers=24, seed=2):
+    """Pools at the full widths, each slot's valid pages distinct and out of
+    order, table tails zero (the trash page)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    n_pages = b * pps + 1
+    ids = rng.permutation(np.arange(1, n_pages)).reshape(b, pps).astype(np.int32)
+    used = np.minimum(-(-np.asarray(lengths) // page), pps)
+    table = np.where(np.arange(pps)[None, :] < used[:, None], ids, 0).astype(np.int32)
+    q = _randn(rng, (b, HQ, D), dev)
+    kp, vp = (_randn(rng, (layers, HKV, n_pages, page, D), dev) for _ in range(2))
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "page,lengths",
+    [
+        # the engine's page size: lengths 1, P, P + 1, the full table, empty,
+        # ragged, and a finished slot one past its table (4 P + 1)
+        (256, [1, 256, 257, 1024, 0, 500, 771, 1025]),
+        (16, [1, 16, 17, 64, 0, 33, 5, 65]),
+    ],
+)
+def test_paged_kernel_matches_plain(page, lengths):
+    dev = _cuda()
+    q, kp, vp, table, lens = _paged_case(dev, page, lengths)
+    for layer in (0, kp.shape[0] - 1):
+        before = pa.launches
+        got = pa.paged_decode_attention(q, kp, vp, table, lens, layer, sm_scale=0.125)
+        assert pa.launches == before + 1
+        want = pa.paged_decode_plain(q, kp, vp, table, lens, layer, sm_scale=0.125)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **BF16_TOL)
+        assert torch.all(got[4] == 0)  # the empty slot
+
+
+@pytest.mark.cuda
+def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
+    dev = _cuda()
+    q, kp, vp, table, lens = _paged_case(dev, 16, [1, 16], layers=2)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(q.float(), kp, vp, table, lens, 0)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, kp, vp, table.long(), lens, 0)  # int64 table
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, kp, vp, table, lens.cpu(), 0)
+    with pytest.raises(IndexError):
+        pa.paged_decode_attention(q, kp, vp, table, lens, 2)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, table,
+                                  lens, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q[:, :, :32].contiguous(), kp[..., :32].contiguous(),
+                                  vp[..., :32].contiguous(), table, lens, 0)  # head dim 32
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q[:, :12].contiguous(), kp, vp, table, lens, 0)  # group 6
 
 
 def _residual_unit(c, dev, seed=0):
