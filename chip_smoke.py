@@ -38,8 +38,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    plain version and, where one exists, the PyTorch library call that
    computes the same function (scaled_dot_product_attention, a yardstick
    only): flash prefill at each prompt's bucket and left-pad start, decode
-   over each request's cache at its middle and last step's window, both in
-   bf16; the vocoder's ResidualUnit in fp32 at the 12 (channels, length,
+   over each request's cache at its middle and last step's window (also
+   against `dense_decode_split_plain`, the CPU model of its split, run on
+   the card), both in bf16 and each bit-equal over two calls; the vocoder's ResidualUnit in fp32 at the 12 (channels, length,
    dilation) of each request's bucketed vocode and at one ragged length;
    the int8 MLP at 1, 4 and 16 rows and the int4 matvec at the four layer
    shapes, bf16, on the quantized LMs' own weights, timed over all 24
@@ -73,13 +74,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    logits lie closer than that, within 5e-2 of the CPU's top logit;
 15. the paged kernel against its plain version on the paged engine's own
    pools, table and lengths after that dispatch, and at lengths 1, P, P + 1,
-   the full table and one past it; timed at the engine's state.
+   the full table and one past it; timed at the engine's state.  The decode
+   kernel against its plain version and its split model on the dense
+   engine's own cache, starts and clamped positions after its first
+   dispatch, timed there beside SDPA over the same windows.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the six main-path runs of phases 3, 4, 6, 7, 12
 and 13, its times those of the voice-creation shapes, for the int8 MLP one
 call at one row, for the int4 matvec the four calls of one layer at one row,
-for the paged kernel one layer at the paged engine's state); the last line
+for the paged kernel one layer at the paged engine's state; the flash and
+decode entries list every timed shape in `by_shape`: both requests' and,
+for decode, the dense engine's state); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
 result.
@@ -221,8 +227,9 @@ def _bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
 def check_flash(dev, cfg, mains):
     """Flash prefill kernel vs plain at each main path's (T, start), given
     in `mains`, plus a longer and a batched ragged case; each main shape is
-    timed.  Returns the kernels-line entry (without launches) with the
-    times of the first main shape."""
+    timed, and two calls at each must give the same bits.  Returns the
+    kernels-line entry (without launches) with the times of the first main
+    shape, and every main shape's in `by_shape`."""
     import torch
     import torch.nn.functional as F
 
@@ -245,15 +252,19 @@ def check_flash(dev, cfg, mains):
     max_err = 0.0
     for b, t, starts in cases:
         q, k, v, st = inputs(b, t, starts)
-        got = fa.flash_attention_prefill(q, k, v, st, sm_scale=scale).float()
+        got = fa.flash_attention_prefill(q, k, v, st, sm_scale=scale)
+        again = fa.flash_attention_prefill(q, k, v, st, sm_scale=scale)
         want = fa.flash_attention_plain(q, k, v, st, sm_scale=scale).float()
         _sync(dev)
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash kernel: two calls differ at B={b} T={t}")
+        got = got.float()
         rows = torch.arange(t, device=dev)[None, :] >= st[:, None]  # (B, T) non-pad rows
         err = float((got - want).abs()[rows[:, None, :, None].expand_as(got)].max())
         if not torch.isfinite(got).all():
             raise AssertionError(f"flash kernel: non-finite output at B={b} T={t}")
         print(f"flash_attention_prefill B={b} T={t} starts={starts}: max_abs_err={err:.3e} "
-              f"(tol {KERNEL_ATOL})")
+              f"(tol {KERNEL_ATOL}), two calls bit-equal")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"flash kernel disagrees with its plain version: {err}")
         max_err = max(max_err, err)
@@ -275,20 +286,83 @@ def check_flash(dev, cfg, mains):
         print(f"flash_attention_prefill B=1 T={t_main} start={start_main}: device {ms:.4f} ms "
               f"(plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.3e} by {bound_by}); "
               f"eager call {_eager_ms(kernel, dev):.4f} ms (plain {_eager_ms(plain, dev):.4f})")
-        timed.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms))
+        timed.append(dict(shape=f"B=1 T={t_main} start={start_main}", ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    first = {k: v for k, v in timed[0].items() if k != "shape"}
     return dict(name="flash_attention_prefill", route="cuda", source=fa.SOURCE,
-                replaces=fa.REPLACES, max_abs_err=max_err, **timed[0])
+                replaces=fa.REPLACES, max_abs_err=max_err, by_shape=timed, **first)
+
+
+def _time_decode(dev, q, ck, cv, layer, st, po, scale, label):
+    """Kernel 2 at one state, timed: the kernel, its plain version, SDPA over
+    the same cache plane and windows (a yardstick only) and the bound over
+    the windows' valid keys (each key's K and V rows read once).  Returns a
+    `by_shape` item."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparktts_tpu_torch.kernels import decode_attention as da
+
+    b, hq, d = q.shape
+    s, hkv = ck.shape[2], ck.shape[3]
+    kernel = functools.partial(da.dense_decode_attention, q, ck, cv, layer, st, po, sm_scale=scale)
+    plain = functools.partial(da.dense_decode_plain, q, ck, cv, layer, st, po, sm_scale=scale)
+    ms, plain_ms = _time_ms(kernel, dev), _time_ms(plain, dev)
+    kv = (ck[layer].permute(0, 2, 1, 3), cv[layer].permute(0, 2, 1, 3))  # (B, Hkv, S, D)
+    j = torch.arange(s, device=dev)[None, :]
+    hi = torch.clamp(po, max=s - 1)
+    mask = ((j >= st[:, None]) & (j <= hi[:, None]))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    library_ms = _time_ms(
+        lambda: F.scaled_dot_product_attention(q4, *kv, attn_mask=mask, scale=scale,
+                                               enable_gqa=True), dev)
+    keys = int(torch.clamp(hi - st + 1, min=0).sum())
+    nbytes = 2 * (2 * q.numel() + 2 * keys * hkv * d) + 8 * b
+    bound_ms, bound_by = _bound(nbytes, 4 * d * hq * keys)
+    print(f"dense_decode_attention {label}: device {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
+          f"{library_ms:.4f}, bound {bound_ms:.3e} by {bound_by}); eager call "
+          f"{_eager_ms(kernel, dev):.4f} ms (plain {_eager_ms(plain, dev):.4f})")
+    return dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def _check_decode_case(dev, q, ck, cv, layer, st, po, scale, label):
+    """Kernel 2 vs its plain version and vs the CPU model of its split (run
+    here on the card at the built kernel's chunk), and two calls bit-equal;
+    returns the error against the plain version."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import decode_attention as da
+
+    got = da.dense_decode_attention(q, ck, cv, layer, st, po, sm_scale=scale)
+    again = da.dense_decode_attention(q, ck, cv, layer, st, po, sm_scale=scale)
+    want = da.dense_decode_plain(q, ck, cv, layer, st, po, sm_scale=scale).float()
+    split = da.dense_decode_split_plain(q, ck, cv, layer, st, po, sm_scale=scale,
+                                        chunk=da.kernel_chunk()).float()
+    _sync(dev)
+    if not torch.equal(got, again):
+        raise AssertionError(f"decode kernel: two calls differ ({label})")
+    got = got.float()
+    err = float((got - want).abs().max())
+    err_split = float((got - split).abs().max())
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"decode kernel: non-finite output ({label})")
+    print(f"dense_decode_attention {label}: max_abs_err={err:.3e}, vs the split model "
+          f"{err_split:.3e} (tol {KERNEL_ATOL}), two calls bit-equal")
+    if not max(err, err_split) <= KERNEL_ATOL:
+        raise AssertionError(f"decode kernel disagrees with its plain version: {err}, "
+                             f"{err_split} ({label})")
+    return err
 
 
 def check_decode(dev, cfg, mains):
-    """Decode kernel vs plain on the full stacked cache of each main path,
-    given in `mains` as (cache length S, start, prompt bucket T, decode
-    steps): at the middle and the last decode step's window, plus a batch of
-    mixed windows.  The middle step of each main path is timed.  Returns the
-    kernels-line entry (without launches) with the times of the first."""
+    """Decode kernel vs plain (and the split model) on the full stacked cache
+    of each main path, given in `mains` as (cache length S, start, prompt
+    bucket T, decode steps): at the middle and the last decode step's
+    window, plus a batch of mixed windows.  The middle step of each main
+    path is timed.  Returns the kernels-line entry (without launches) with
+    the times of the first, and each main path's in `by_shape`."""
     import torch
-    import torch.nn.functional as F
 
     from sparktts_tpu_torch.kernels import decode_attention as da
 
@@ -304,6 +378,9 @@ def check_decode(dev, cfg, mains):
         cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         return q, ck, cv
 
+    def window(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
     # decode step k attends to keys [start, T + k]
     mid = [(s, start, t + steps // 2) for s, start, t, steps in mains]
     cases = [(s, [start], [pos]) for s, start, pos in mid]
@@ -314,49 +391,43 @@ def check_decode(dev, cfg, mains):
     for s, starts, poss in cases:
         b = len(starts)
         q, ck, cv = inputs(b, s)
-        st = torch.tensor(starts, dtype=torch.int32, device=dev)
-        po = torch.tensor(poss, dtype=torch.int32, device=dev)
         for layer in (0, n_layers - 1):
-            got = da.dense_decode_attention(q, ck, cv, layer, st, po, sm_scale=scale).float()
-            want = da.dense_decode_plain(q, ck, cv, layer, st, po, sm_scale=scale).float()
-            _sync(dev)
-            err = float((got - want).abs().max())
-            if not torch.isfinite(got).all():
-                raise AssertionError("decode kernel: non-finite output")
-            print(f"dense_decode_attention B={b} S={s} layer={layer} windows="
-                  f"{[p - a + 1 for a, p in zip(starts, poss)]}: max_abs_err={err:.3e} "
-                  f"(tol {KERNEL_ATOL})")
-            if not err <= KERNEL_ATOL:
-                raise AssertionError(f"decode kernel disagrees with its plain version: {err}")
-            max_err = max(max_err, err)
+            label = (f"B={b} S={s} layer={layer} windows="
+                     f"{[p - a + 1 for a, p in zip(starts, poss)]}")
+            max_err = max(max_err, _check_decode_case(dev, q, ck, cv, layer, window(starts),
+                                                      window(poss), scale, label))
 
     timed = []
     for s, start_main, pos_main in mid:
         q, ck, cv = inputs(1, s)
-        st = torch.tensor([start_main], dtype=torch.int32, device=dev)
-        po = torch.tensor([pos_main], dtype=torch.int32, device=dev)
-        layer = n_layers // 2
-        kernel = functools.partial(da.dense_decode_attention, q, ck, cv, layer, st, po,
-                                   sm_scale=scale)
-        plain = functools.partial(da.dense_decode_plain, q, ck, cv, layer, st, po, sm_scale=scale)
-        ms, plain_ms = _time_ms(kernel, dev), _time_ms(plain, dev)
-        kv = (ck[layer].permute(0, 2, 1, 3), cv[layer].permute(0, 2, 1, 3))  # (B, Hkv, S, D)
-        j = torch.arange(s, device=dev)
-        mask = ((j >= start_main) & (j <= pos_main))[None, None, None, :]
-        q4 = q[:, :, None, :]
-        library_ms = _time_ms(
-            lambda: F.scaled_dot_product_attention(q4, *kv, attn_mask=mask, scale=scale,
-                                                   enable_gqa=True), dev)
-        window = pos_main - start_main + 1
-        nbytes = 2 * (2 * q.numel() + 2 * window * hkv * d) + 8
-        bound_ms, bound_by = _bound(nbytes, 4 * d * hq * window)
-        print(f"dense_decode_attention B=1 S={s} window={window}: device {ms:.4f} ms "
-              f"(plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.3e} by {bound_by}); "
-              f"eager call {_eager_ms(kernel, dev):.4f} ms (plain {_eager_ms(plain, dev):.4f})")
-        timed.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms))
+        timed.append(_time_decode(dev, q, ck, cv, n_layers // 2, window([start_main]),
+                                  window([pos_main]), scale,
+                                  f"B=1 S={s} window={pos_main - start_main + 1}"))
+    first = {k: v for k, v in timed[0].items() if k != "shape"}
     return dict(name="dense_decode_attention", route="cuda", source=da.SOURCE,
-                replaces=da.REPLACES, max_abs_err=max_err, **timed[0])
+                replaces=da.REPLACES, max_abs_err=max_err, by_shape=timed, **first)
+
+
+def check_dense_engine_decode(dev, cfg, snapshot):
+    """Kernel 2 on the dense engine's own cache, starts and clamped write
+    positions after its first dispatch (the windows `dense_step_logits`
+    gives it): vs plain and the split model at the first and last layer,
+    then timed at the middle layer.  Returns a `by_shape` item."""
+    import torch
+
+    d, n_layers = cfg.head_dim, cfg.num_hidden_layers
+    scale = d**-0.5
+    ck, cv = snapshot.cache.k, snapshot.cache.v
+    b, s = ck.shape[1], ck.shape[2]
+    st, po = snapshot.start, snapshot.write_pos.clamp(max=s - 1)
+    q = torch.randn((b, cfg.num_attention_heads, d), generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev).to(torch.bfloat16)
+    windows = (po - st + 1).tolist()
+    for layer in (0, n_layers - 1):
+        _check_decode_case(dev, q, ck, cv, layer, st, po, scale,
+                           f"dense engine state B={b} S={s} layer={layer} windows={windows}")
+    return _time_decode(dev, q, ck, cv, n_layers // 2, st, po, scale,
+                        f"dense engine state B={b} S={s} keys={sum(max(w, 0) for w in windows)}")
 
 
 def check_lm_prefill(pipe, prompt_ids):
@@ -1163,8 +1234,10 @@ def build_engines(pipe):
 def run_engines(pipe, modules, wav_path: Path):
     """Phases 12-15: the paged engine (as ContinuousTTSServer(paged=True)
     builds it) and the dense engine serve the same eight requests; each
-    engine's forward card vs CPU; the paged kernel vs plain.  Returns (the
-    paged kernel's kernels-line entry, the launches of the two runs)."""
+    engine's forward card vs CPU; the paged kernel vs plain; the decode
+    kernel at the dense engine's state.  Returns (the paged kernel's
+    kernels-line entry, the decode kernel's `by_shape` item at the dense
+    engine's state, the launches of the two runs)."""
     from sparktts_tpu_torch.lm.continuous import dense_step_logits
     from sparktts_tpu_torch.lm.paged import paged_step_logits
 
@@ -1196,7 +1269,8 @@ def run_engines(pipe, modules, wav_path: Path):
     check_engine_forward("paged engine", paged, run_p["snapshot"], paged_step_logits)
     check_engine_forward("dense engine", dense, run_d["snapshot"], dense_step_logits)
     entry = check_paged(pipe.device, cfg, run_p["snapshot"])
-    return entry, (run_p["launches"], run_d["launches"])
+    dense_state = check_dense_engine_decode(pipe.device, cfg, run_d["snapshot"])
+    return entry, dense_state, (run_p["launches"], run_d["launches"])
 
 
 def main() -> int:
@@ -1292,14 +1366,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # continuous batching: the paged and the dense engine serve one burst
-    paged_entry, engine_launches = run_engines(pipe, modules, wav_path)
+    paged_entry, dense_state, engine_launches = run_engines(pipe, modules, wav_path)
     entries.append(paged_entry)
+    entries[1]["by_shape"].append(dense_state)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+            "bound_ms", "bound_by", "library_ms", "by_shape"]
+    print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

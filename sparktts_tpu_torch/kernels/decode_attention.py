@@ -4,20 +4,29 @@ version.
 Replaces `dense_decode_attention` of `sparktts_tpu/kernels/decode_attention.py`
 (`_decode_kernel`): one query token per batch row against the `layer` plane
 of the stacked `(L, B, S, Hkv, D)` KV cache, keys valid in
-`[start[b], pos[b]]`, fp32 accumulation.  An empty window gives zeros.  The
-kernel is `csrc/decode_attention.cu`; its header says how it is laid out,
-what bounds it on an H100 and what the design does about it.
+`[start[b], pos[b]]` (`pos` clamped to S - 1), fp32 accumulation.  An empty
+window gives zeros.  The kernel is `csrc/decode_attention.cu`: it splits the
+window across blocks, one per `CHUNK` keys of the cache, and merges their
+partial softmax states in chunk order within the same launch.  Its header
+says what bounds it on an H100 and what the design does about it.
+`dense_decode_split_plain` is the CPU model of that split and merge, for the
+tests and chip_smoke.py only.
 
 `dense_decode_attention` runs the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  `launches` counts kernel
-launches.
+launches.  The kernel counts the arrivals of each (row, KV head)'s chunks on
+an int32 counter that this module keeps, zeroed, for each device, and that
+the kernel leaves at zero: calls on one device are ordered on one stream, as
+the LM's are.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from sparktts_tpu_torch.kernels import build
 
@@ -26,20 +35,44 @@ REPLACES = "sparktts_tpu/kernels/decode_attention.py:169"
 HEAD_DIM = 64
 GROUP = 7  # query heads per KV head the kernel is built for (Qwen2.5-0.5B)
 
+PARTIAL = GROUP * (HEAD_DIM + 2)  # fp32 scratch of one chunk: m, l, acc for each head
+MIN_ARRIVALS = 1024  # (row, KV head) counters kept per device at the least
+
 launches = 0
 _fn = None
+_chunk = 0
+_arrivals: Dict[torch.device, torch.Tensor] = {}
+
+
+def bind(lib: ctypes.CDLL):
+    """(the launch function, its chunk) of a built decode_attention library."""
+    fn = lib.dense_decode_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.dense_decode_chunk.restype = ctypes.c_int
+    return fn, lib.dense_decode_chunk()
 
 
 def _kernel():
-    global _fn
+    global _fn, _chunk
     if _fn is None:
-        fn = build.load("decode_attention").dense_decode_attention_bf16
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn, _chunk = bind(build.load("decode_attention"))
     return _fn
+
+
+def kernel_chunk() -> int:
+    """Keys per split of the built kernel (builds it first if needed)."""
+    _kernel()
+    return _chunk
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 arrival counters, at least `n` of them."""
+    counters = _arrivals.get(device)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(max(n, MIN_ARRIVALS), dtype=torch.int32, device=device)
+        _arrivals[device] = counters
+    return counters
 
 
 def dense_decode_plain(
@@ -64,6 +97,50 @@ def dense_decode_plain(
     p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p, cv) / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def dense_decode_split_plain(
+    q: torch.Tensor,        # (B, Hq, D)
+    cache_k: torch.Tensor,  # (L, B, S, Hkv, D)
+    cache_v: torch.Tensor,
+    layer: int,
+    start: torch.Tensor,    # (B,) first valid key slot
+    pos: torch.Tensor,      # (B,) last valid key slot, inclusive; clamped to S - 1
+    sm_scale: float,
+    chunk: int,
+) -> torch.Tensor:
+    """The kernel's split in fp32: for each `chunk` keys of the cache, the
+    partial softmax state (m, l, acc) of the window's keys in it; then the
+    partials merged in chunk order, as the kernel's last block merges them.
+    (B, Hq, D) in q.dtype; an empty window gives zeros."""
+    b, hq, d = q.shape
+    ck, cv = cache_k[layer].float(), cache_v[layer].float()  # (B, S, Hkv, D)
+    s, hkv = ck.shape[1], ck.shape[2]
+    n = -(-s // chunk)
+    pad = (0, 0, 0, 0, 0, n * chunk - s)
+    ck, cv = F.pad(ck, pad), F.pad(cv, pad)  # (B, n chunk, Hkv, D)
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, ck) * sm_scale
+    j = torch.arange(n * chunk, device=q.device)[None, :]
+    lo = start.to(q.device)[:, None]
+    hi = torch.clamp(pos.to(q.device), max=s - 1)[:, None]
+    valid = ((j >= lo) & (j <= hi))[:, None, None, :]  # (B, 1, 1, n chunk)
+    scores = scores.masked_fill(~valid, float("-inf")).unflatten(-1, (n, chunk))
+    m = scores.amax(dim=-1)  # (B, Hkv, G, n)
+    live = torch.isfinite(m)
+    p = torch.exp(scores - torch.where(live, m, torch.zeros_like(m))[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnc,bnckd->bkgnd", p, cv.unflatten(1, (n, chunk)))
+    top = m.amax(dim=-1)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    total_l = torch.zeros_like(top)
+    total = torch.zeros_like(acc[..., 0, :])
+    for z in range(n):  # chunk order; a chunk with no valid key adds nothing
+        e = torch.where(live[..., z], torch.exp(m[..., z] - top), torch.zeros_like(top))
+        total_l = total_l + l[..., z] * e
+        total = total + acc[..., z, :] * e[..., None]
+    out = total / torch.where(total_l == 0, 1.0, total_l)[..., None]
     return out.reshape(b, hq, d).to(q.dtype)
 
 
@@ -98,10 +175,13 @@ def dense_decode_attention(
         raise ValueError("dense_decode_attention: q and cache must be 16-byte aligned")
     if any(x.dtype != torch.int32 or x.shape != (b,) for x in (start, pos)):
         raise ValueError("dense_decode_attention: start/pos must be (B,) int32 tensors")
+    fn = _kernel()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
+    part = torch.empty((b, hkv, -(-s // _chunk), PARTIAL), dtype=torch.float32, device=q.device)
+    arrivals = _arrival_counters(q.device, b * hkv)
+    err = fn(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), start.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), int(layer), b, s, hkv, hq,
+        out.data_ptr(), part.data_ptr(), arrivals.data_ptr(), int(layer), b, s, hkv, hq,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     launches += 1

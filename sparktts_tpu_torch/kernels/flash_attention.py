@@ -4,9 +4,12 @@ Replaces `flash_attention_prefill` of `sparktts_tpu/kernels/flash_attention.py`
 (`_flash_kernel`): causal attention over the prompt with a per-row left-pad
 offset `start[b]` (keys before it are invalid) and GQA (query head h reads
 KV head h // group, never repeated).  The kernel is
-`csrc/flash_attention.cu`; its header says how it is laid out, what bounds
+`csrc/flash_attention.cu`, FlashAttention-2's layout on the tensor cores
+(`mma.sync`, `cp.async`); its header says how it is laid out, what bounds
 it on an H100 and what the design does about it.  Unlike the Pallas kernel it
-masks the ragged edge itself, so any prompt length T works.
+masks the ragged edge itself, so any prompt length T works.  It rounds the
+attention probabilities to bf16 before P V, as the LM's dense path does;
+the plain version keeps them in fp32.
 
 Query rows with no valid key (left-pad rows, t < start[b]) are unspecified
 in the JAX package; here both versions return zeros for them.
@@ -76,8 +79,10 @@ def flash_attention_prefill(
     start: torch.Tensor,
     sm_scale: float = 1.0,
 ) -> torch.Tensor:
-    """Causal left-pad-masked GQA attention, (B, Hq, T, D) in q.dtype.  Any
-    strides with a contiguous head dim are taken as they are."""
+    """Causal left-pad-masked GQA attention, (B, Hq, T, D) in q.dtype.  On
+    the card, strides with a contiguous head dim are taken as they are when
+    every base is 16-byte aligned and every other stride a multiple of 8
+    elements; anything else raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, start, sm_scale)
     global launches
@@ -94,6 +99,12 @@ def flash_attention_prefill(
         raise ValueError(f"flash_attention_prefill: bad head/length counts {q.shape} {k.shape}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention_prefill: the head dim must be contiguous")
+    # the kernel copies 16-byte pieces: every row it reads starts 16-byte aligned
+    if any(x.data_ptr() % 16 for x in (q, k, v)) or any(
+        x.stride(i) % 8 for x in (q, k, v) for i in range(3) if x.shape[i] > 1
+    ):
+        raise ValueError("flash_attention_prefill: q/k/v need 16-byte aligned bases and "
+                         "strides that are multiples of 8 elements")
     if start.dtype != torch.int32 or start.shape != (b,) or not start.is_contiguous():
         raise ValueError("flash_attention_prefill: start must be a contiguous (B,) int32 tensor")
     out = torch.empty((b, hq, t, d), dtype=q.dtype, device=q.device)

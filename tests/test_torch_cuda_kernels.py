@@ -9,7 +9,8 @@ runs where only PyTorch is installed:
 Attention (flash, dense and paged decode), bf16 tolerance 2e-2: both sides
 read the same bf16 inputs and accumulate in fp32, so they differ by the bf16
 rounding of the output (2^-8 relative) on values of magnitude O(1), plus
-fp32 summation order.  The
+fp32 summation order; the flash kernel also rounds P to bf16 before P V
+(2^-9 relative on each probability).  The
 vocoder's ResidualUnit is fp32 on both sides; see its test.  The quantized
 kernels at the full Qwen2.5-0.5B widths, bf16 x: the fused int8 MLP within
 2e-2 of max|plain| (the two sum in another order, so a bf16 value of h may
@@ -47,19 +48,31 @@ def _randn(rng, shape, dev):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
 
 
+def _flash_case(dev, b, t, starts, seed=0):
+    """Inputs laid out (B, T, H, D) and passed transposed, as the LM does."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, t, HQ, D), dev).transpose(1, 2)
+    k, v = (_randn(rng, (b, t, HKV, D), dev).transpose(1, 2) for _ in range(2))
+    return q, k, v, torch.tensor(starts, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,t,starts",
-    [(1, 64, [9]), (1, 128, [70]), (4, 77, [0, 3, 40, 76]), (1, 448, [29])],
+    [
+        (1, 64, [9]), (1, 128, [70]), (4, 77, [0, 3, 40, 76]), (1, 448, [29]),
+        # lengths around the 16-row warp and 64-row/64-key tiles; starts at a
+        # tile's edge (0, 16, 64) and inside one
+        (1, 1, [0]), (2, 15, [0, 7]), (2, 16, [0, 15]), (2, 17, [16, 3]),
+        (2, 63, [0, 31]), (3, 65, [64, 1, 33]), (2, 448, [64, 200]),
+    ],
 )
 def test_flash_kernel_matches_plain(b, t, starts):
-    """Inputs laid out (B, T, H, D) and passed transposed, as the LM does.
-    T = 448 from 29 is the bucket and left pad of a 6 s clone prompt."""
+    """T = 448 from 29 is the bucket and left pad of a 6 s clone prompt.
+    The kernel rounds P to bf16 before P V (the plain version does not):
+    within the bf16 tolerance."""
     dev = _cuda()
-    rng = np.random.default_rng(0)
-    q = _randn(rng, (b, t, HQ, D), dev).transpose(1, 2)
-    k, v = (_randn(rng, (b, t, HKV, D), dev).transpose(1, 2) for _ in range(2))
-    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    q, k, v, start = _flash_case(dev, b, t, starts)
     before = fa.launches
     got = fa.flash_attention_prefill(q, k, v, start, sm_scale=D**-0.5)
     assert fa.launches == before + 1
@@ -68,7 +81,16 @@ def test_flash_kernel_matches_plain(b, t, starts):
     rows = np.arange(t)[None, :] >= np.asarray(starts)[:, None]  # (B, T) non-pad rows
     mask = np.broadcast_to(rows[:, None, :, None], got.shape)
     np.testing.assert_allclose(got[mask], want[mask], **BF16_TOL)
+    assert np.all(got[~mask] == 0)  # rows with no valid key
     assert np.isfinite(got).all()
+
+
+def _decode_case(dev, b, s, starts, poss, seed=1):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, HQ, D), dev)
+    ck, cv = (_randn(rng, (2, b, s, HKV, D), dev) for _ in range(2))
+    return (q, ck, cv, torch.tensor(starts, dtype=torch.int32, device=dev),
+            torch.tensor(poss, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.cuda
@@ -78,22 +100,48 @@ def test_flash_kernel_matches_plain(b, t, starts):
         (1, 704, [0], [300]),
         (8, 704, [0, 5, 9, 60, 0, 1, 63, 40], [600, 100, 9, 70, 1, 640, 62, 639]),
         (1, 960, [29], [946]),
+        # the dense engine's kind: right-padded prompts from 0, windows of
+        # ~50-560 keys, a finished row at pos = S (clamped to S - 1), an idle one
+        (8, 960, [0] * 8, [447, 120, 560, 63, 960, 0, 300, 511]),
+        # windows on the kernel's chunk edges and one key either side
+        (6, 960, [64, 63, 65, 128, 0, 127], [127, 128, 126, 128, 63, 959]),
     ],
 )
 def test_decode_kernel_matches_plain(b, s, starts, poss):
     """Windows of many lengths, one of them empty (pos < start: zeros).
-    S = 960 with 918 keys is the last decode step of a clone request."""
+    S = 960 with 918 keys is the last decode step of a clone request.  Also
+    against the CPU model of the kernel's split (`dense_decode_split_plain`)
+    at the built kernel's chunk."""
     dev = _cuda()
-    rng = np.random.default_rng(1)
-    q = _randn(rng, (b, HQ, D), dev)
-    ck, cv = (_randn(rng, (2, b, s, HKV, D), dev) for _ in range(2))
-    start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    pos = torch.tensor(poss, dtype=torch.int32, device=dev)
+    q, ck, cv, start, pos = _decode_case(dev, b, s, starts, poss)
     before = da.launches
     got = da.dense_decode_attention(q, ck, cv, 1, start, pos, sm_scale=0.125)
     assert da.launches == before + 1
     want = da.dense_decode_plain(q, ck, cv, 1, start, pos, sm_scale=0.125)
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **BF16_TOL)
+    split = da.dense_decode_split_plain(q, ck, cv, 1, start, pos, sm_scale=0.125,
+                                        chunk=da.kernel_chunk())
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(got, split.float().cpu().numpy(), **BF16_TOL)
+    empty = (pos < start).cpu().numpy()
+    assert np.all(got[empty] == 0)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_repeat_bit_equal():
+    """Two calls of each kernel on the same inputs give the same bits: the
+    decode kernel merges its chunks in a fixed order, with no float atomics,
+    and leaves its arrival counters at zero for the next call."""
+    dev = _cuda()
+    q, k, v, start = _flash_case(dev, 2, 448, [29, 64])
+    first = fa.flash_attention_prefill(q, k, v, start, sm_scale=D**-0.5)
+    assert torch.equal(first, fa.flash_attention_prefill(q, k, v, start, sm_scale=D**-0.5))
+    q, ck, cv, start, pos = _decode_case(dev, 8, 960, [0] * 8, [447, 120, 560, 63, 960, 0, 300,
+                                                                 511])
+    first = da.dense_decode_attention(q, ck, cv, 0, start, pos, sm_scale=0.125)
+    for _ in range(3):
+        assert torch.equal(first, da.dense_decode_attention(q, ck, cv, 0, start, pos,
+                                                            sm_scale=0.125))
 
 
 def _paged_case(dev, page, lengths, pps=4, layers=24, seed=2):
@@ -222,6 +270,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     start = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_prefill(q, k, k, start)
+    q, k = (x.to(torch.bfloat16) for x in (q, k))
+    with pytest.raises(ValueError):  # base pointer 2 bytes past a 16-byte boundary
+        fa.flash_attention_prefill(
+            torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape), k, k, start)
+    wide = torch.zeros((1, 8, HKV * D + 4), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # row stride of 132 elements
+        fa.flash_attention_prefill(q, wide[..., :HKV * D].view(1, 8, HKV, D).transpose(1, 2), k,
+                                   start)
+    cache = torch.zeros((1, 1, 64, HKV, D), dtype=torch.bfloat16, device=dev)
+    qd = torch.zeros((1, HQ * D + 1), dtype=torch.bfloat16, device=dev)[:, 1:].view(1, HQ, D)
+    with pytest.raises(ValueError):  # q 2 bytes past a 16-byte boundary
+        da.dense_decode_attention(qd, cache, cache, 0, start, start)
     q = torch.zeros((1, HQ, 32), dtype=torch.bfloat16, device=dev)  # head dim 32
     cache = torch.zeros((1, 1, 64, HKV, 32), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):

@@ -140,6 +140,58 @@ def test_decode_plain_matches_pallas(b, s_len, block_s, starts, poss):
     assert da.launches == before
 
 
+def _split_windows(case, c, s_len):
+    """(starts, poss) of four rows for a window kind, relative to chunk c."""
+    return {
+        "on_edges": ([c, 0, 2 * c, c], [2 * c - 1, c - 1, 3 * c - 1, s_len - 1]),
+        "one_off_edges": ([c - 1, c + 1, c - 1, c + 1], [2 * c, 2 * c - 2, 2 * c - 2, 2 * c]),
+        "inside_one_chunk": ([c + 3, 2 * c + 1, 0, c + 5], [c + 7, 2 * c + 1, 4, 2 * c - 2]),
+        "empty": ([40, 0, c, 17], [39, 5, c - 1, 16]),
+        "last_key": ([5, 0, c + 1, s_len - 1], [s_len - 1] * 4),
+        "mixed": ([0, 37, c - 1, 90], [s_len - 1, 64, c, 89]),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ("on_edges", "one_off_edges", "inside_one_chunk", "empty",
+                                  "last_key", "mixed"))
+@pytest.mark.parametrize("chunk", (16, 64, 128))
+def test_decode_split_plain_matches_pallas(chunk, case):
+    """The CPU model of the split-window kernel (per-chunk partials merged in
+    chunk order) against the Pallas kernel in interpret mode and the dense
+    plain version, fp32 1e-5: windows on chunk edges and one key either side,
+    inside one chunk, empty (zeros), ending at S - 1, and mixed in a batch."""
+    s_len = 256
+    q, ck, cv = _decode_inputs(4, s_len, seed=chunk)
+    starts, poss = _split_windows(case, chunk, s_len)
+    start, pos = np.asarray(starts, np.int32), np.asarray(poss, np.int32)
+    args = [torch.from_numpy(x) for x in (q, ck, cv)]
+    want = np.asarray(jax_decode(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), 1,
+                                 jnp.asarray(start), jnp.asarray(pos), sm_scale=0.125,
+                                 block_s=64, interpret=True))
+    plain = da.dense_decode_plain(*args, 1, torch.from_numpy(start), torch.from_numpy(pos),
+                                  sm_scale=0.125).numpy()
+    got = da.dense_decode_split_plain(*args, 1, torch.from_numpy(start), torch.from_numpy(pos),
+                                      sm_scale=0.125, chunk=chunk).numpy()
+    live = pos >= start
+    np.testing.assert_allclose(got[live], want[live], **FP32_TOL)
+    np.testing.assert_allclose(got, plain, **FP32_TOL)
+    assert np.all(got[~live] == 0)
+
+
+def test_decode_split_plain_ragged_cache_and_clamped_pos():
+    """A cache length no chunk divides (the last chunk is short) and pos = S,
+    which the kernel clamps to S - 1: against the dense plain version."""
+    s_len = 200
+    q, ck, cv = _decode_inputs(3, s_len, seed=3)
+    start = torch.tensor([0, 130, 199], dtype=torch.int32)
+    pos = torch.tensor([s_len, 199, s_len], dtype=torch.int32)
+    args = [torch.from_numpy(x) for x in (q, ck, cv)]
+    want = da.dense_decode_plain(*args, 2, start, pos, sm_scale=0.125)
+    for chunk in (16, 64):
+        got = da.dense_decode_split_plain(*args, 2, start, pos, sm_scale=0.125, chunk=chunk)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **FP32_TOL)
+
+
 def _residual_unit(c, seed):
     """Unit params with the non-trivial alphas and biases of
     tests/test_vocoder_kernel.py, as numpy."""
