@@ -36,14 +36,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. hold each kernel against its plain PyTorch version on the card, at the
    shapes the requests gave it, within a stated tolerance, and time kernel,
    plain version and, where one exists, the PyTorch library call that
-   computes the same function (scaled_dot_product_attention, a yardstick
-   only): flash prefill at each prompt's bucket and left-pad start, decode
-   over each request's cache at its middle and last step's window (also
-   against `dense_decode_split_plain`, the CPU model of its split, run on
-   the card), both in bf16 and each bit-equal over two calls; the vocoder's ResidualUnit in fp32 at the 12 (channels, length,
-   dilation) of each request's bucketed vocode and at one ragged length;
-   the int8 MLP at 1, 4 and 16 rows and the int4 matvec at the four layer
-   shapes, bf16, on the quantized LMs' own weights, timed over all 24
+   computes the same function (scaled_dot_product_attention,
+   torch._weight_int4pack_mm; yardsticks only): flash prefill at each
+   prompt's bucket and left-pad start, decode over each request's cache at
+   its middle and last step's window (also against
+   `dense_decode_split_plain`, the CPU model of its split, run on the
+   card), both in bf16 and each bit-equal over two calls; the decode kernel
+   on two streams at once (each merging on its own arrival counters); the
+   vocoder's ResidualUnit in fp32 at the 12 (channels, length, dilation) of
+   each request's bucketed vocode and at one ragged length; the int8 MLP at
+   1, 4 and 16 rows and the int4 matvec at the four layer shapes at 1 and
+   8 rows, down also at 32 (two calls bit-equal), bf16, on the quantized
+   LMs' own weights, timed over all 24
    layers' weights in turn (as a decode step streams them from HBM);
 10. one prefill of the full-width LM (Qwen2.5-0.5B, random weights) on each
    request's prompt with the flash kernel and with the plain dense
@@ -72,9 +76,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    state moved with .cpu()): within 5e-2 of the largest logit on every live
    row, and each row's argmax on the card the CPU's or, where the row's top
    logits lie closer than that, within 5e-2 of the CPU's top logit;
-15. the paged kernel against its plain version on the paged engine's own
-   pools, table and lengths after that dispatch, and at lengths 1, P, P + 1,
-   the full table and one past it; timed at the engine's state.  The decode
+15. the paged kernel against its plain version and its split model on the
+   paged engine's own pools, table and lengths after that dispatch, and at
+   lengths 1, P, P + 1, the full table and one past it, and at a late state
+   (every slot near the full table), two calls of each bit-equal; timed at
+   the engine's and the late state.  The decode
    kernel against its plain version and its split model on the dense
    engine's own cache, starts and clamped positions after its first
    dispatch, timed there beside SDPA over the same windows.
@@ -83,9 +89,10 @@ The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the six main-path runs of phases 3, 4, 6, 7, 12
 and 13, its times those of the voice-creation shapes, for the int8 MLP one
 call at one row, for the int4 matvec the four calls of one layer at one row,
-for the paged kernel one layer at the paged engine's state; the flash and
-decode entries list every timed shape in `by_shape`: both requests' and,
-for decode, the dense engine's state); the last line
+for the paged kernel one layer at the paged engine's state; the flash,
+decode and paged entries list every timed shape in `by_shape`: both
+requests' and, for decode, the dense engine's state, for paged the engine's
+and the late state); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
 result.
@@ -144,6 +151,10 @@ INT8_MLP_REL_TOL = 2e-2
 # int4 matvec kernel vs plain, bf16 output, relative to max|plain|: the
 # output's bf16 rounding plus fp32 summation order.
 INT4_REL_TOL = 1e-2
+# The library's int4 matmul (timed as a yardstick) vs the plain version,
+# relative to max|plain|: it takes the group scales in bf16 (2^-9 relative
+# each) and sums in its own order; a wrong weight layout misses by O(1).
+INT4_LIBRARY_REL_TOL = 2e-2
 # int8 codec vs fp32 codec on the same tokens: the JAX package's gate
 # (tests/test_codec_quant.py).
 CODEC_INT8_REL_L2 = 0.05
@@ -166,12 +177,30 @@ ENGINE_CREATIONS = (
 ENGINE_CLONE_TEXTS = (TEXT, "One card serves eight voices here.")
 
 
+_capture = {}
+
+
+def _capture_stream():
+    """The one stream that every timing graph is captured on (and warmed up
+    on).  Kernels 2, 5 and 6 merge on per-stream arrival counters
+    (`kernels/arrivals.py`), which are never made during a capture, so this
+    stream's counters are made once, here, before its first capture."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import arrivals
+
+    if "stream" not in _capture:
+        _capture["stream"] = torch.cuda.Stream()
+        arrivals.prepare(_capture["stream"])
+    return _capture["stream"]
+
+
 def _time_ms(fn, dev, iters=20, reps=10) -> float:
     """Device milliseconds per call of `fn`: `iters` calls captured in one
-    CUDA graph, replayed `reps` times between CUDA events, so the host's
-    per-call overhead is not in the number (inputs stay L2-resident, as they
-    are on the main path, where each is written just before it is read).
-    On the CPU (rehearsal only) a host clock."""
+    CUDA graph on `_capture_stream()`, replayed `reps` times between CUDA
+    events, so the host's per-call overhead is not in the number (inputs stay
+    L2-resident, as they are on the main path, where each is written just
+    before it is read).  On the CPU (rehearsal only) a host clock."""
     import torch
 
     if dev.type != "cuda":
@@ -179,14 +208,14 @@ def _time_ms(fn, dev, iters=20, reps=10) -> float:
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) * 1e3 / iters
-    side = torch.cuda.Stream()
+    side = _capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -847,53 +876,88 @@ def check_int8_mlp(dev, int8_layers):
                 max_abs_err=max_err, library_ms=None, **timed[1])
 
 
+def int4_library_call(x, packed, gscale):
+    """One `torch._weight_int4pack_mm` call computing int4_matvec's function
+    on the same weights, as a yardstick only (the port never calls it): the
+    weights converted once, here, to the library's layout (signed nibble +
+    8, two to a byte, converted by `torch._convert_weight_to_int4pack`), the
+    group scales rounded to bf16 beside zero points of 0.  Returns the call."""
+    import torch
+
+    from sparktts_tpu_torch.lm.quant import unpack_int4
+
+    w = unpack_int4(packed).t().to(torch.int32) + 8  # (out, in), 0..15
+    w4 = torch._convert_weight_to_int4pack(((w[:, ::2] << 4) | w[:, 1::2]).to(torch.uint8)
+                                           .contiguous(), 8)
+    scales_zeros = torch.stack([gscale, torch.zeros_like(gscale)], dim=-1).to(torch.bfloat16)
+    group = 2 * packed.shape[0] // gscale.shape[0]
+    return functools.partial(torch._weight_int4pack_mm, x, w4, group, scales_zeros.contiguous())
+
+
 def check_int4(dev, int4_layers):
     """The int4 matvec kernel vs its plain version at the four layer shapes
-    of the int4 LM (its own weights, B = 1), down at B = 32 and one ragged
-    `out`; each B = 1 shape timed over the 24 layers.  Returns the
-    kernels-line entry (without launches): times summed over one layer's
-    four calls at B = 1."""
+    of the int4 LM (its own weights) at B = 1 and 8 (the engines' eight
+    slots), down also at B = 32 (the most rows it takes), and one ragged
+    `out`, two calls of each bit-equal; each timed over the 24 layers beside
+    the library's int4 matmul (`int4_library_call`, held to the plain
+    version first).  Returns the kernels-line entry (without launches):
+    times summed over one layer's four calls at B = 1."""
     import torch
 
     from sparktts_tpu_torch.kernels import int4_matmul as i4
 
     gen = torch.Generator(device=dev).manual_seed(6)
     max_err = 0.0
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+
+    def check(label, x, packed, gscale):
+        got = i4.int4_matvec(x, packed, gscale)
+        if not torch.equal(got, i4.int4_matvec(x, packed, gscale)):
+            raise AssertionError(f"int4 kernel: two calls differ ({label})")
+        return _check_close(f"{label}, two calls bit-equal", got,
+                            i4.int4_matvec_plain(x, packed, gscale), INT4_REL_TOL)
+
     for name in ("qkv", "o", "gateup", "down"):
         weights = [(lay[name]["w_p4"], lay[name]["gscale"]) for lay in int4_layers]
         (half, d_out), groups = weights[0][0].shape, weights[0][1].shape[0]
-        batches = (1, 32) if name == "down" else (1,)
+        batches = (1, 8, 32) if name == "down" else (1, 8)
         for b in batches:
             x = torch.randn((b, 2 * half), generator=gen, device=dev).to(torch.bfloat16)
             for w in (weights[0], weights[-1]):
-                max_err = max(max_err, _check_close(
-                    f"int4_matvec {name} B={b} in={2 * half} out={d_out} groups={groups}",
-                    i4.int4_matvec(x, *w), i4.int4_matvec_plain(x, *w), INT4_REL_TOL))
+                max_err = max(max_err, check(
+                    f"int4_matvec {name} B={b} in={2 * half} out={d_out} groups={groups}", x, *w))
             ms = _time_ms(_rotating([functools.partial(i4.int4_matvec, x, *w) for w in weights]),
                           dev, iters=len(weights), reps=10)
             plain_ms = _time_ms(_rotating([functools.partial(i4.int4_matvec_plain, x, *w)
                                            for w in weights]), dev, iters=len(weights), reps=3)
             nbytes = half * d_out + 4 * groups * d_out + 2 * b * (2 * half + d_out)
             bound_ms, bound_by = _bound(nbytes, 4 * b * half * d_out)
-            print(f"int4_matvec {name} B={b}: device {ms:.4f} ms per call over {len(weights)} "
-                  f"layers' weights (plain {plain_ms:.4f}, bound {bound_ms:.5f} by {bound_by}, "
-                  f"{nbytes / ms / 1e6:.1f} GB/s)")
+            line = (f"int4_matvec {name} B={b}: device {ms:.4f} ms per call over {len(weights)} "
+                    f"layers' weights (plain {plain_ms:.4f}, bound {bound_ms:.5f} by {bound_by}, "
+                    f"{nbytes / ms / 1e6:.1f} GB/s)")
+            calls = [int4_library_call(x, *w) for w in weights]
+            _check_close(f"torch._weight_int4pack_mm {name} B={b} (bf16 scales) vs plain",
+                         calls[0](), i4.int4_matvec_plain(x, *weights[0]), INT4_LIBRARY_REL_TOL)
+            library_ms = _time_ms(_rotating(calls), dev, iters=len(weights), reps=10)
+            line += f"; torch._weight_int4pack_mm {library_ms:.4f}"
             if b == 1:
                 total["ms"] += ms
                 total["plain_ms"] += plain_ms
                 total["bound_ms"] += bound_ms
+                total["library_ms"] += library_ms
+            print(line)
     g = torch.Generator(device=dev).manual_seed(7)
     packed = torch.randint(-128, 128, (448, 1000), generator=g, device=dev, dtype=torch.int8)
     gscale = 0.01 * (1 + torch.rand((7, 1000), generator=g, device=dev))
     x = torch.randn((3, 896), generator=g, device=dev).to(torch.bfloat16)
-    max_err = max(max_err, _check_close("int4_matvec B=3 in=896 out=1000 (ragged)",
-                                        i4.int4_matvec(x, packed, gscale),
-                                        i4.int4_matvec_plain(x, packed, gscale), INT4_REL_TOL))
+    max_err = max(max_err, check("int4_matvec B=3 in=896 out=1000 (ragged)", x, packed, gscale))
     print(f"int4_matvec, one layer's four calls at B=1: device {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms")
+          f"{total['plain_ms']:.4f} ms, torch._weight_int4pack_mm {total['library_ms']:.4f} ms, "
+          f"bound {total['bound_ms']:.5f} ms")
+    if total["library_ms"] < total["ms"]:
+        print("int4_matvec: the library call is faster than the kernel")
     return dict(name="int4_matvec", route="cuda", source=i4.SOURCE, replaces=i4.REPLACES,
-                max_abs_err=max_err, bound_by="bytes", library_ms=None, **total)
+                max_abs_err=max_err, bound_by="bytes", **total)
 
 
 def check_decode_step_on_cpu(pipe, params, label, prompt, mode):
@@ -1148,52 +1212,22 @@ def check_engine_forward(label, eng, snapshot, step_logits):
         raise AssertionError(f"{label}: the engine's forward on the card disagrees with the CPU")
 
 
-def check_paged(dev, cfg, snapshot):
-    """The paged kernel vs its plain version on the paged engine's pools,
-    table and lengths after its first dispatch, then at lengths 1, P, P + 1,
-    the full table and one past it (a finished slot) over the same pools;
-    the engine's case timed.  Returns the kernels-line entry (without
-    launches)."""
+def _time_paged(dev, q, kp, vp, table, lengths, layer, scale, label):
+    """Kernel 6 at one state, timed: the kernel, its plain version, SDPA over
+    a pre-gathered copy (the gather left out; a yardstick only, not the same
+    function) and the bound over the valid keys.  Returns a `by_shape` item."""
     import torch
     import torch.nn.functional as F
 
     from sparktts_tpu_torch.kernels import paged_attention as pa
 
-    hq, d, n_layers = cfg.num_attention_heads, cfg.head_dim, cfg.num_hidden_layers
-    scale = d**-0.5
-    kp, vp, table = snapshot.k_pages, snapshot.v_pages, snapshot.page_table
-    b, pps = table.shape
-    page, hkv = kp.shape[3], kp.shape[1]
-    gen = torch.Generator(device=dev).manual_seed(8)
-    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
-    lengths = snapshot.write_pos + 1
-    # a full table of valid pages (not the trash page), in no order
-    full_table = torch.randint(1, kp.shape[2], (b, pps), generator=gen, device=dev,
-                               dtype=torch.int32)
-    made = torch.tensor([1, page, page + 1, pps * page, pps * page + 1, 0, 2 * page - 1, 3],
-                        dtype=torch.int32, device=dev)[:b]
-    cases = [("engine", table, lengths), ("made", full_table, made)]
-    max_err = 0.0
-    for name, tab, lens in cases:
-        for layer in (0, n_layers - 1):
-            got = pa.paged_decode_attention(q, kp, vp, tab, lens, layer, sm_scale=scale).float()
-            want = pa.paged_decode_plain(q, kp, vp, tab, lens, layer, sm_scale=scale).float()
-            _sync(dev)
-            err = float((got - want).abs().max())
-            print(f"paged_decode_attention {name} B={b} P={page} pps={pps} layer={layer} "
-                  f"lengths={lens.tolist()}: max_abs_err={err:.3e} (tol {KERNEL_ATOL})")
-            if not (bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL):
-                raise AssertionError(f"paged kernel disagrees with its plain version: {err}")
-            max_err = max(max_err, err)
-
-    layer = n_layers // 2
+    b, hq, d = q.shape
+    pps, page, hkv = table.shape[1], kp.shape[3], kp.shape[1]
     kernel = functools.partial(pa.paged_decode_attention, q, kp, vp, table, lengths, layer,
                                sm_scale=scale)
     plain = functools.partial(pa.paged_decode_plain, q, kp, vp, table, lengths, layer,
                               sm_scale=scale)
     ms, plain_ms = _time_ms(kernel, dev), _time_ms(plain, dev)
-    # yardstick only, leaving out the gather: SDPA over each slot's K/V
-    # already gathered into (B, Hkv, pps P, D), masked past its length
     idx = table.long()
     gathered = [x[layer][:, idx].transpose(0, 1).reshape(b, hkv, pps * page, d).contiguous()
                 for x in (kp, vp)]
@@ -1203,13 +1237,121 @@ def check_paged(dev, cfg, snapshot):
     keys = int(torch.clamp(lengths, 0, pps * page).sum())
     nbytes = 2 * (2 * q.numel() + 2 * keys * hkv * d) + 4 * (table.numel() + b)
     bound_ms, bound_by = _bound(nbytes, 4 * d * hq * keys)
-    print(f"paged_decode_attention engine state B={b} keys={keys}: device {ms:.4f} ms (plain "
+    print(f"paged_decode_attention {label} B={b} keys={keys}: device {ms:.4f} ms (plain "
           f"{plain_ms:.4f}, SDPA over a pre-gathered copy, gather left out, {sdpa_ms:.4f}; bound "
           f"{bound_ms:.3e} by {bound_by}); eager call {_eager_ms(kernel, dev):.4f} ms "
           f"(plain {_eager_ms(plain, dev):.4f})")
-    return dict(name="paged_decode_attention", route="cuda", source=pa.SOURCE,
-                replaces=pa.REPLACES, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+    return dict(shape=f"{label} B={b} P={page} pps={pps} keys={keys}", ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_paged(dev, cfg, snapshot):
+    """The paged kernel vs its plain version and vs the CPU model of its
+    split (`paged_decode_split_plain`, run here on the card at the built
+    kernel's chunk) on the paged engine's pools, table and lengths after its
+    first dispatch; then, over the same pools through a full table of valid
+    pages, at lengths 1, P, P + 1, the full table and one past it (a
+    finished slot), and at a late state (every slot within a chunk of the
+    full table).  Two calls of each case must give the same bits.  The
+    engine's and the late state are timed.  Returns the kernels-line entry
+    (without launches) with the engine state's times, both in `by_shape`."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import paged_attention as pa
+
+    hq, d, n_layers = cfg.num_attention_heads, cfg.head_dim, cfg.num_hidden_layers
+    scale = d**-0.5
+    kp, vp, table = snapshot.k_pages, snapshot.v_pages, snapshot.page_table
+    b, pps = table.shape
+    page = kp.shape[3]
+    full = pps * page
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = snapshot.write_pos + 1
+    # a full table of valid pages (not the trash page), in no order
+    full_table = torch.randint(1, kp.shape[2], (b, pps), generator=gen, device=dev,
+                               dtype=torch.int32)
+
+    def made(values):
+        return torch.tensor(values[:b], dtype=torch.int32, device=dev)
+
+    cases = [("engine", table, lengths),
+             ("made", full_table, made([1, page, page + 1, full, full + 1, 0, 2 * page - 1, 3])),
+             ("late", full_table, made([full, full - 1, full - 24, full - 63, full + 1, full - 14,
+                                        full - 25, full - 7]))]
+    max_err = 0.0
+    for name, tab, lens in cases:
+        for layer in (0, n_layers - 1):
+            got = pa.paged_decode_attention(q, kp, vp, tab, lens, layer, sm_scale=scale)
+            again = pa.paged_decode_attention(q, kp, vp, tab, lens, layer, sm_scale=scale)
+            want = pa.paged_decode_plain(q, kp, vp, tab, lens, layer, sm_scale=scale).float()
+            split = pa.paged_decode_split_plain(q, kp, vp, tab, lens, layer, sm_scale=scale,
+                                                chunk=pa.kernel_chunk()).float()
+            _sync(dev)
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged kernel: two calls differ ({name}, layer {layer})")
+            got = got.float()
+            err = float((got - want).abs().max())
+            err_split = float((got - split).abs().max())
+            print(f"paged_decode_attention {name} B={b} P={page} pps={pps} layer={layer} "
+                  f"lengths={lens.tolist()}: max_abs_err={err:.3e}, vs the split model "
+                  f"{err_split:.3e} (tol {KERNEL_ATOL}), two calls bit-equal")
+            if not (bool(torch.isfinite(got).all()) and max(err, err_split) <= KERNEL_ATOL):
+                raise AssertionError(f"paged kernel disagrees with its plain version: {err}, "
+                                     f"{err_split} ({name})")
+            max_err = max(max_err, err)
+
+    layer = n_layers // 2
+    timed = [_time_paged(dev, q, kp, vp, tab, lens, layer, scale, f"{name} state")
+             for name, tab, lens in (cases[0], cases[2])]
+    first = {k: v for k, v in timed[0].items() if k != "shape"}
+    return dict(name="paged_decode_attention", route="cuda", source=pa.SOURCE,
+                replaces=pa.REPLACES, max_abs_err=max_err, by_shape=timed, **first)
+
+
+def check_decode_two_streams(dev, cfg):
+    """Kernel 2 on two streams of one card at once, at the dense engine's
+    shape (8 rows, S = 960, mixed windows): calls interleaved over the two
+    streams, each stream merging on its own arrival counters; every result
+    must match the plain version and its stream's first result bit for bit."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import arrivals
+    from sparktts_tpu_torch.kernels import decode_attention as da
+
+    hq, hkv, d, n_layers = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                            cfg.num_hidden_layers)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    shape = (n_layers, 8, DENSE_CACHE_LEN, hkv, d)
+    start = torch.zeros(8, dtype=torch.int32, device=dev)
+    cases = []
+    for poss in ([447, 120, 560, 63, 959, 0, 300, 511], [959, 958, 64, 65, 128, 700, 1, 900]):
+        q = torch.randn((8, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        args = (q, ck, cv, n_layers - 1, start, torch.tensor(poss, dtype=torch.int32, device=dev))
+        cases.append((args, da.dense_decode_plain(*args, sm_scale=d**-0.5).float()))
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = [[] for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(32):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(da.dense_decode_attention(*cases[i][0], sm_scale=d**-0.5))
+    _sync(dev)
+    if len({arrivals.stream_key(s) for s in streams} & set(arrivals.REGISTRY.keys())) != 2:
+        raise AssertionError("decode kernel on two streams: not two sets of arrival counters")
+    max_err = 0.0
+    for (_, want), got in zip(cases, outs):
+        if not all(torch.equal(got[0], o) for o in got):
+            raise AssertionError("decode kernel on two streams: repeats differ")
+        max_err = max(max_err, max(float((o.float() - want).abs().max()) for o in got))
+    print(f"dense_decode_attention on two streams at once, 2 x 32 calls: max_abs_err={max_err:.3e} "
+          f"(tol {KERNEL_ATOL}), each stream's calls bit-equal")
+    if not max_err <= KERNEL_ATOL:
+        raise AssertionError(f"decode kernel on two streams disagrees with plain: {max_err}")
+    return max_err
 
 
 def build_engines(pipe):
@@ -1356,6 +1498,7 @@ def main() -> int:
                       list(dict.fromkeys(-(-r["semantic_tokens"] // VOCODE_BUCKET) * VOCODE_BUCKET
                                          for r in runs))),  # the vocoder's bucketed lengths
     ]
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], check_decode_two_streams(dev, cfg))
     entries.append(check_int8_mlp(dev, unstack_layers(int8_params["layers"])))
     entries.append(check_int4(dev, unstack_layers(int4_params["layers"])))
     for _, prompt, _, _ in (creation, cloning):

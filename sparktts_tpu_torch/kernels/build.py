@@ -2,22 +2,32 @@
 
 Each `csrc/<name>.cu` has a plain C interface.  It is compiled with `nvcc`
 for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the repository
-root (the hash is of the source, so an edited kernel is rebuilt) and loaded
-with `ctypes`.  Nothing is built when this module is imported: the first call
-of `load` builds, or `build_all` builds several sources at once, one `nvcc`
+root (the hash is of the source and of the `csrc/*.cuh` headers it
+includes, so an edited kernel or header is rebuilt) and loaded with
+`ctypes`.  Nothing is built when this module is imported: the first call of
+`load` builds, or `build_all` builds several sources at once, one `nvcc`
 process each, all started together.
+
+Every wrapper launches inside `launch_stream(t)`, which makes `t`'s card the
+current device and gives the handle of that card's current stream: a launch
+on handle 0 (the default stream) goes to the current device, which need not
+be the tensor's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,9 +47,31 @@ def _nvcc() -> str:
     return found
 
 
+@contextlib.contextmanager
+def launch_stream(t: torch.Tensor) -> Iterator[int]:
+    """Inside the block `t`'s card is the current device; yields the handle
+    of that card's current stream, for a ctypes launch."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by the hash of its source and of every
+    `csrc/*.cuh` it includes (directly or through another header)."""
+    h = hashlib.sha256()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        text = (CSRC / f).read_bytes()
+        h.update(f.encode() + b"\0" + text)
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

@@ -15,20 +15,19 @@ tests and chip_smoke.py only.
 `dense_decode_attention` runs the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  `launches` counts kernel
 launches.  The kernel counts the arrivals of each (row, KV head)'s chunks on
-an int32 counter that this module keeps, zeroed, for each device, and that
-the kernel leaves at zero: calls on one device are ordered on one stream, as
-the LM's are.
+the current stream's int32 counters from `kernels/arrivals.py` (one zeroed
+array per stream, left at zero by every launch), so calls on two streams of
+one card never share a counter.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.kernels import build
+from sparktts_tpu_torch.kernels import arrivals, build
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "sparktts_tpu/kernels/decode_attention.py:169"
@@ -36,12 +35,10 @@ HEAD_DIM = 64
 GROUP = 7  # query heads per KV head the kernel is built for (Qwen2.5-0.5B)
 
 PARTIAL = GROUP * (HEAD_DIM + 2)  # fp32 scratch of one chunk: m, l, acc for each head
-MIN_ARRIVALS = 1024  # (row, KV head) counters kept per device at the least
 
 launches = 0
 _fn = None
 _chunk = 0
-_arrivals: Dict[torch.device, torch.Tensor] = {}
 
 
 def bind(lib: ctypes.CDLL):
@@ -64,15 +61,6 @@ def kernel_chunk() -> int:
     """Keys per split of the built kernel (builds it first if needed)."""
     _kernel()
     return _chunk
-
-
-def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The device's zeroed int32 arrival counters, at least `n` of them."""
-    counters = _arrivals.get(device)
-    if counters is None or counters.numel() < n:
-        counters = torch.zeros(max(n, MIN_ARRIVALS), dtype=torch.int32, device=device)
-        _arrivals[device] = counters
-    return counters
 
 
 def dense_decode_plain(
@@ -178,12 +166,13 @@ def dense_decode_attention(
     fn = _kernel()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     part = torch.empty((b, hkv, -(-s // _chunk), PARTIAL), dtype=torch.float32, device=q.device)
-    arrivals = _arrival_counters(q.device, b * hkv)
-    err = fn(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), start.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), part.data_ptr(), arrivals.data_ptr(), int(layer), b, s, hkv, hq,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with build.launch_stream(q) as stream:
+        counters = arrivals.for_current_stream(q.device, b * hkv)
+        err = fn(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), start.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), int(layer), b,
+            s, hkv, hq, float(sm_scale), stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"dense_decode_attention: CUDA launch failed with error {err}")

@@ -108,12 +108,14 @@ def flash_attention_prefill(
     if start.dtype != torch.int32 or start.shape != (b,) or not start.is_contiguous():
         raise ValueError("flash_attention_prefill: start must be a contiguous (B,) int32 tensor")
     out = torch.empty((b, hq, t, d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(), out.data_ptr(),
-        b, hq, hkv, t, s,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    fn = _kernel()
+    with build.launch_stream(q) as stream:
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(), out.data_ptr(),
+            b, hq, hkv, t, s,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(sm_scale), stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"flash_attention_prefill: CUDA launch failed with error {err}")

@@ -12,7 +12,9 @@ an H100 and what the design does about it.
 it launches the kernel or raises.  Which rows take it is the caller's
 choice (`nn/layers.linear_apply`: at most MAX_ROWS rows, the decode
 shapes).  `launches` counts calls that launched the kernel; each such call
-is two CUDA launches (the group partials, then their ordered sum).
+is one CUDA launch.  When a call's groups take more than one run of blocks,
+the kernel merges them through a workspace and the current stream's arrival
+counters from `kernels/arrivals.py`.
 """
 
 from __future__ import annotations
@@ -21,24 +23,30 @@ import ctypes
 
 import torch
 
-from sparktts_tpu_torch.kernels import build
+from sparktts_tpu_torch.kernels import arrivals, build
 from sparktts_tpu_torch.lm.quant import unpack_int4
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/int4_matmul.cu"
 REPLACES = "sparktts_tpu/kernels/int4_matmul.py:101"
 MAX_ROWS = 32  # rows of x the kernel takes
+COLS = 64  # output columns per block (one arrival counter each, per 8 rows of x)
 
 launches = 0
 _fn = None
 
 
+def bind(lib: ctypes.CDLL):
+    """The launch function of a built int4_matmul library."""
+    fn = lib.int4_matvec_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = build.load("int4_matmul").int4_matvec_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = bind(build.load("int4_matmul"))
     return _fn
 
 
@@ -81,12 +89,15 @@ def int4_matvec(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor) -> 
                          f"groups)")
     if not all(t.is_contiguous() for t in (x, packed, gscale)):
         raise ValueError("int4_matvec: x, packed and gscale must be contiguous")
+    fn = _kernel()
     ws = torch.empty((groups, b, d_out), dtype=torch.float32, device=x.device)
     out = torch.empty((b, d_out), dtype=x.dtype, device=x.device)
-    err = _kernel()(
-        x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        b, d_in, d_out, groups, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with build.launch_stream(x) as stream:
+        counters = arrivals.for_current_stream(x.device, -(-d_out // COLS) * -(-b // 8))
+        err = fn(
+            x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), b, d_in, d_out, groups, stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"int4_matvec: CUDA launch failed with error {err}")

@@ -100,11 +100,13 @@ def int8_mlp_matvec(
     h = torch.empty((r, i), dtype=x.dtype, device=x.device)
     ws = torch.empty((splits, r, k), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    err = _kernel()(
-        x.data_ptr(), gu_q.data_ptr(), gu_scale.data_ptr(), down_q.data_ptr(),
-        down_scale.data_ptr(), h.data_ptr(), ws.data_ptr(), out.data_ptr(), r, k, i,
-        DOWN_ROWS_PER_SPLIT, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    fn = _kernel()
+    with build.launch_stream(x) as stream:
+        err = fn(
+            x.data_ptr(), gu_q.data_ptr(), gu_scale.data_ptr(), down_q.data_ptr(),
+            down_scale.data_ptr(), h.data_ptr(), ws.data_ptr(), out.data_ptr(), r, k, i,
+            DOWN_ROWS_PER_SPLIT, stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"int8_mlp_matvec: CUDA launch failed with error {err}")

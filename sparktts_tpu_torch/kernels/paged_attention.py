@@ -5,13 +5,19 @@ Replaces `paged_decode_attention` of `sparktts_tpu/kernels/paged_attention.py`
 (`_paged_kernel`): one query token per slot against the `layer` plane of the
 stacked `(L, Hkv, n_pages, P, D)` K and V pools, keys `[0, lengths[b])` read
 through the slot's row of the `(B, pages_per_slot)` int32 page table, fp32
-accumulation, output in q's dtype.  A slot of length 0 gives zeros.  The
-kernel is `csrc/paged_attention.cu`; its header says how it is laid out,
-what bounds it on an H100 and what the design does about it.
+accumulation, output in q's dtype.  A slot of length 0 gives zeros; keys
+past the table are not read (a finished slot's length runs one past it).
+The kernel is `csrc/paged_attention.cu`: it splits each slot's keys across
+blocks, one per `CHUNK` keys of the table, and merges their partial softmax
+states in chunk order within the same launch (kernel 2's split, through the
+page table).  Its header says what bounds it on an H100 and what the design
+does about it.  `paged_decode_split_plain` is the CPU model of that split
+and merge, for the tests and chip_smoke.py only.
 
 `paged_decode_attention` runs the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  `launches` counts kernel
-launches.
+launches (one per call).  The merge counts arrivals on the current stream's
+counters from `kernels/arrivals.py`.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import ctypes
 
 import torch
 
-from sparktts_tpu_torch.kernels import build
+from sparktts_tpu_torch.kernels import arrivals, build
+from sparktts_tpu_torch.kernels.decode_attention import PARTIAL, dense_decode_split_plain
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/paged_attention.cu"
 REPLACES = "sparktts_tpu/kernels/paged_attention.py:158"
@@ -29,18 +36,37 @@ GROUP = 7  # query heads per KV head the kernel is built for (Qwen2.5-0.5B)
 
 launches = 0
 _fn = None
+_chunk = 0
+
+
+def bind(lib: ctypes.CDLL):
+    """(the launch function, its chunk) of a built paged_attention library."""
+    fn = lib.paged_decode_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.paged_decode_chunk.restype = ctypes.c_int
+    return fn, lib.paged_decode_chunk()
 
 
 def _kernel():
-    global _fn
+    global _fn, _chunk
     if _fn is None:
-        fn = build.load("paged_attention").paged_decode_attention_bf16
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn, _chunk = bind(build.load("paged_attention"))
     return _fn
+
+
+def kernel_chunk() -> int:
+    """Keys per split of the built kernel (builds it first if needed)."""
+    _kernel()
+    return _chunk
+
+
+def _gather(pages: torch.Tensor, page_table: torch.Tensor, layer: int) -> torch.Tensor:
+    """Each slot's pages of pool[layer] in table order: (B, Hkv, pps P, D)."""
+    p = pages[layer]  # (Hkv, n_pages, P, D)
+    b, pps = page_table.shape
+    return p[:, page_table.long()].transpose(0, 1).reshape(b, p.shape[0], pps * p.shape[2],
+                                                           p.shape[3])
 
 
 def paged_decode_plain(
@@ -56,12 +82,9 @@ def paged_decode_plain(
     softmax (-inf past the length, an empty row gives zeros); (B, Hq, D) in
     q.dtype."""
     b, hq, d = q.shape
-    kp, vp = k_pages[layer], v_pages[layer]  # (Hkv, n_pages, P, D)
-    hkv, _, page, _ = kp.shape
-    s = page_table.shape[1] * page
-    idx = page_table.long()
-    k = kp[:, idx].transpose(0, 1).reshape(b, hkv, s, d).float()  # (B, Hkv, S, D)
-    v = vp[:, idx].transpose(0, 1).reshape(b, hkv, s, d).float()
+    k = _gather(k_pages, page_table, layer).float()  # (B, Hkv, S, D)
+    v = _gather(v_pages, page_table, layer).float()
+    hkv, s = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, d)
     scores = torch.einsum("bkgd,bksd->bkgs", qg, k) * sm_scale
     valid = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]  # (B, S)
@@ -71,6 +94,26 @@ def paged_decode_plain(
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bksd->bkgd", p, v) / torch.where(l == 0, 1.0, l)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_split_plain(
+    q: torch.Tensor,           # (B, Hq, D)
+    k_pages: torch.Tensor,     # (L, Hkv, n_pages, P, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, pages_per_slot) int32
+    lengths: torch.Tensor,     # (B,) valid keys per slot
+    layer: int,
+    sm_scale: float,
+    chunk: int,
+) -> torch.Tensor:
+    """The kernel's split in fp32: each slot's keys gathered through its
+    table row, the partial softmax state of each `chunk` keys of the table,
+    merged in chunk order (`dense_decode_split_plain` over the gathered keys,
+    window [0, min(len, pps P) - 1]); an empty slot gives zeros."""
+    k = _gather(k_pages, page_table, layer).transpose(1, 2)[None]  # (1, B, S, Hkv, D)
+    v = _gather(v_pages, page_table, layer).transpose(1, 2)[None]
+    lens = lengths.to(q.device).to(torch.int32)
+    return dense_decode_split_plain(q, k, v, 0, torch.zeros_like(lens), lens - 1, sm_scale, chunk)
 
 
 def paged_decode_attention(
@@ -109,12 +152,18 @@ def paged_decode_attention(
         raise ValueError("paged_decode_attention: inputs must be contiguous")
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_decode_attention: q and pools must be 16-byte aligned")
+    fn = _kernel()
+    pps = page_table.shape[1]
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), int(layer), b, hkv, hq, n_pages, page,
-        page_table.shape[1], float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    part = torch.empty((b, hkv, -(-pps * page // _chunk), PARTIAL), dtype=torch.float32,
+                       device=q.device)
+    with build.launch_stream(q) as stream:
+        counters = arrivals.for_current_stream(q.device, b * hkv)
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), int(layer),
+            b, hkv, hq, n_pages, page, pps, float(sm_scale), stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed with error {err}")

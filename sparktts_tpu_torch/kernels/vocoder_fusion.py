@@ -79,11 +79,13 @@ def fused_residual_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
         raise ValueError("fused_residual_unit: x, the weights and alpha1 must be 16-byte aligned")
     z = torch.empty_like(x)
     out = torch.empty_like(x)
-    err = _kernel()(
-        x.data_ptr(), a1.data_ptr(), w1.data_ptr(), b1.data_ptr(), a2.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), z.data_ptr(), out.data_ptr(), b, t, c, int(dilation),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    fn = _kernel()
+    with build.launch_stream(x) as stream:
+        err = fn(
+            x.data_ptr(), a1.data_ptr(), w1.data_ptr(), b1.data_ptr(), a2.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), z.data_ptr(), out.data_ptr(), b, t, c, int(dilation),
+            stream,
+        )
     launches += 1
     if err != 0:
         raise RuntimeError(f"fused_residual_unit: CUDA launch failed with error {err}")

@@ -19,6 +19,7 @@ the activation dtype with the scale on the output, before the bias; int4
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -161,23 +162,46 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+_fp32_lock = threading.Lock()
+_fp32_depth = 0  # full_fp32 blocks open, in all threads
+_fp32_saved = None  # (cudnn, matmul) TF32 flags when the first of them opened
+
+
 @contextlib.contextmanager
 def full_fp32():
     """Run fp32 convolutions and matmuls in full fp32 inside the block (or
     the decorated function), and restore the caller's settings after it.
     PyTorch's default lets cuDNN run fp32 convolutions in TF32 (about three
-    decimal digits); the codec is meant to be fp32 whoever calls it.  The
-    flags are process-wide, so the codec's entry points (which run under
-    this) are not safe to call while another thread runs TF32 work: that
-    thread loses TF32 for the duration, and flags it sets meanwhile are
-    overwritten on exit."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    decimal digits); the codec is meant to be fp32 whoever calls it.
+
+    The two TF32 flags are process-wide, and PyTorch has no per-call fp32
+    precision.  So blocks that overlap in several threads share one
+    bookkeeping, under a lock: the first to open saves the flags, every
+    one that opens clears both, and the last to close restores a flag only
+    where it is still False.  So a flag that another thread set to True
+    while blocks were open keeps True, unless a block opened after that
+    and cleared it again; a flag that another thread set to False cannot be
+    told from this one's clearing, and gets the saved value back.  What
+    this cannot fix: while any block is open, TF32 work in other threads
+    runs in full fp32."""
+    global _fp32_depth, _fp32_saved
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        _fp32_depth += 1
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                cudnn_saved, matmul_saved = _fp32_saved
+                if torch.backends.cudnn.allow_tf32 is False:
+                    torch.backends.cudnn.allow_tf32 = cudnn_saved
+                if torch.backends.cuda.matmul.allow_tf32 is False:
+                    torch.backends.cuda.matmul.allow_tf32 = matmul_saved
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

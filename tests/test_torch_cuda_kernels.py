@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from sparktts_tpu_torch.config import Wav2Vec2Config
+from sparktts_tpu_torch.kernels import arrivals
 from sparktts_tpu_torch.kernels import decode_attention as da
 from sparktts_tpu_torch.kernels import flash_attention as fa
 from sparktts_tpu_torch.kernels import int4_matmul as i4
@@ -184,6 +185,36 @@ def test_paged_kernel_matches_plain(page, lengths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "page,lengths",
+    [
+        # every slot near the full table (the late state of a long burst)
+        (256, [1024, 1023, 1000, 961, 1025, 1010, 999, 1017]),
+        # multiples of 64 and the keys next to them: the built kernel's 128-key chunk
+        # edges (128, 256) among them
+        (256, [63, 64, 65, 128, 129, 191, 192, 255]),
+        # pages smaller than a chunk: a chunk spans pages
+        (16, [1, 15, 16, 17, 48, 49, 64, 65]),
+    ],
+)
+def test_paged_kernel_matches_plain_and_its_split_model_and_repeats(page, lengths):
+    """Also against `paged_decode_split_plain` at the built kernel's chunk,
+    and two calls bit-equal (chunks merged in a fixed order)."""
+    dev = _cuda()
+    q, kp, vp, table, lens = _paged_case(dev, page, lengths, layers=4)
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, 3, sm_scale=0.125)
+    again = pa.paged_decode_attention(q, kp, vp, table, lens, 3, sm_scale=0.125)
+    want = pa.paged_decode_plain(q, kp, vp, table, lens, 3, sm_scale=0.125)
+    split = pa.paged_decode_split_plain(q, kp, vp, table, lens, 3, sm_scale=0.125,
+                                        chunk=pa.kernel_chunk())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(got, split.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
 def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
     dev = _cuda()
     q, kp, vp, table, lens = _paged_case(dev, 16, [1, 16], layers=2)
@@ -338,6 +369,139 @@ def test_int4_kernel_matches_plain(d_in, d_out, b):
     got = i4.int4_matvec(x, packed, gscale)
     assert i4.launches == before + 1 and got.dtype == torch.bfloat16
     assert _rel_err(got, i4.int4_matvec_plain(x, packed, gscale)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out,group,b", [
+    (896, 1000, 128, 3),  # ragged out: no 16-byte row loads, a partial column tile
+    (4864, 896, 128, 9),  # down with a partial tile of 8 x rows
+    (4864, 896, 128, 32),  # down at the most rows: several groups a block, merged
+    (896, 9728, 128, 8),  # gate/up at the engines' 8 rows
+    (896, 9728, 128, 32),  # gate/up at 32 rows: the tiles fill the card, a block walks 7 groups
+    (256, 70, 16, 3),  # out not a multiple of 4: rows byte by byte, the merge without cp.async
+    (896, 1152, 64, 1),  # 14 groups, more than a block holds: one a block, merged through
+    # the workspace
+    (256, 72, 16, 2),  # small groups: rows past a group's end in a lane's walk
+    (256, 80, 16, 1),  # one row, out not a multiple of 16: rows read byte by byte
+])
+def test_int4_kernel_ragged_and_repeats_bit_equal(d_in, d_out, group, b):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d_in + d_out + group + b)
+    packed = torch.randint(-128, 128, (d_in // 2, d_out), generator=g, device=dev,
+                           dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((d_in // group, d_out), generator=g, device=dev))
+    x = torch.randn((b, d_in), generator=g, device=dev).to(torch.bfloat16)
+    got = i4.int4_matvec(x, packed, gscale)
+    for _ in range(2):
+        assert torch.equal(got, i4.int4_matvec(x, packed, gscale))
+    assert _rel_err(got, i4.int4_matvec_plain(x, packed, gscale)) <= 1e-2
+
+
+def _decode_streams_case(dev):
+    q, ck, cv, start, pos = _decode_case(dev, 8, 960, [0] * 8, [447, 120, 560, 63, 959, 0, 300,
+                                                                 511])
+    want = da.dense_decode_plain(q, ck, cv, 1, start, pos, sm_scale=0.125)
+    return (q, ck, cv, 1, start, pos), want
+
+
+@pytest.mark.cuda
+def test_decode_kernel_on_two_streams_at_once():
+    """Kernel 2 on two streams of one card, calls interleaved so they may
+    run at the same time: each stream merges on its own arrival counters,
+    and both match the plain version in every call."""
+    dev = _cuda()
+    cases = [_decode_streams_case(dev) for _ in range(2)]
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(da.dense_decode_attention(*cases[i][0], sm_scale=0.125))
+    torch.cuda.synchronize()
+    keys = {arrivals.stream_key(s) for s in streams}
+    assert keys <= set(arrivals.REGISTRY.keys()) and len(keys) == 2
+    for i in range(2):
+        want = cases[i][1].float().cpu().numpy()
+        for got in outs[i]:
+            np.testing.assert_allclose(got.float().cpu().numpy(), want, **BF16_TOL)
+        assert all(torch.equal(outs[i][0], o) for o in outs[i])
+
+
+@pytest.mark.cuda
+def test_merging_kernels_replay_in_a_graph_on_a_prepared_stream():
+    """Kernels 2, 5 and 6 captured in one CUDA graph on a stream whose
+    counters were made first (`arrivals.prepare`): replays match eager
+    calls bit for bit.  Capture on a stream that has no counters raises."""
+    dev = _cuda()
+    args2, _ = _decode_streams_case(dev)
+    args6 = _paged_case(dev, 256, [1024, 500, 1, 0, 771, 1025, 256, 257], layers=2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    packed = torch.randint(-128, 128, (2432, 896), generator=g, device=dev, dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((38, 896), generator=g, device=dev))
+    x = torch.randn((1, 4864), generator=g, device=dev).to(torch.bfloat16)
+
+    def calls():
+        return (da.dense_decode_attention(*args2, sm_scale=0.125),
+                pa.paged_decode_attention(*args6, 1, sm_scale=0.125),
+                i4.int4_matvec(x, packed, gscale))
+
+    eager = calls()
+    stream = torch.cuda.Stream(device=dev)
+    arrivals.prepare(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = calls()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream(device=dev)):
+            calls()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_card_of_their_tensors():
+    """With card 0 current, each kernel given tensors on card 1 runs there
+    (the launch helper makes card 1 current) and matches its plain version.
+    Needs two cards; skips on one."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    args2, want2 = _decode_streams_case(dev)
+    q, kp, vp, table, lens = _paged_case(dev, 256, [1024, 500, 1, 0], layers=2)
+    got6 = pa.paged_decode_attention(q, kp, vp, table, lens, 1, sm_scale=0.125)
+    want6 = pa.paged_decode_plain(q, kp, vp, table, lens, 1, sm_scale=0.125)
+    qf, kf, vf_, start = _flash_case(dev, 2, 77, [0, 9])
+    got1 = fa.flash_attention_prefill(qf, kf, vf_, start, sm_scale=D**-0.5)
+    want1 = fa.flash_attention_plain(qf, kf, vf_, start, sm_scale=D**-0.5)
+    g = torch.Generator(device=dev).manual_seed(3)
+    packed = torch.randint(-128, 128, (448, 1152), generator=g, device=dev, dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((7, 1152), generator=g, device=dev))
+    x = torch.randn((1, 896), generator=g, device=dev).to(torch.bfloat16)
+    w8 = _int8_mlp_weights(dev)
+    x8 = torch.randn((2, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
+    unit = _residual_unit(96, dev)
+    xu = torch.randn((1, 256, 96), generator=g, device=dev)
+    got2 = da.dense_decode_attention(*args2, sm_scale=0.125)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for got, want in ((got2, want2), (got6, want6)):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **BF16_TOL)
+    rows = (torch.arange(77, device=dev)[None, :] >= start[:, None])[:, None, :, None]
+    assert float((got1.float() - want1.float()).abs().masked_select(rows).max()) <= 2e-2
+    assert _rel_err(i4.int4_matvec(x, packed, gscale), i4.int4_matvec_plain(x, packed,
+                                                                            gscale)) <= 1e-2
+    assert _rel_err(i8.int8_mlp_matvec(x8, *w8), i8.int8_mlp_matvec_plain(x8, *w8)) <= 2e-2
+    with full_fp32():
+        want_u = vf.fused_residual_unit_plain(unit, xu, 1)
+    got_u = vf.fused_residual_unit(unit, xu, 1)
+    torch.cuda.synchronize(dev)
+    assert float((got_u - want_u).abs().max()) <= 1e-4 * float(want_u.abs().max())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points do not fall back to the CPU, and its random init has the
-JAX init's tree at the full Spark-TTS-0.5B widths."""
+its entry points do not fall back to the CPU, its kernel wrappers launch on
+their tensors' card, and its random init has the JAX init's tree at the full
+Spark-TTS-0.5B widths."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -53,6 +55,39 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "codec.speaker_encoder", "codec.bicodec"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
+
+
+WRAPPERS = ("flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp", "int4_matmul",
+            "paged_attention")
+
+
+def _cuda_stream_reads(tree):
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "cuda_stream"]
+
+
+def test_kernel_wrappers_launch_inside_the_launch_helper():
+    """A ctypes launch on the stream handle 0 (the default stream) goes to
+    the current device, which need not be the tensor's.  So no wrapper reads
+    a stream handle itself: each launches inside `build.launch_stream`, the
+    one place that reads `.cuda_stream`, after making the tensor's card
+    current."""
+    kernels = REPO / "sparktts_tpu_torch" / "kernels"
+    for name in WRAPPERS:
+        src = (kernels / f"{name}.py").read_text()
+        tree = ast.parse(src)
+        assert not _cuda_stream_reads(tree), f"{name}.py reads .cuda_stream itself"
+        assert not any(isinstance(n, ast.Attribute) and n.attr == "current_stream"
+                       for n in ast.walk(tree)), f"{name}.py asks for a stream itself"
+        helpers = [item.context_expr for n in ast.walk(tree) if isinstance(n, ast.With)
+                   for item in n.items]
+        assert any(ast.unparse(h.func) == "build.launch_stream" for h in helpers
+                   if isinstance(h, ast.Call)), f"{name}.py does not launch in the helper"
+    build = ast.parse((kernels / "build.py").read_text())
+    helper = next(n for n in build.body if isinstance(n, ast.FunctionDef)
+                  and n.name == "launch_stream")
+    inside = {id(n) for n in _cuda_stream_reads(helper)}
+    assert inside and all(id(n) in inside for n in _cuda_stream_reads(build))
+    assert "torch.cuda.device" in ast.unparse(helper)
 
 
 def test_pipeline_without_device_needs_a_card(monkeypatch):

@@ -112,6 +112,45 @@ def test_paged_plain_matches_pallas_and_reference(dtype, tol):
     assert pa.launches == before  # CPU tensors take the plain version
 
 
+SPLIT_PAGE, SPLIT_PPS = 16, 4
+SPLIT_LENGTHS = {"0": 0, "1": 1, "P": SPLIT_PAGE, "P+1": SPLIT_PAGE + 1,
+                 "pps*P": SPLIT_PPS * SPLIT_PAGE, "pps*P+1": SPLIT_PPS * SPLIT_PAGE + 1}
+
+
+@pytest.mark.parametrize("length", list(SPLIT_LENGTHS))
+@pytest.mark.parametrize("chunk", (8, 16, 32, 64, 128))
+def test_paged_split_plain_matches_pallas_and_plain(chunk, length):
+    """The CPU model of the split kernel (each slot's keys gathered through
+    its table row, per-chunk partials merged in chunk order) against the
+    Pallas kernel in interpret mode and the plain version, fp32 1e-5: the
+    same fp32 math merged in another order.  Chunks inside a page (8), one
+    page (16), spanning pages (32, 64) and the whole table (128, the built
+    kernel's chunk); slot 0 of each length, beside a
+    ragged slot and a one-key slot; a slot at pps P + 1 (finished, one past
+    its table) reads only its table; length 0 gives zeros."""
+    rng = np.random.default_rng(chunk)
+    b, hq, hkv, d, layers = 3, 14, 2, 64, 2
+    page, pps = SPLIT_PAGE, SPLIT_PPS
+    lengths = np.asarray([SPLIT_LENGTHS[length], 37, 1], np.int32)
+    n_pages = b * pps + 1
+    ids = rng.permutation(np.arange(1, n_pages)).reshape(b, pps).astype(np.int32)
+    used = np.minimum(-(-lengths // page), pps)
+    table = np.where(np.arange(pps)[None, :] < used[:, None], ids, 0).astype(np.int32)
+    q = rng.standard_normal((b, hq, d), dtype=np.float32)
+    kp, vp = (rng.standard_normal((layers, hkv, n_pages, page, d), dtype=np.float32)
+              for _ in range(2))
+    args = [torch.from_numpy(x) for x in (q, kp, vp, table, lengths)]
+    for layer in (0, 1):
+        want = np.asarray(jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                    jnp.asarray(table), jnp.asarray(lengths), layer=layer,
+                                    sm_scale=0.125, interpret=True))
+        plain = pa.paged_decode_plain(*args, layer, sm_scale=0.125).numpy()
+        got = pa.paged_decode_split_plain(*args, layer, sm_scale=0.125, chunk=chunk).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+        assert np.all(got[lengths == 0] == 0)
+
+
 def test_paged_engine_greedy_ids_equal_jax(params, jax_ids):
     _, tp = params
     got = _serve(_port(tp))
