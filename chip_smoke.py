@@ -44,11 +44,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card), both in bf16 and each bit-equal over two calls; the decode kernel
    on two streams at once (each merging on its own arrival counters); the
    vocoder's ResidualUnit in fp32 at the 12 (channels, length, dilation) of
-   each request's bucketed vocode and at one ragged length; the int8 MLP at
-   1, 4 and 16 rows and the int4 matvec at the four layer shapes at 1 and
-   8 rows, down also at 32 (two calls bit-equal), bf16, on the quantized
-   LMs' own weights, timed over all 24
-   layers' weights in turn (as a decode step streams them from HBM);
+   each request's bucketed vocode and at one ragged length (also against
+   `residual_unit_3xtf32_plain`, the CPU model of its three products, run on
+   the card), two calls bit-equal, its bound both that of 3xTF32 on the
+   tensor cores and that of fp32 on the CUDA cores; the int8 MLP at 1, 4, 8
+   and 16 rows (also against its tiled model; one device kernel a call, from
+   a profiler trace; beside the library's int8 matmul and a bf16 MLP as
+   yardsticks) and the int4 matvec at the four layer shapes at 1 and 8 rows,
+   down also at 32 (two calls bit-equal), bf16, on the quantized LMs' own
+   weights, timed over all 24 layers' weights in turn (as a decode step
+   streams them from HBM);
 10. one prefill of the full-width LM (Qwen2.5-0.5B, random weights) on each
    request's prompt with the flash kernel and with the plain dense
    attention: last-position logits must agree;
@@ -117,10 +122,11 @@ MAX_NEW_TOKENS = 500
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s,
-# fp32 FLOP/s on the CUDA cores
+# fp32 FLOP/s on the CUDA cores, dense TF32 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 PROMPT_TEXT = "This is the voice to clone, six seconds of it."
 PROMPT_SECONDS = 6.0
@@ -137,9 +143,21 @@ KERNEL_ATOL = 2e-2
 # differences compound through 24 residual layers.  Held relative to the
 # logits' own scale.
 LOGITS_REL_TOL = 5e-2
-# ResidualUnit kernel vs plain version, both fp32 with TF32 off: they differ
-# only in the order of the 7C + C-term sums.
+# ResidualUnit kernel vs plain version, both fp32-accurate (the kernel in
+# 3xTF32, the plain version with TF32 off): they differ in the order of the
+# 7C + C-term sums and in the dropped lo x lo term (~2^-22 of each product).
 VOCODER_REL_TOL = 1e-4
+# ResidualUnit kernel vs `residual_unit_3xtf32_plain` (its three tf32 products
+# summed by cuBLAS in fp32, TF32 off), relative to max|model|, at C channels:
+# they differ in the accumulation alone, which the tensor cores round toward
+# zero at each mma step, so the gap grows with C (on an H100, 8.6e-7 at
+# C = 96 to 3.5e-5 at C = 768, `scripts/check_torch_vocoder_accumulation.py`);
+# a product left out of the split moves the unit by 4.3e-5 at C = 96 to
+# 2.2e-4 at C = 768, above this limit at every C.
+def vocoder_model_tol(c: int) -> float:
+    return 7e-5 * (c / 768) ** 1.5
+
+
 # Tokenize on the card vs on the CPU: near-ties of the FVQ argmax and the FSQ
 # rounding may flip a few ids under another summation order; a layout bug
 # agrees almost nowhere.
@@ -182,7 +200,7 @@ _capture = {}
 
 def _capture_stream():
     """The one stream that every timing graph is captured on (and warmed up
-    on).  Kernels 2, 5 and 6 merge on per-stream arrival counters
+    on).  Kernels 2, 4, 5 and 6 merge on per-stream arrival counters
     (`kernels/arrivals.py`), which are never made during a capture, so this
     stream's counters are made once, here, before its first capture."""
     import torch
@@ -524,41 +542,57 @@ def check_vocoder(dev, wg_cfg, token_counts):
     cases = [(n, c, t, d) for n in token_counts for c, t in vocode_shapes(n) for d in DILATIONS]
     cases.append((None, 192, 4321, 9))  # ragged, off the path
     max_err = 0.0
-    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0) for n in token_counts}
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_fp32_ms=0.0)
+              for n in token_counts}
     bound_by = {"bytes": 0.0, "operations": 0.0}  # bound ms by what bounds each unit
     for n, c, t, dil in cases:
         p = unit(c)
         x = torch.randn((1, t, c), generator=gen, device=dev)
         got = vf.fused_residual_unit(p, x, dil)
+        if not torch.equal(got, vf.fused_residual_unit(p, x, dil)):
+            raise AssertionError(f"vocoder kernel: two calls differ (C={c} T={t} dilation={dil})")
         want = vf.fused_residual_unit_plain(p, x, dil)
+        model = vf.residual_unit_3xtf32_plain(p, x, dil)  # TF32 is off (main)
         _sync(dev)
         err, scale = float((got - want).abs().max()), float(want.abs().max())
+        model_gap = float((got - model).abs().max()) / float(model.abs().max())
         line = (f"fused_residual_unit C={c} T={t} dilation={dil}: max_abs_err={err:.3e}, "
-                f"max|plain|={scale:.3e}, relative {err / scale:.3e} (tol {VOCODER_REL_TOL})")
+                f"max|plain|={scale:.3e}, relative {err / scale:.3e} (tol {VOCODER_REL_TOL}); "
+                f"vs its 3xTF32 model {model_gap:.3e} (tol {vocoder_model_tol(c):.3e})")
         if not (bool(torch.isfinite(got).all()) and err <= VOCODER_REL_TOL * scale):
             raise AssertionError(f"vocoder kernel disagrees with its plain version: {line}")
+        if not model_gap <= vocoder_model_tol(c):
+            raise AssertionError(f"vocoder kernel disagrees with its 3xTF32 model: {line}")
         max_err = max(max_err, err)
         if n is not None:
             ms = _time_ms(lambda: vf.fused_residual_unit(p, x, dil), dev, iters=3, reps=3)
             plain_ms = _time_ms(lambda: vf.fused_residual_unit_plain(p, x, dil), dev, iters=3,
                                 reps=3)
             nbytes = 4 * (2 * t * c + 8 * c * c + 4 * c)  # x in, out, both kernels, biases, alphas
-            bound_ms, by = _bound(nbytes, 16 * t * c * c, FP32_FLOPS)
+            # the least time of fp32-accurate work on the tensor cores (3xTF32:
+            # three products each), and at the fp32 CUDA-core rate
+            bound_ms, by = _bound(nbytes, 3 * 16 * t * c * c, TF32_FLOPS)
+            bound_fp32_ms = _bound(nbytes, 16 * t * c * c, FP32_FLOPS)[0]
             if n == token_counts[0]:
                 bound_by[by] += bound_ms
-            line += f"; device {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f})"
+            line += (f"; device {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} "
+                     f"3xTF32, {bound_fp32_ms:.4f} fp32)")
             totals[n]["ms"] += ms
             totals[n]["plain_ms"] += plain_ms
             totals[n]["bound_ms"] += bound_ms
+            totals[n]["bound_fp32_ms"] += bound_fp32_ms
         print(line)
     for n, total in totals.items():
         print(f"fused_residual_unit over one {n}-token vocode "
               f"({len(vocode_shapes(n)) * len(DILATIONS)} unit calls): "
               f"device {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-              f"bound {total['bound_ms']:.4f} ms")
+              f"bound {total['bound_ms']:.4f} ms 3xTF32 ({total['bound_ms'] / total['ms']:.3f} "
+              f"of it), {total['bound_fp32_ms']:.4f} ms fp32 CUDA cores "
+              f"({total['bound_fp32_ms'] / total['ms']:.3f})")
+    first = totals[token_counts[0]]
     return dict(name="fused_residual_unit", route="cuda", source=vf.SOURCE, replaces=vf.REPLACES,
                 max_abs_err=max_err, bound_by=max(bound_by, key=bound_by.get), library_ms=None,
-                **totals[token_counts[0]])
+                ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"])
 
 
 def make_prompt_wav(path: Path, seconds: float = PROMPT_SECONDS, sr: int = 16000) -> Path:
@@ -830,11 +864,64 @@ def _check_close(label, got, want, rel_tol):
     return err
 
 
+def _device_kernels(fn, dev, label):
+    """Names of the device kernels that one call of `fn` launched, from a
+    torch.profiler trace (written to the output directory).  A trace with
+    no device activity at all recorded nothing, since the call ran on the
+    card (the profiler now and then drops a session's device records: one
+    of four sessions of one H100 run came back empty), so it is taken
+    again, at most three sessions in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(dev)
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync(dev)
+        path = OUT_DIR / f"{label}_launch_trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+        if any(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events):
+            return [e["name"] for e in events if e.get("cat") == "kernel"]
+        print(f"{label}: profiler session {session + 1} recorded no device activity")
+    return []
+
+
+def int8_library_mlps(x, gu_q, gu_scale, down_q, down_scale):
+    """Two yardsticks for the fused int8 MLP on the same weights (the port
+    calls neither): the library's int8 weight-only matmul
+    (`torch._weight_int8pack_mm`, bf16 scales) for gate/up and down with
+    silu * mul between, and the same MLP with the weights dequantized to
+    bf16 once, here, through `F.linear`.  Returns the two calls."""
+    import torch
+    import torch.nn.functional as F
+
+    i = down_q.shape[0]
+    wgu, wd = gu_q.t().contiguous(), down_q.t().contiguous()  # (2I, K), (K, I)
+    sgu, sd = gu_scale.to(torch.bfloat16), down_scale.to(torch.bfloat16)
+    dgu = (wgu.float() * gu_scale[:, None]).to(torch.bfloat16)
+    dd = (wd.float() * down_scale[:, None]).to(torch.bfloat16)
+
+    def int8pack():
+        gu = torch._weight_int8pack_mm(x, wgu, sgu)
+        return torch._weight_int8pack_mm(F.silu(gu[:, :i]) * gu[:, i:], wd, sd)
+
+    def dense():
+        gu = F.linear(x, dgu)
+        return F.linear(F.silu(gu[:, :i]) * gu[:, i:], dd)
+
+    return int8pack, dense
+
+
 def check_int8_mlp(dev, int8_layers):
-    """The fused int8 MLP kernel vs its plain version at 1, 4 and 16 rows on
-    the int8 LM's own layers (bf16 x), plus a ragged intermediate width;
-    each row count timed over the 24 layers.  Returns the kernels-line
-    entry (without launches) with the times of one row."""
+    """The fused int8 MLP kernel vs its plain version and its tiled model at
+    1, 4, 8 and 16 rows on the int8 LM's own layers (bf16 x), two calls
+    bit-equal, plus a ragged intermediate width; one call is one device
+    kernel (profiler trace); each row count timed over the 24 layers beside
+    the two yardsticks of `int8_library_mlps` (held to the plain version
+    first; an error of the library call is recorded in its place).  Returns
+    the kernels-line entry (without launches) with the times of one row."""
     import torch
 
     from sparktts_tpu_torch.kernels import int8_mlp as i8
@@ -844,23 +931,48 @@ def check_int8_mlp(dev, int8_layers):
                 lay["down"]["scale"]) for lay in int8_layers]
     k, i = weights[0][2].shape[1], weights[0][2].shape[0]
     max_err, timed = 0.0, {}
-    for r in (1, 4, 16):
+    for r in (1, 4, 8, 16):
         x = torch.randn((r, k), generator=gen, device=dev).to(torch.bfloat16)
         for w in (weights[0], weights[-1]):
-            max_err = max(max_err, _check_close(f"int8_mlp_matvec R={r} K={k} I={i}",
-                                                i8.int8_mlp_matvec(x, *w),
-                                                i8.int8_mlp_matvec_plain(x, *w), INT8_MLP_REL_TOL))
+            got = i8.int8_mlp_matvec(x, *w)
+            if not torch.equal(got, i8.int8_mlp_matvec(x, *w)):
+                raise AssertionError(f"int8 MLP kernel: two calls differ (R={r})")
+            label = f"int8_mlp_matvec R={r} K={k} I={i}, two calls bit-equal"
+            max_err = max(max_err, _check_close(label, got, i8.int8_mlp_matvec_plain(x, *w),
+                                                INT8_MLP_REL_TOL))
+            _check_close(f"{label}, vs its tiled model", got, i8.int8_mlp_tiled_plain(x, *w),
+                         INT8_MLP_REL_TOL)
+        if dev.type == "cuda":
+            kernels = _device_kernels(functools.partial(i8.int8_mlp_matvec, x, *weights[0]), dev,
+                                      f"int8_mlp_R{r}")
+            if len(kernels) != 1 or "int8_mlp" not in kernels[0]:
+                raise AssertionError(f"int8 MLP: one call launched {kernels}, not one kernel")
         ms = _time_ms(_rotating([functools.partial(i8.int8_mlp_matvec, x, *w) for w in weights]),
                       dev, iters=len(weights), reps=10)
         plain_ms = _time_ms(_rotating([functools.partial(i8.int8_mlp_matvec_plain, x, *w)
                                        for w in weights]), dev, iters=len(weights), reps=3)
         nbytes = 3 * i * k + 4 * (2 * i + k) + 2 * 2 * r * k  # int8 weights, scales, x in, out
         bound_ms, bound_by = _bound(nbytes, 6 * r * k * i)
-        print(f"int8_mlp_matvec R={r}: device {ms:.4f} ms per call over {len(weights)} layers' "
-              f"weights (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
-              f"{nbytes / ms / 1e6:.1f} GB/s)")
-        timed[r] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    # a ragged intermediate width (no 32- or 256-column tiling) at 3 rows
+        line = (f"int8_mlp_matvec R={r}: device {ms:.4f} ms per call over {len(weights)} layers' "
+                f"weights, one kernel a call (plain {plain_ms:.4f}, bound {bound_ms:.4f} by "
+                f"{bound_by}, {nbytes / ms / 1e6:.1f} GB/s)")
+        yardsticks = {}
+        pairs = [int8_library_mlps(x, *w) for w in weights]
+        for n, name in enumerate(("torch._weight_int8pack_mm", "bf16 F.linear")):
+            try:
+                _check_close(f"{name} MLP R={r} vs plain", pairs[0][n](),
+                             i8.int8_mlp_matvec_plain(x, *weights[0]), INT8_MLP_REL_TOL)
+                yardsticks[name] = _time_ms(_rotating([p[n] for p in pairs]), dev,
+                                            iters=len(weights), reps=10)
+                line += f"; {name} {yardsticks[name]:.4f}"
+            except (RuntimeError, NotImplementedError) as e:
+                yardsticks[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+                line += f"; {name} raised {yardsticks[name]}"
+        del pairs
+        print(line)
+        timed[r] = dict(rows=r, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        yardsticks=yardsticks)
+    # a ragged intermediate width (no 16-column tiling, a padded cluster) at 3 rows
     g = torch.Generator(device=dev).manual_seed(5)
     i_r = 1000
     gu = torch.randint(-127, 128, (k, 2 * i_r), generator=g, device=dev, dtype=torch.int8)
@@ -872,8 +984,9 @@ def check_int8_mlp(dev, int8_layers):
                                         i8.int8_mlp_matvec(x, gu, gs, dq, ds),
                                         i8.int8_mlp_matvec_plain(x, gu, gs, dq, ds),
                                         INT8_MLP_REL_TOL))
+    one = {key: v for key, v in timed[1].items() if key != "rows"}
     return dict(name="int8_mlp_matvec", route="cuda", source=i8.SOURCE, replaces=i8.REPLACES,
-                max_abs_err=max_err, library_ms=None, **timed[1])
+                max_abs_err=max_err, library_ms=None, by_shape=list(timed.values()), **one)
 
 
 def int4_library_call(x, packed, gscale):
@@ -1516,7 +1629,7 @@ def main() -> int:
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "by_shape"]
+            "bound_ms", "bound_by", "library_ms", "yardsticks", "by_shape"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

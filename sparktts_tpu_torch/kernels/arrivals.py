@@ -1,9 +1,10 @@
 """Arrival counters for the kernels that merge across blocks in one launch.
 
-Kernels 2, 5 and 6 (`decode_attention`, `int4_matmul`, `paged_attention`)
-split one output over several blocks.  Each block writes its partial to
-scratch and counts its arrival on an int32 counter; the block that arrives
-last merges the partials in a fixed order and sets the counter back to 0.
+Kernels 2, 4, 5 and 6 (`decode_attention`, `int8_mlp`, `int4_matmul`,
+`paged_attention`) split one output over several blocks.  Each block writes
+its partial to scratch and counts its arrival on an int32 counter; the block
+that arrives last merges the partials in a fixed order and sets the counter
+back to 0.
 So a launch needs counters that are 0 when it starts and that no launch
 running at the same time touches.
 

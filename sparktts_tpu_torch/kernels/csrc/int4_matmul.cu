@@ -42,7 +42,7 @@
 //   group's scales.  With one run the block then adds the groups in order
 //   g = 0, 1, ... and rounds to bf16.  With several, each block writes its
 //   scaled partials to the fp32 workspace (G, B, out), arrives on its column
-//   tile's counter (split_decode.cuh's `arrive_last`, counters from
+//   tile's counter (arrivals.cuh's `arrive_last`, counters from
 //   kernels/arrivals.py), and the last block of the tile sums the workspace
 //   over g = 0, 1, ... in order.  Either way the sum starts from 0 and adds
 //   the groups in order, the Pallas kernel's accumulation order, with no
@@ -71,8 +71,12 @@
 // with 8 groups' loads in flight, and budgets of 64, 96 and 128 registers:
 // each slower on most shapes.
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
-#include "split_decode.cuh"
+#include "arrivals.cuh"
 
 #ifndef INT4_RUN
 #define INT4_RUN 0  // groups a block at B > 1: 0 is the kernel's own choice (a bench builds others)
@@ -301,7 +305,7 @@ __global__ void __launch_bounds__(32 * WPG * RUN1, 2) int4_matvec_kernel(
     if (one_run) out[static_cast<long long>(b0 + r) * out_dim + c] = __float2bfloat16_rn(acc);
   }
   if (one_run) return;
-  if (!split_decode::arrive_last(arrivals + blockIdx.x, gridDim.y)) return;
+  if (!arrivals::arrive_last(arrivals + blockIdx.x, gridDim.y)) return;
   sum_groups_in_order<BT, 32 * WPG>(ws, groups, B, out_dim, b0, c0, out);
 }
 
@@ -445,7 +449,7 @@ __global__ void __launch_bounds__(RTHREADS, ROWS_PER_SM) int4_rows_kernel(
     }
     return;
   }
-  if (!split_decode::arrive_last(arrivals + blockIdx.z * gridDim.x + blockIdx.x, gridDim.y))
+  if (!arrivals::arrive_last(arrivals + blockIdx.z * gridDim.x + blockIdx.x, gridDim.y))
     return;
   sum_groups_in_order<RT, RTHREADS>(ws, groups, B, out_dim, b0, c0, out);
 }

@@ -1,6 +1,5 @@
 // The split decode attention of kernels 2 and 6 (decode_attention.cu,
-// paged_attention.cu), and the arrival rendezvous that kernels 2, 5 and 6
-// (int4_matmul.cu) use to merge across blocks within one launch.
+// paged_attention.cu).
 //
 // A split decode gives each block one chunk of CHUNK keys of one (row, KV
 // head).  8 warps walk the chunk: a 128-byte key row is read by 8 lanes with
@@ -17,9 +16,7 @@
 // of every live chunk in chunk order.  One launch, no float atomics: the merge
 // order is fixed, so repeated calls give bit-equal results.
 //
-// The counters come from kernels/arrivals.py: one zeroed array per stream,
-// which the last block of each rendezvous sets back to 0, so the next launch
-// on the stream (and a graph replay) finds it clean.
+// The counters and the rendezvous are arrivals.cuh's.
 
 #pragma once
 
@@ -27,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "arrivals.cuh"
 
 namespace split_decode {
 
@@ -50,24 +49,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[DIMS]) 
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
-}
-
-// Counts the block in on `counter`, one of `total` blocks that write partials
-// first.  True, in every thread, for the block that arrives last; that block
-// sets the counter back to 0 (every other block has arrived by then) and may
-// read every partial after this returns.  Call from all threads of the block.
-__device__ __forceinline__ bool arrive_last(int* counter, int total) {
-  __shared__ int is_last;
-  __threadfence();  // this block's partials are visible before its arrival
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    is_last = atomicAdd(counter, 1) == total - 1;
-    if (is_last) *counter = 0;
-  }
-  __syncthreads();
-  if (!is_last) return false;
-  __threadfence();
-  return true;
 }
 
 // One block's chunk z of a split decode over the GROUP query heads of one
@@ -220,7 +201,7 @@ __device__ __forceinline__ void attend_chunk(
   if (single) return;
 
   // count this chunk in; the last of the live chunks merges them all in order
-  if (!arrive_last(counter, z_hi - z_lo + 1)) return;
+  if (!arrivals::arrive_last(counter, z_hi - z_lo + 1)) return;
   for (int i = tid; i < GROUP * D; i += THREADS) {
     const int g = i / D;
     float M = -INFINITY;

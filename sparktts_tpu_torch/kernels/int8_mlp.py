@@ -12,7 +12,9 @@ H100 and what the design does about it.
 tensors it launches the kernel or raises.  Which calls take it is the
 caller's choice (`lm/qwen.mlp_block`: decode steps of at most MAX_ROWS
 rows).  `launches` counts calls that launched the kernel; each such call is
-three CUDA launches (gate/up + SwiGLU, down partials, their ordered sum).
+one CUDA launch.  `int8_mlp_tiled_plain` is a CPU model of the kernel's
+summation order (per-tile down partials summed by clusters of tiles, then
+runs of clusters, then the runs in order), for the tests.
 """
 
 from __future__ import annotations
@@ -22,12 +24,16 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.kernels import build
+from sparktts_tpu_torch.kernels import arrivals, build
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/int8_mlp.cu"
 REPLACES = "sparktts_tpu/kernels/int8_mlp.py:107"
 MAX_ROWS = 16  # rows of x the kernel takes
-DOWN_ROWS_PER_SPLIT = 256  # rows of down_q per block of the kernel's down pass
+# The kernel's grid, as csrc/int8_mlp.cu fixes it (its entry refuses a
+# workspace or counter array sized from other values):
+TILE = 16  # intermediate columns per block
+CLUSTER = 8  # blocks per cluster: the first level of the ordered down sum
+FINAL_RUN = 8  # cluster sums added in order by one thread of the final sum
 
 launches = 0
 _fn = None
@@ -37,7 +43,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("int8_mlp").int8_mlp_matvec_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        p, n = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [n, p, n, p, n, n, n, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -55,13 +62,45 @@ def int8_mlp_matvec_plain(
     times their dt-rounded scales, rounded to dt; h = dt(dt(silu(g)) * u)
     with silu in fp32; the down dot is rounded to dt, times the dt-rounded
     scale, rounded to dt."""
-    dt = x.dtype
-    i = down_q.shape[0]
+    h = _swiglu(x, gu_q, gu_scale)
+    return (h.float() @ down_q.float()).to(x.dtype) * down_scale.to(x.dtype)
+
+
+def _swiglu(x, gu_q, gu_scale):
+    """h of the plain version, in x's dtype."""
+    dt, i = x.dtype, gu_q.shape[1] // 2
     gu = x.float() @ gu_q.float()
     g = gu[:, :i].to(dt) * gu_scale[:i].to(dt)
     u = gu[:, i:].to(dt) * gu_scale[i:].to(dt)
-    h = F.silu(g.float()).to(dt) * u
-    return (h.float() @ down_q.float()).to(dt) * down_scale.to(dt)
+    return F.silu(g.float()).to(dt) * u
+
+
+def _clusters(i: int) -> int:
+    """Clusters of the kernel's grid for intermediate width i."""
+    return -(-(-(-i // TILE)) // CLUSTER)
+
+
+def int8_mlp_tiled_plain(x, gu_q, gu_scale, down_q, down_scale) -> torch.Tensor:
+    """The plain version with the kernel's order of the down sum: h as in
+    `int8_mlp_matvec_plain`; each tile of TILE intermediate columns gives an
+    fp32 partial h[:, tile] . down_q[tile, :]; the partials of each cluster
+    of CLUSTER tiles (the grid padded with empty tiles) are summed in tile
+    order; the clusters' sums are added in runs of FINAL_RUN clusters, each
+    run in order, then the runs in order; the result is rounded and scaled
+    as in the plain version."""
+    i = down_q.shape[0]
+    h, w = _swiglu(x, gu_q, gu_scale).float(), down_q.float()
+    sums = []
+    step = TILE * CLUSTER
+    for c0 in range(0, i, step):
+        acc = torch.zeros((x.shape[0], down_q.shape[1]), dtype=torch.float32, device=x.device)
+        for t0 in range(c0, min(c0 + step, i), TILE):  # empty tiles of the grid add zeros
+            acc = acc + h[:, t0:t0 + TILE] @ w[t0:t0 + TILE]
+        sums.append(acc)
+    total = torch.zeros_like(sums[0])
+    for r0 in range(0, len(sums), FINAL_RUN):
+        total = total + sum(sums[r0:r0 + FINAL_RUN], torch.zeros_like(total))
+    return total.to(x.dtype) * down_scale.to(x.dtype)
 
 
 def int8_mlp_matvec(
@@ -89,6 +128,8 @@ def int8_mlp_matvec(
                         "scales")
     if not 1 <= r <= MAX_ROWS:
         raise ValueError(f"int8_mlp_matvec: the kernel takes 1..{MAX_ROWS} rows, got {r}")
+    if k % 4:
+        raise ValueError(f"int8_mlp_matvec: the kernel takes K a multiple of 4, got {k}")
     if (gu_q.shape != (k, 2 * i) or down_q.shape != (i, k) or gu_scale.shape != (2 * i,)
             or down_scale.shape != (k,)):
         raise ValueError(f"int8_mlp_matvec: shapes do not fit x {tuple(x.shape)}: gu_q "
@@ -96,16 +137,16 @@ def int8_mlp_matvec(
                          f"{tuple(down_q.shape)}, down_scale {tuple(down_scale.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_mlp_matvec: x, the weights and the scales must be contiguous")
-    splits = -(-i // DOWN_ROWS_PER_SPLIT)
-    h = torch.empty((r, i), dtype=x.dtype, device=x.device)
-    ws = torch.empty((splits, r, k), dtype=torch.float32, device=x.device)
+    clusters = _clusters(i)
+    ws = torch.empty((clusters, r, k), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     fn = _kernel()
     with build.launch_stream(x) as stream:
+        counters = arrivals.for_current_stream(x.device, CLUSTER)
         err = fn(
             x.data_ptr(), gu_q.data_ptr(), gu_scale.data_ptr(), down_q.data_ptr(),
-            down_scale.data_ptr(), h.data_ptr(), ws.data_ptr(), out.data_ptr(), r, k, i,
-            DOWN_ROWS_PER_SPLIT, stream,
+            down_scale.data_ptr(), ws.data_ptr(), clusters, counters.data_ptr(),
+            counters.numel(), out.data_ptr(), r, k, i, stream,
         )
     launches += 1
     if err != 0:

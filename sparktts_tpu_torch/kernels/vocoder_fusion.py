@@ -12,6 +12,8 @@ on an H100 and what the design does about it.
 tensors it launches the kernel or raises.  `launches` counts unit calls that
 launched the kernel; each such call is two CUDA launches (the dilated conv,
 then the 1x1), so a vocode's 12 unit calls are 24 launches on the device.
+The kernel multiplies in 3xTF32 on the tensor cores; `residual_unit_3xtf32_plain`
+is a CPU model of that arithmetic, for the tests.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from sparktts_tpu_torch.kernels import build
 from sparktts_tpu_torch.nn.layers import conv1d_apply, snake_apply
@@ -48,6 +51,33 @@ def fused_residual_unit_plain(p, x: torch.Tensor, dilation: int) -> torch.Tensor
     y = snake_apply(p["snake2"], y)
     y = conv1d_apply(p["conv2"], y)
     return x + y
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest tf32 value (10 explicit mantissa bits), ties away
+    from zero, as `cvt.rna.tf32.f32` rounds: half a tf32 ulp added to the
+    magnitude's bits, the 13 low bits cleared."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with each operand split into tf32 hi + lo parts: lo.hi + hi.lo +
+    hi.hi in fp32 (the products of tf32 values are exact in fp32)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def residual_unit_3xtf32_plain(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The unit in the kernel's arithmetic: both convolutions as sums of
+    3xTF32 products in fp32, seven row-shifted taps over the zero-padded
+    snake1 strip; biases and snakes as in the plain version.  (B, T, C)."""
+    t, pad = x.shape[1], 3 * dilation
+    y = F.pad(snake_apply(p["snake1"], x), (0, 0, pad, pad))
+    w1 = p["conv1"]["w"]
+    acc = sum(_mm_3xtf32(y[:, k * dilation:k * dilation + t], w1[k]) for k in range(7))
+    z = snake_apply(p["snake2"], acc + p["conv1"]["b"])
+    return x + (_mm_3xtf32(z, p["conv2"]["w"][0]) + p["conv2"]["b"])
 
 
 def fused_residual_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:

@@ -13,8 +13,9 @@ fp32 summation order; the flash kernel also rounds P to bf16 before P V
 (2^-9 relative on each probability).  The
 vocoder's ResidualUnit is fp32 on both sides; see its test.  The quantized
 kernels at the full Qwen2.5-0.5B widths, bf16 x: the fused int8 MLP within
-2e-2 of max|plain| (the two sum in another order, so a bf16 value of h may
-round one ulp apart and carry into the down projection), the int4 matvec
+2e-2 of max|plain| and of its tiled model (the two sum in another order, so
+a bf16 value of h may round one ulp apart and carry into the down
+projection), the int4 matvec
 within 1e-2 of max|plain| (bf16 output rounding plus summation order).
 """
 
@@ -250,13 +251,26 @@ def _residual_unit(c, dev, seed=0):
     return {k: {n: v.to(dev) for n, v in d.items()} for k, d in p.items()}
 
 
+def _vocoder_model_tol(c):
+    """Kernel vs `residual_unit_3xtf32_plain` (the same three tf32 products
+    summed by cuBLAS in fp32, TF32 off), relative to max|model|: they differ
+    in the accumulation alone, which the tensor cores round toward zero at
+    each mma step, so the gap grows with C (on an H100, 8.6e-7 at C = 96 to
+    3.5e-5 at C = 768, scripts/check_torch_vocoder_accumulation.py); leaving
+    out one of the three products costs 4.3e-5 at C = 96 to 2.2e-4 at C = 768,
+    above this limit at every C.  chip_smoke.vocoder_model_tol is the same."""
+    return 7e-5 * (c / 768) ** 1.5
+
+
 @pytest.mark.cuda
 # 333: ragged; (768, 4000): the first block of a 500-token vocode
 @pytest.mark.parametrize("c,t", [(96, 2560), (192, 1280), (384, 640), (768, 333), (768, 4000)])
 @pytest.mark.parametrize("dilation", (1, 3, 9))
 def test_vocoder_kernel_matches_plain(c, t, dilation):
-    """fp32 on both sides with TF32 off: they differ only in the order of the
-    7C + C-term sums, so max|kernel - plain| <= 1e-4 max|plain|."""
+    """fp32-accurate on both sides with TF32 off: max|kernel - plain| <= 1e-4
+    max|plain|.  The kernel also keeps all three products of its hi/lo
+    split: it stays within `_vocoder_model_tol(c)` of the CPU model of its
+    arithmetic, run on the card."""
     dev = _cuda()
     p = _residual_unit(c, dev)
     x = torch.randn((2, t, c), generator=torch.Generator().manual_seed(1)).to(dev)
@@ -265,10 +279,29 @@ def test_vocoder_kernel_matches_plain(c, t, dilation):
     assert vf.launches == before + 1
     with full_fp32():
         want = vf.fused_residual_unit_plain(p, x, dilation)
+        model = vf.residual_unit_3xtf32_plain(p, x, dilation)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+    gap = float((got - model).abs().max()) / float(model.abs().max())
+    assert gap <= _vocoder_model_tol(c), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,dilation", [(768, 2800, 1), (96, 4321, 9)])
+def test_vocoder_kernel_repeats_bit_equal(c, t, dilation):
+    """A fixed order of 3xTF32 products and no atomics: repeats give the
+    same bits, and stay within 1e-4 max|plain| of the plain unit."""
+    dev = _cuda()
+    p = _residual_unit(c, dev, seed=c + t)
+    x = torch.randn((1, t, c), generator=torch.Generator().manual_seed(2)).to(dev)
+    got = vf.fused_residual_unit(p, x, dilation)
+    for _ in range(2):
+        assert torch.equal(got, vf.fused_residual_unit(p, x, dilation))
+    with full_fp32():
+        want = vf.fused_residual_unit_plain(p, x, dilation)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda
@@ -342,8 +375,10 @@ def _rel_err(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", (1, 4, 16))
+@pytest.mark.parametrize("rows", (1, 4, 8, 16))
 def test_int8_mlp_kernel_matches_plain(rows):
+    """Also against the CPU model of the kernel's down-sum order
+    (`int8_mlp_tiled_plain`, run on the card), and two calls bit-equal."""
     dev = _cuda()
     w = _int8_mlp_weights(dev)
     x = torch.randn((rows, HIDDEN), generator=torch.Generator(device=dev).manual_seed(1),
@@ -352,6 +387,52 @@ def test_int8_mlp_kernel_matches_plain(rows):
     got = i8.int8_mlp_matvec(x, *w)
     assert i8.launches == before + 1 and got.dtype == torch.bfloat16
     assert _rel_err(got, i8.int8_mlp_matvec_plain(x, *w)) <= 2e-2
+    assert _rel_err(got, i8.int8_mlp_tiled_plain(x, *w)) <= 2e-2
+    assert torch.equal(got, i8.int8_mlp_matvec(x, *w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,i", [
+    (3, HIDDEN, 1000),  # I not a multiple of 16: byte copies, a part tile, a padded cluster
+    (9, HIDDEN, 200),  # one cluster, two n-tiles
+    (1, 100, 256),  # K not a multiple of 16: rows of x and down zero-filled
+    (16, 64, 96),  # tiny widths
+])
+def test_int8_mlp_kernel_ragged_and_repeats_bit_equal(rows, k, i):
+    dev = _cuda()
+    w = _int8_mlp_weights(dev, k=k, i=i, seed=rows)
+    x = torch.randn((rows, k), generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev).to(torch.bfloat16)
+    got = i8.int8_mlp_matvec(x, *w)
+    for _ in range(2):
+        assert torch.equal(got, i8.int8_mlp_matvec(x, *w))
+    assert _rel_err(got, i8.int8_mlp_matvec_plain(x, *w)) <= 2e-2
+    assert _rel_err(got, i8.int8_mlp_tiled_plain(x, *w)) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_int8_mlp_entry_refuses_a_workspace_or_counters_of_another_size():
+    """The C entry checks the grid's workspace and counter sizes itself, so a
+    wrapper that sized them from other values than the kernel's cannot make
+    it write past them: it returns cudaErrorInvalidValue (1) unlaunched."""
+    dev = _cuda()
+    gu, gs, down, ds = _int8_mlp_weights(dev)
+    x = torch.randn((1, HIDDEN), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(torch.bfloat16)
+    out = torch.empty_like(x)
+    clusters = i8._clusters(INTER)
+    ws = torch.empty((clusters + 1, 1, HIDDEN), dtype=torch.float32, device=dev)
+    counters = arrivals.prepare()
+    fn = i8._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (x, gu, gs, down, ds, ws)]
+    for n_ws, n_counters in ((clusters - 1, counters.numel()), (clusters + 1, counters.numel()),
+                             (clusters, i8.CLUSTER - 1)):
+        assert fn(*ptrs, n_ws, counters.data_ptr(), n_counters, out.data_ptr(), 1, HIDDEN, INTER,
+                  stream) == 1
+    assert fn(*ptrs, clusters, counters.data_ptr(), counters.numel(), out.data_ptr(), 1, HIDDEN,
+              INTER, stream) == 0
+    assert _rel_err(out, i8.int8_mlp_matvec_plain(x, gu, gs, down, ds)) <= 2e-2
 
 
 @pytest.mark.cuda
@@ -431,7 +512,7 @@ def test_decode_kernel_on_two_streams_at_once():
 
 @pytest.mark.cuda
 def test_merging_kernels_replay_in_a_graph_on_a_prepared_stream():
-    """Kernels 2, 5 and 6 captured in one CUDA graph on a stream whose
+    """Kernels 2, 5, 6 and 4 captured in one CUDA graph on a stream whose
     counters were made first (`arrivals.prepare`): replays match eager
     calls bit for bit.  Capture on a stream that has no counters raises."""
     dev = _cuda()
@@ -441,11 +522,14 @@ def test_merging_kernels_replay_in_a_graph_on_a_prepared_stream():
     packed = torch.randint(-128, 128, (2432, 896), generator=g, device=dev, dtype=torch.int8)
     gscale = 0.01 * (1 + torch.rand((38, 896), generator=g, device=dev))
     x = torch.randn((1, 4864), generator=g, device=dev).to(torch.bfloat16)
+    w8 = _int8_mlp_weights(dev, seed=6)
+    x8 = torch.randn((8, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
 
     def calls():
         return (da.dense_decode_attention(*args2, sm_scale=0.125),
                 pa.paged_decode_attention(*args6, 1, sm_scale=0.125),
-                i4.int4_matvec(x, packed, gscale))
+                i4.int4_matvec(x, packed, gscale),
+                i8.int8_mlp_matvec(x8, *w8))
 
     eager = calls()
     stream = torch.cuda.Stream(device=dev)
@@ -518,6 +602,10 @@ def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
                            down, ds)
     with pytest.raises(ValueError):
         i8.int8_mlp_matvec(x[:4], gu, gs, down[:, :32], ds)
+    k = 62  # not a multiple of 4
+    gu, gs, down, ds = _int8_mlp_weights(dev, k=k, i=96)
+    with pytest.raises(ValueError):
+        i8.int8_mlp_matvec(torch.zeros((2, k), dtype=torch.bfloat16, device=dev), gu, gs, down, ds)
     packed = torch.zeros((32, 40), dtype=torch.int8, device=dev)
     gscale = torch.ones((4, 40), device=dev)
     x = torch.zeros((33, 64), dtype=torch.bfloat16, device=dev)  # 33 rows

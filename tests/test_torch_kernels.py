@@ -11,6 +11,14 @@ package's bound between its kernel and its unfused path; measured
 1.95e-3, one bf16 ulp of outputs under 0.54, from fp32 sums taken in
 another order), the int4 matvec within 5e-3 of the largest output
 (`tests/test_int4_kernel.py`'s bound; measured 2.7e-7 relative at most).
+The CPU models of the CUDA kernels' summation orders are held here too: the
+int8 MLP's tiled down sum (`int8_mlp_tiled_plain`) within one bf16 ulp of
+the largest output (2^-8 of max|plain|) of the plain version, whose down
+sum it only reorders, and within 2e-2 of max|ref| of the Pallas kernel,
+whose gate/up sums are in another order too, so that a value of h may round
+one ulp apart and carry into the down projection (measured 4e-3 to 8e-3);
+the ResidualUnit's 3xTF32 arithmetic (`residual_unit_3xtf32_plain`) within
+2e-5 of the Pallas unit and of the plain fp32 unit.
 The CUDA kernels themselves are held against the plain versions on the card
 by `test_torch_cuda_kernels.py` (marked `cuda`, skipped without a card) and
 by chip_smoke.py.
@@ -256,6 +264,53 @@ def test_int8_mlp_plain_matches_pallas(r, k, i):
                                    (gu["w_q"], gu["scale"], down["w_q"], down["scale"])))
     assert i8.launches == before and got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("r,k,i,block_i", [
+    (1, 64, 256, 128), (5, 64, 1000, 8), (16, 128, 512, 128),
+    (1, 896, 1000, 40),  # the hidden width, a ragged intermediate width
+])
+def test_int8_mlp_tiled_model_matches_pallas_and_plain(r, k, i, block_i):
+    """The kernel's order of the down sum (16-column tiles, clusters of 8
+    tiles, then the clusters) at 1, 5 and 16 rows and an I that no 16 x 8
+    columns divide."""
+    rng = np.random.default_rng(r + k + i)
+    gu = quantize_linear_int8({"w": _bf16(0.05 * rng.standard_normal((k, 2 * i)))[0]})
+    down = quantize_linear_int8({"w": _bf16(0.05 * rng.standard_normal((i, k)))[0]})
+    jx, tx = _bf16(rng.standard_normal((r, k)))
+    args = [torch.from_numpy(np.asarray(a)) for a in (gu["w_q"], gu["scale"], down["w_q"],
+                                                       down["scale"])]
+    got = i8.int8_mlp_tiled_plain(tx, *args)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    plain = i8.int8_mlp_matvec_plain(tx, *args).float().numpy()
+    assert np.abs(got - plain).max() <= 2**-8 * np.abs(plain).max()
+    want = np.asarray(jax_int8_mlp(jx, gu["w_q"], gu["scale"], down["w_q"], down["scale"],
+                                   block_i=block_i, interpret=True), np.float32)
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("variant", ("tiles", "carry"))
+@pytest.mark.parametrize("dilation", (1, 3, 9))
+def test_vocoder_3xtf32_model_matches_pallas_and_plain(dilation, variant):
+    """The kernel's 3xTF32 products at a ragged T (50 over tiles of 32)."""
+    p = _residual_unit(16, seed=10 + dilation)
+    x = np.random.default_rng(dilation).standard_normal((1, 50, 16)).astype(np.float32)
+    want = np.asarray(jax_residual_unit(jax.tree.map(jnp.asarray, p), jnp.asarray(x), dilation,
+                                        block_t=32, interpret=True, variant=variant))
+    tp, tx = to_torch(p, "cpu"), torch.from_numpy(x)
+    got = vf.residual_unit_3xtf32_plain(tp, tx, dilation).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, vf.fused_residual_unit_plain(tp, tx, dilation).numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """`cvt.rna.tf32.f32`: 10 explicit mantissa bits, ties away from zero."""
+    v = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-12,
+                      1 + 2**-10 - 2**-23])
+    want = [1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 1 + 2**-10]
+    assert vf.tf32_round(v).tolist() == want
 
 
 @pytest.mark.parametrize("d_in,d_out,group,b", [(64, 512, 16, 3), (896, 1152, 128, 1),
