@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) on any error:
+Phases, each of which fails the run (non-zero exit) on any error.  Every
+decode loop runs as replays of captured decode units (CUDA graphs,
+`sparktts_tpu_torch/lm/graphs.py`); a launch count is the wrappers' eager
+launches plus each unit's replays times its launches a unit (its warm-up
+and capture are set-up, counted apart).
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the main paths from
@@ -89,10 +93,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel against its plain version and its split model on the dense
    engine's own cache, starts and clamped positions after its first
    dispatch, timed there beside SDPA over the same windows.
+16. After each of phases 3, 4, 6 and 7, the graph path against the eager
+   loop (`eager_generate`: prefill, then `decode_step` in a Python loop):
+   greedy ids bit-equal, sampled ids with one seed equal twice through the
+   graphs and against the loop, and the loop's ms a step beside the graph
+   path's; after phase 4, `generate_tokens` from three threads at once,
+   each thread's ids those of its request alone.  In phase 13, greedy
+   engines serve the burst through their units and as the eager loop
+   (`eager_dispatch`): ids bit-equal, ms a step of each.
+17. voice creation streamed (`StreamingSynthesizer`, the default schedule,
+   counters 0 just before and read just after): one prefill, decode by unit
+   replays only, whole vocodes, at least 3 finite chunks; its first-chunk
+   ms and its length against the offline path of the same seed;
+18. every captured unit (capture ms, graph-pool MiB, replays, launches a
+   unit); a capture with a host read inside must raise.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches are the sum over the six main-path runs of phases 3, 4, 6, 7, 12
-and 13, its times those of the voice-creation shapes, for the int8 MLP one
+launches are the sum over the seven main-path runs of phases 3, 4, 6, 7,
+12, 13 and 17, its times those of the voice-creation shapes, for the int8 MLP one
 call at one row, for the int4 matvec the four calls of one layer at one row,
 for the paged kernel one layer at the paged engine's state; the flash,
 decode and paged entries list every timed shape in `by_shape`: both
@@ -105,6 +123,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -264,6 +283,22 @@ def _sync(dev):
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def _reset_counts():
+    """Every kernel's launch count to 0: the wrappers' eager counts and the
+    launches of graph replays (`lm/graphs.py`)."""
+    from sparktts_tpu_torch.lm import graphs
+
+    graphs.reset_launches()
+
+
+def _counts() -> dict:
+    """Launches of each kernel since `_reset_counts`: eager launches plus,
+    for each captured decode unit, its replays times its launches a unit."""
+    from sparktts_tpu_torch.lm import graphs
+
+    return graphs.launches()
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
@@ -612,7 +647,7 @@ def make_prompt_wav(path: Path, seconds: float = PROMPT_SECONDS, sr: int = 16000
     return path
 
 
-def _request(pipe, modules, **request):
+def _request(pipe, **request):
     """One SparkTTSPipeline.inference call after a warm-up with the identical
     request (first use of each shape builds cuBLAS/cuDNN plans and grows the
     allocator's pools), with every launch counter set to 0 just before and
@@ -624,18 +659,17 @@ def _request(pipe, modules, **request):
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for m in modules.values():
-        m.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     wav = pipe.inference(TEXT, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, **request)
     _sync(dev)
     total_s = time.perf_counter() - t0
-    launches = {name: m.launches for name, m in modules.items()}
+    launches = _counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     return wav, launches, total_s, peak_gib
 
 
-def _breakdown(pipe, modules, prompt, mode: str, global_ids_of):
+def _breakdown(pipe, prompt, mode: str, global_ids_of):
     """The request in parts: generate, prefill alone at the prompt's bucket
     (mean of 5), and the vocode of the generated tokens.  Returns (the
     breakdown, the (global, semantic) ids it vocoded)."""
@@ -646,13 +680,12 @@ def _breakdown(pipe, modules, prompt, mode: str, global_ids_of):
     from sparktts_tpu_torch.prompt import extract_semantic_ids
 
     dev, n_layers = pipe.device, pipe.config.llm.num_hidden_layers
-    da = modules["dense_decode_attention"]
-    d0 = da.launches
+    d0 = _counts()["dense_decode_attention"]
     t0 = time.perf_counter()
     generated = pipe.generate_tokens(prompt, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, mode=mode)
     _sync(dev)
     generate_ms = (time.perf_counter() - t0) * 1e3
-    decode_steps = (da.launches - d0) // n_layers
+    decode_steps = (_counts()["dense_decode_attention"] - d0) // n_layers
 
     ids_t, mask_t = pipe.prompt_inputs(prompt)
     vs, ex = pipe.guided_constraint(mode)
@@ -717,16 +750,16 @@ def _check_request(label, pipe, wav, launches, summary, mlp_per_layer=0, int4_pe
                              f"{summary['semantic_tokens']} semantic tokens (want x{hop})")
 
 
-def run_voice_creation(pipe, modules, label="voice creation", **expected):
+def run_voice_creation(pipe, label="voice creation", **expected):
     """Voice creation end to end; returns (its launch counts, its prompt
     ids, its breakdown, the ids it vocoded).  `expected`: per-layer launch
     counts of the quantized kernels (`_check_request`)."""
     from sparktts_tpu_torch.prompt import build_control_prompt, padded_global_tokens
 
-    wav, launches, total_s, peak_gib = _request(pipe, modules, **VOICE)
+    wav, launches, total_s, peak_gib = _request(pipe, **VOICE)
     token_num = pipe.config.bicodec.speaker_encoder.token_num
     prompt = build_control_prompt(pipe.tokenizer, TEXT, **VOICE)
-    summary, tokens = _breakdown(pipe, modules, prompt, "control",
+    summary, tokens = _breakdown(pipe, prompt, "control",
                                  lambda g: padded_global_tokens(pipe.tokenizer, g, token_num))
     audio_s = len(wav) / pipe.sample_rate
     summary.update(wav_samples=int(len(wav)), audio_s=audio_s, inference_s=total_s,
@@ -735,7 +768,7 @@ def run_voice_creation(pipe, modules, label="voice creation", **expected):
     return launches, prompt, summary, tokens
 
 
-def run_voice_cloning(pipe, modules, wav_path: Path, label="voice cloning", **expected):
+def run_voice_cloning(pipe, wav_path: Path, label="voice cloning", **expected):
     """Voice cloning end to end from the prompt wav; returns (its launch
     counts, its prompt ids, its breakdown, the ids it vocoded)."""
     import numpy as np
@@ -744,7 +777,7 @@ def run_voice_cloning(pipe, modules, wav_path: Path, label="voice cloning", **ex
     from sparktts_tpu_torch.prompt import build_clone_prompt
 
     request = dict(prompt_speech_path=wav_path, prompt_text=PROMPT_TEXT)
-    wav, launches, total_s, peak_gib = _request(pipe, modules, **request)
+    wav, launches, total_s, peak_gib = _request(pipe, **request)
     tok, cfg = pipe.tokenizer, pipe.config
     t0 = time.perf_counter()
     for _ in range(3):
@@ -759,7 +792,7 @@ def run_voice_cloning(pipe, modules, wav_path: Path, label="voice cloning", **ex
             and sem.max() < tok.n_semantic):
         raise AssertionError("voice cloning: prompt ids out of range")
     prompt = build_clone_prompt(tok, TEXT, glob, sem, PROMPT_TEXT)
-    summary, tokens = _breakdown(pipe, modules, prompt, "clone", lambda _: glob)
+    summary, tokens = _breakdown(pipe, prompt, "clone", lambda _: glob)
     audio_s = len(wav) / pipe.sample_rate
     summary.update(prompt_global_ids=int(glob.shape[1]), prompt_semantic_ids=int(sem.shape[1]),
                    tokenize_ms=tokenize_ms, wav_samples=int(len(wav)), audio_s=audio_s,
@@ -803,7 +836,7 @@ def check_tokenize_on_cpu(pipe, wav_path: Path):
         raise AssertionError(f"tokenize: card and CPU disagree: {agree}")
 
 
-def check_int8_codec(pipe, modules, tokens):
+def check_int8_codec(pipe, tokens):
     """Vocode `tokens` ((global, semantic) ids) with the fp32 codec and with
     its weight-only int8 tree: relative L2 within CODEC_INT8_REL_L2, and no
     vocoder kernel launch in the int8 call."""
@@ -817,12 +850,11 @@ def check_int8_codec(pipe, modules, tokens):
     try:
         pipe.detokenize(*tokens)  # warm-up
         _sync(pipe.device)
-        vf = modules["fused_residual_unit"]
-        before = vf.launches
+        before = _counts()["fused_residual_unit"]
         t0 = time.perf_counter()
         got = pipe.detokenize(*tokens).astype(np.float64)
         vocode_ms = (time.perf_counter() - t0) * 1e3
-        unit_launches = vf.launches - before
+        unit_launches = _counts()["fused_residual_unit"] - before
         int8_bytes = quantized_bytes(pipe.bicodec_params)
     finally:
         pipe.bicodec_params = fp32_params
@@ -1143,7 +1175,7 @@ def engine_requests(pipe, wav_path: Path):
     return out, glob
 
 
-def _engine_kwargs(pipe):
+def _engine_kwargs(pipe, greedy=False):
     """What ContinuousTTSServer passes both engines: one engine serves both
     modes under the control superset, clone slots narrowed per slot."""
     from sparktts_tpu_torch.pipeline import PROMPT_BUCKET
@@ -1153,7 +1185,7 @@ def _engine_kwargs(pipe):
     return dict(prompt_pad=PROMPT_BUCKET, eos_ids=tuple(pipe.tokenizer.eos_ids),
                 pad_id=pipe.tokenizer.pad_id, cache_dtype=pipe.lm_dtype, vocab_slice=vocab_slice,
                 extra_ids=extra_ids, clone_slice=clone_slice, clone_extras=clone_extras,
-                seed=SEED, device=pipe.device)
+                seed=SEED, greedy=greedy, device=pipe.device)
 
 
 def _clone_state(state, device=None):
@@ -1164,13 +1196,13 @@ def _clone_state(state, device=None):
     return state.clone() if device is None else state.to(device)
 
 
-def serve_burst(label, pipe, eng, requests, glob, modules):
+def serve_burst(label, pipe, eng, requests, glob, vocode=True):
     """The engine phases' main path: submit the first six requests, dispatch
     ENGINE_DISPATCH steps through the three-phase step protocol, queue the
     other two, and after every step retry the waiting requests in order
     (each AdmissionDeferred counts once), as the server does, until all are
-    done; then vocode one creation and one clone (the clone with the prompt
-    wav's global ids `glob`).  Every launch counter is 0 just before and
+    done; then (`vocode`) vocode one creation and one clone (the clone with
+    the prompt wav's global ids `glob`).  Every launch counter is 0 just before and
     read just after.  Returns a summary with the finished ids, the
     launches, the state after the first dispatch and the metrics."""
     import torch
@@ -1182,8 +1214,7 @@ def serve_burst(label, pipe, eng, requests, glob, modules):
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for m in modules.values():
-        m.launches = 0
+    _reset_counts()
     waiting, req_ids = list(range(6)), {}
     deferrals = steps = dispatches = 0
     step_s, snapshot = 0.0, None
@@ -1220,12 +1251,12 @@ def serve_burst(label, pipe, eng, requests, glob, modules):
     tok = pipe.tokenizer
     token_num = pipe.config.bicodec.speaker_encoder.token_num
     wavs = {}
-    for i in (0, 4):  # one creation, one clone
+    for i in (0, 4) if vocode else ():  # one creation, one clone
         semantic = extract_semantic_ids(tok, finished[i])
         voice = padded_global_tokens(tok, finished[i], token_num) if i == 0 else glob
         wavs[i] = (pipe.detokenize(voice, semantic[None, :]), semantic.size)
     _sync(dev)
-    launches = {name: m.launches for name, m in modules.items()}
+    launches = _counts()
     n_tokens = sum(len(v) for v in finished.values())
     summary = dict(requests=len(requests), tokens=n_tokens, decode_steps=steps,
                    dispatches=dispatches, deferrals=deferrals, serve_s=serve_s,
@@ -1467,7 +1498,7 @@ def check_decode_two_streams(dev, cfg):
     return max_err
 
 
-def build_engines(pipe):
+def build_engines(pipe, greedy=False):
     """(paged, dense) engines over the pipeline's LM, sized as
     ContinuousTTSServer sizes them: the paged table holds the prompt region
     (4 prompt buckets, in pages), the budget and one spare page, and the
@@ -1475,7 +1506,7 @@ def build_engines(pipe):
     from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
     from sparktts_tpu_torch.lm.paged import PagedContinuousEngine
 
-    cfg, kw = pipe.config.llm, _engine_kwargs(pipe)
+    cfg, kw = pipe.config.llm, _engine_kwargs(pipe, greedy)
     prompt_cap = -(-4 * kw["prompt_pad"] // PAGE_SIZE)
     pages_per_slot = prompt_cap + -(-MAX_NEW_TOKENS // PAGE_SIZE) + 1
     n_pages = ENGINE_SLOTS * pages_per_slot // 2 + 1
@@ -1486,7 +1517,7 @@ def build_engines(pipe):
     return paged, dense
 
 
-def run_engines(pipe, modules, wav_path: Path):
+def run_engines(pipe, wav_path: Path):
     """Phases 12-15: the paged engine (as ContinuousTTSServer(paged=True)
     builds it) and the dense engine serve the same eight requests; each
     engine's forward card vs CPU; the paged kernel vs plain; the decode
@@ -1501,7 +1532,7 @@ def run_engines(pipe, modules, wav_path: Path):
     paged, dense = build_engines(pipe)
     n_pages, pages_per_slot = paged.slots.k_pages.shape[2], paged.pages_per_slot
     pool_bytes = paged.slots.k_pages.nbytes + paged.slots.v_pages.nbytes
-    run_p = serve_burst("paged engine", pipe, paged, requests, glob, modules)
+    run_p = serve_burst("paged engine", pipe, paged, requests, glob)
     run_p["summary"].update(pool_bytes=pool_bytes, n_pages=n_pages, pages_per_slot=pages_per_slot,
                             page_size=PAGE_SIZE)
     check_burst("paged engine", pipe, run_p, requests, "paged_decode_attention",
@@ -1513,7 +1544,7 @@ def run_engines(pipe, modules, wav_path: Path):
                              f"{len(paged.free_pages)} free at the end")
 
     dense_bytes = dense.slots.cache.k.nbytes + dense.slots.cache.v.nbytes
-    run_d = serve_burst("dense engine", pipe, dense, requests, glob, modules)
+    run_d = serve_burst("dense engine", pipe, dense, requests, glob)
     run_d["summary"].update(kv_bytes=dense_bytes, cache_len=DENSE_CACHE_LEN)
     check_burst("dense engine", pipe, run_d, requests, "dense_decode_attention",
                 cfg.num_hidden_layers)
@@ -1521,11 +1552,286 @@ def run_engines(pipe, modules, wav_path: Path):
           f"dense cache {dense_bytes / 2**20:.2f} MiB ({ENGINE_SLOTS} x {DENSE_CACHE_LEN}), "
           f"ratio {pool_bytes / dense_bytes:.4f}")
 
+    greedy = check_greedy_bursts(pipe, requests, glob)
+    run_p["summary"]["greedy_graph_vs_eager"] = greedy["paged"]
+    run_d["summary"]["greedy_graph_vs_eager"] = greedy["dense"]
     check_engine_forward("paged engine", paged, run_p["snapshot"], paged_step_logits)
     check_engine_forward("dense engine", dense, run_d["snapshot"], dense_step_logits)
     entry = check_paged(pipe.device, cfg, run_p["snapshot"])
     dense_state = check_dense_engine_decode(pipe.device, cfg, run_d["snapshot"])
     return entry, dense_state, (run_p["launches"], run_d["launches"])
+
+
+def eager_generate(pipe, prompt, mode: str, seed: int, greedy: bool):
+    """The reference for the graph path: `generate`'s semantics as the step
+    functions in a Python loop (prefill, then `decode_step` after
+    `decode_step`, the done flag read every DONE_CHECK_EVERY steps), over a
+    cache of `generate`'s length, with temperature and top_p as () device
+    tensors as the decode unit holds them.  Returns (the ids, decode wall
+    seconds after the prefill, decode steps)."""
+    import torch
+
+    from sparktts_tpu_torch.lm.generate import DONE_CHECK_EVERY, decode_step, prefill
+    from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
+
+    dev, cfg, tok = pipe.device, pipe.config.llm, pipe.tokenizer
+    ids_t, mask_t = pipe.prompt_inputs(prompt)
+    t_pad = ids_t.shape[1]
+    vs, ex = pipe.guided_constraint(mode)
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cache = init_kv_cache(cfg, 1, aligned_cache_len(t_pad + MAX_NEW_TOKENS), pipe.lm_dtype, dev)
+        temperature, top_p = (torch.full((), v, dtype=torch.float32, device=dev)
+                              for v in (0.8, 0.95))
+        state = prefill(pipe.llm_params, cfg, ids_t, mask_t, cache, gen, 0.8, 50, 0.95, greedy,
+                        vocab_slice=vs, extra_ids=ex)
+        _sync(dev)
+        t0 = time.perf_counter()
+        toks, valid, steps = [], [], 0
+        for step in range(MAX_NEW_TOKENS):
+            toks.append(state.cur_token)
+            valid.append(~state.done)
+            if step + 1 == MAX_NEW_TOKENS:
+                break
+            state = decode_step(pipe.llm_params, cfg, state, t_pad, gen, temperature, 50, top_p,
+                                tuple(tok.eos_ids), tok.pad_id, greedy, vs, ex)
+            steps += 1
+            if steps % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+                break
+        n = int(torch.stack(valid, 1)[0].sum())
+        ids = torch.stack(toks, 1)[0, :n].cpu().numpy()
+        decode_s = time.perf_counter() - t0
+    return ids, decode_s, steps
+
+
+def check_graph_vs_eager(label, pipe, prompt, mode, summary):
+    """The graph path (`pipe.generate_tokens`, decode units replayed) against
+    the eager loop (`eager_generate`) on one request: greedy ids bit-equal;
+    sampled ids with the same seed equal, twice through the graphs and
+    against the eager loop.  Adds the eager loop's decode ms a step to
+    `summary`, beside the graph path's decode ms a token."""
+    import numpy as np
+
+    greedy_graph = pipe.generate_tokens(prompt, max_new_tokens=MAX_NEW_TOKENS, mode=mode,
+                                        greedy=True)
+    greedy_eager, _, _ = eager_generate(pipe, prompt, mode, SEED, greedy=True)
+    sampled = [pipe.generate_tokens(prompt, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, mode=mode)
+               for _ in range(2)]
+    sampled_eager, eager_s, eager_steps = eager_generate(pipe, prompt, mode, SEED, greedy=False)
+    summary.update(eager_decode_ms_per_step=eager_s * 1e3 / eager_steps,
+                   eager_decode_steps=eager_steps,
+                   graph_speedup_per_step=eager_s * 1e3 / eager_steps
+                   / summary["decode_ms_per_token"])
+    same = {"greedy graph == eager": np.array_equal(greedy_graph, greedy_eager),
+            "sampled graph twice": np.array_equal(sampled[0], sampled[1]),
+            "sampled graph == eager": np.array_equal(sampled[0], sampled_eager)}
+    print(f"{label}, graph vs eager: {json.dumps(same)} ({len(greedy_graph)} greedy ids, "
+          f"{len(sampled_eager)} sampled); decode {summary['decode_ms_per_token']:.3f} ms a token "
+          f"through the graphs, {summary['eager_decode_ms_per_step']:.3f} ms a step eager "
+          f"({summary['graph_speedup_per_step']:.2f}x)")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the graph path and the eager loop disagree: {same}")
+
+
+def check_threads(pipe, prompts):
+    """`generate_tokens` from three threads at once (two requests that share
+    one decode unit, one of another): each gets the ids it gets alone."""
+    import threading
+
+    import numpy as np
+
+    jobs = [(prompt, mode, SEED + i) for i, (prompt, mode) in enumerate(prompts)]
+    alone = [pipe.generate_tokens(p, seed=sd, max_new_tokens=MAX_NEW_TOKENS, mode=m)
+             for p, m, sd in jobs]
+    got, errors = [None] * len(jobs), []
+
+    def run(i):
+        p, m, sd = jobs[i]
+        try:
+            got[i] = pipe.generate_tokens(p, seed=sd, max_new_tokens=MAX_NEW_TOKENS, mode=m)
+        except Exception as e:  # reported below: a thread's error must fail the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"generate_tokens from threads: {errors or 'a thread hung'}")
+    same = [bool(np.array_equal(a, b)) for a, b in zip(alone, got)]
+    print(f"generate_tokens from {len(jobs)} threads at once ({wall:.2f} s): each thread's ids "
+          f"equal its request alone: {same}")
+    if not all(same):
+        raise AssertionError("generate_tokens from threads: ids differ from the requests alone")
+
+
+@contextlib.contextmanager
+def eager_dispatch():
+    """Inside the block both engines dispatch as their step functions in a
+    Python loop, drawing from the engine's generator (the reference for the
+    graph path): `dispatch_steps` replaced for the block, restored after."""
+    from sparktts_tpu_torch.lm import continuous, graphs, paged
+
+    def dispatch(kind, params, slots, n_steps, generator, make_step, static):
+        new, toks, valid = continuous.scan_steps(n_steps, slots, make_step(generator))
+        for mine, theirs in zip(graphs.tensors(slots), graphs.tensors(new)):
+            if mine is not theirs:
+                mine.copy_(theirs)
+        return slots, continuous.pack_step_result(toks, valid, slots.done)
+
+    saved = continuous.dispatch_steps, paged.dispatch_steps
+    continuous.dispatch_steps = paged.dispatch_steps = dispatch
+    try:
+        yield
+    finally:
+        continuous.dispatch_steps, paged.dispatch_steps = saved
+
+
+def check_greedy_bursts(pipe, requests, glob):
+    """Greedy engines (paged and dense, built as `build_engines` builds
+    them) serve the burst through their decode units and then, fresh, as
+    the eager loop (`eager_dispatch`): every request's ids bit-equal.
+    Returns {engine: (graph, eager) summaries}."""
+    import numpy as np
+
+    runs = {}
+    for path in ("graph", "eager"):
+        with eager_dispatch() if path == "eager" else contextlib.nullcontext():
+            for name, eng in zip(("paged", "dense"), build_engines(pipe, greedy=True)):
+                runs[name, path] = serve_burst(f"{name} engine, greedy, {path}", pipe, eng,
+                                               requests, glob, vocode=False)
+    out = {}
+    for name in ("paged", "dense"):
+        g, e = runs[name, "graph"]["summary"], runs[name, "eager"]["summary"]
+        same = all(np.array_equal(runs[name, "graph"]["finished"][i],
+                                  runs[name, "eager"]["finished"][i])
+                   for i in range(len(requests)))
+        print(f"{name} engine, greedy burst, graph vs eager: ids bit-equal: {same}; "
+              f"{g['ms_per_step']:.3f} vs {e['ms_per_step']:.3f} ms a step "
+              f"({e['ms_per_step'] / g['ms_per_step']:.2f}x), {g['tokens_per_s']:.1f} vs "
+              f"{e['tokens_per_s']:.1f} tokens/s")
+        if not same:
+            raise AssertionError(f"{name} engine: greedy ids differ between graph and eager")
+        out[name] = (g, e)
+    return out
+
+
+def run_streaming(pipe):
+    """Voice creation streamed (`StreamingSynthesizer`, the default schedule:
+    a 1 s first chunk growing x8, 0.1 s overlap, 25-step dispatches) after
+    one warm-up stream, with every launch count 0 just before and read just
+    after: one prefill, decode only through unit replays, one vocode per
+    chunk; at least 3 finite chunks.  Prints the first-chunk latency and
+    the total length against the offline path of the same seed
+    (`generate_tokens` + `detokenize`).  Returns (summary, launches)."""
+    import numpy as np
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.prompt import (
+        build_control_prompt,
+        extract_semantic_ids,
+        padded_global_tokens,
+    )
+    from sparktts_tpu_torch.serve.streaming import StreamingSynthesizer
+
+    dev, n_layers = pipe.device, pipe.config.llm.num_hidden_layers
+    syn = StreamingSynthesizer(pipe)
+    request = dict(seed=SEED, max_new_tokens=MAX_NEW_TOKENS, **VOICE)
+    list(syn.stream(TEXT, **request))  # warm-up: captures the streaming unit
+    _sync(dev)
+    _reset_counts()
+    eager0 = graphs.KERNELS["dense_decode_attention"].launches
+    chunks, first_s = [], None
+    t0 = time.perf_counter()
+    for wav in syn.stream(TEXT, **request):
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        chunks.append(wav)
+    total_s = time.perf_counter() - t0
+    launches = _counts()
+    streamed = np.concatenate(chunks)
+    tok = pipe.tokenizer
+    generated = pipe.generate_tokens(build_control_prompt(tok, TEXT, **VOICE), seed=SEED,
+                                     max_new_tokens=MAX_NEW_TOKENS)
+    glob = padded_global_tokens(tok, generated, pipe.config.bicodec.speaker_encoder.token_num)
+    offline = pipe.detokenize(glob, extract_semantic_ids(tok, generated)[None, :])
+    n = min(len(streamed), len(offline))
+    rel = float(np.linalg.norm(streamed[:n] - offline[:n]) / (np.linalg.norm(offline[:n]) + 1e-12))
+    audio_s = len(streamed) / pipe.sample_rate
+    summary = dict(first_chunk_ms=first_s * 1e3, chunks=len(chunks),
+                   chunk_samples=[len(c) for c in chunks], samples=int(len(streamed)),
+                   offline_samples=int(len(offline)), relative_l2_to_offline=rel,
+                   stream_s=total_s, audio_s=audio_s, rtf=total_s / audio_s)
+    print("streaming, voice creation:", json.dumps(summary))
+    print("launch counters over the stream:", json.dumps(launches))
+    if len(chunks) < 3 or not np.isfinite(streamed).all():
+        raise AssertionError(f"streaming: {len(chunks)} chunks, finite: "
+                             f"{bool(np.isfinite(streamed).all())}")
+    if launches["flash_attention_prefill"] != n_layers:
+        raise AssertionError("streaming: expected one prefill")
+    decode = launches["dense_decode_attention"]
+    eager = graphs.KERNELS["dense_decode_attention"].launches - eager0
+    if decode == 0 or decode % n_layers or eager:
+        raise AssertionError(f"streaming: {decode} decode launches, not all from unit replays")
+    if launches["fused_residual_unit"] == 0 or launches["fused_residual_unit"] % VOCODER_UNITS:
+        raise AssertionError("streaming: expected whole vocodes of the chunks")
+    return summary, launches
+
+
+def check_units(n_layers: int):
+    """Every captured decode unit: its capture ms, graph-pool MiB, replays,
+    its warm-up's launches (set-up on scratch buffers, counted apart), and
+    its launches a unit (`n_layers` x U of its attention kernel, a multiple
+    of n_layers x U of each other decode kernel, as many as its warm-up
+    launched).  Returns the units' summaries."""
+    from sparktts_tpu_torch.lm import graphs
+
+    out = []
+    for u in graphs.units():
+        attn = "paged_decode_attention" if u.name.startswith("paged") else "dense_decode_attention"
+        per_unit = {k: v for k, v in u.unit_launches.items() if v}
+        item = dict(name=u.name, steps=u.steps, replays=u.replays, capture_ms=u.capture_ms,
+                    pool_mib=u.pool_bytes / 2**20, launches_per_unit=per_unit,
+                    warm_up_launches={k: v for k, v in u.setup_launches.items() if v})
+        print("decode unit:", json.dumps(item))
+        out.append(item)
+        if (u.unit_launches[attn] != n_layers * u.steps or u.setup_launches != u.unit_launches
+                or any(v % (n_layers * u.steps) for v in per_unit.values())):
+            raise AssertionError(f"{u.name}: launches a unit {per_unit}")
+    return out
+
+
+def check_failed_capture(dev):
+    """A decode unit whose step reads a value on the host (a sync, which a
+    capture refuses) raises at capture, and is not kept."""
+    import torch
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.generate import GenState
+
+    state = GenState(*(torch.zeros(2, dtype=torch.long, device=dev) for _ in range(6)))
+
+    def make_scan(_generator):
+        def scan(s):
+            int(s.cur_token[0])  # a host read inside the step
+            return s, s.cur_token[:, None], s.done[:, None].bool()
+        return scan
+
+    n = len(graphs.units())
+    try:
+        graphs.unit(("failing",), dev, lambda: graphs.DecodeUnit(make_scan, state, 1))
+    except RuntimeError as e:
+        print(f"a capture with a host read inside raises: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:160]}")
+    else:
+        raise AssertionError("a capture with a host read inside did not raise")
+    if len(graphs.units()) != n:
+        raise AssertionError("a failed capture was kept")
+    torch.ones(1, device=dev).add_(1)
+    _sync(dev)
 
 
 def main() -> int:
@@ -1540,12 +1846,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from sparktts_tpu_torch.kernels import build
-    from sparktts_tpu_torch.kernels import decode_attention as da
-    from sparktts_tpu_torch.kernels import flash_attention as fa
-    from sparktts_tpu_torch.kernels import int4_matmul as i4
-    from sparktts_tpu_torch.kernels import int8_mlp as i8
-    from sparktts_tpu_torch.kernels import paged_attention as pa
-    from sparktts_tpu_torch.kernels import vocoder_fusion as vf
     from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
     from sparktts_tpu_torch.lm.qwen import aligned_cache_len, unstack_layers
     from sparktts_tpu_torch.pipeline import VOCODE_BUCKET, SparkTTSPipeline
@@ -1576,12 +1876,13 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     pipe = SparkTTSPipeline(device=dev, seed=SEED)
-    modules = {"flash_attention_prefill": fa, "dense_decode_attention": da,
-               "fused_residual_unit": vf, "int8_mlp_matvec": i8, "int4_matvec": i4,
-               "paged_decode_attention": pa}
-    creation = run_voice_creation(pipe, modules)
+    n_layers = pipe.config.llm.num_hidden_layers
+    creation = run_voice_creation(pipe)
+    check_graph_vs_eager("voice creation", pipe, creation[1], "control", creation[2])
     wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
-    cloning = run_voice_cloning(pipe, modules, wav_path)
+    cloning = run_voice_cloning(pipe, wav_path)
+    check_graph_vs_eager("voice cloning", pipe, cloning[1], "clone", cloning[2])
+    check_threads(pipe, [(creation[1], "control"), (creation[1], "control"), (cloning[1], "clone")])
     check_tokenize_on_cpu(pipe, wav_path)
 
     # the weight-only quantized LMs, quantized on the card from the same bf16
@@ -1590,13 +1891,21 @@ def main() -> int:
     int8_params = quantize_qwen_int8(bf16_params)
     int4_params = quantize_qwen_int4(bf16_params, group=INT4_GROUP)
     pipe.llm_params = int8_params
-    cloning_int8 = run_voice_cloning(pipe, modules, wav_path, label="voice cloning, int8 LM",
+    cloning_int8 = run_voice_cloning(pipe, wav_path, label="voice cloning, int8 LM",
                                      mlp_per_layer=1)
+    check_graph_vs_eager("voice cloning, int8 LM", pipe, cloning_int8[1], "clone",
+                         cloning_int8[2])
     pipe.llm_params = int4_params
-    creation_int4 = run_voice_creation(pipe, modules, label="voice creation, int4 LM",
-                                       int4_per_layer=4)
+    creation_int4 = run_voice_creation(pipe, label="voice creation, int4 LM", int4_per_layer=4)
+    check_graph_vs_eager("voice creation, int4 LM", pipe, creation_int4[1], "control",
+                         creation_int4[2])
     pipe.llm_params = bf16_params
-    check_int8_codec(pipe, modules, cloning_int8[3])
+    check_int8_codec(pipe, cloning_int8[3])
+
+    # continuous batching: the paged and the dense engine serve one burst
+    paged_entry, dense_state, engine_launches = run_engines(pipe, wav_path)
+    # token streaming over decode_chunk
+    _, stream_launches = run_streaming(pipe)
 
     # every kernel at the shapes the requests gave it (creation first)
     runs = [summary for _, _, summary, _ in (creation, cloning)]
@@ -1621,11 +1930,12 @@ def main() -> int:
     del int8_params, int4_params
     torch.cuda.empty_cache()
 
-    # continuous batching: the paged and the dense engine serve one burst
-    paged_entry, dense_state, engine_launches = run_engines(pipe, modules, wav_path)
     entries.append(paged_entry)
     entries[1]["by_shape"].append(dense_state)
+    check_units(n_layers)
+    check_failed_capture(dev)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
+    runs.append(stream_launches)
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

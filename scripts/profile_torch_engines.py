@@ -9,17 +9,21 @@ full Spark-TTS-0.5B widths (random weights, seed 0), sized as
 `chip_smoke.py` sizes them (`chip_smoke.build_engines`), and admits
 chip_smoke's eight engine requests into each (the paged engine takes as
 many as its pool can guarantee).  Each engine runs one dispatch
-unprofiled, then one dispatch of `--steps` decode steps traced with
-`torch.profiler`.  For each it prints the host-clock wall time, the time
-the device was busy (the union of kernel, memcpy and memset intervals), the
-device's idle share, the kernels launched per step and the kernels that took
-the most device time.  The last line is one JSON object with all of it.
-Needs a CUDA card; exits 2 without one.
+unprofiled, then two dispatches of `--steps` decode steps traced with
+`torch.profiler`: one as the engine runs it (replays of its captured decode
+unit, `lm/graphs.py`) and one as the eager loop of its step function
+(`chip_smoke.eager_dispatch`).  For each it prints the host-clock wall
+time, the time the device was busy (the union of kernel, memcpy and memset
+intervals), the device's idle share, the kernels run and the host's launch
+calls per step, and the kernels that took the most device time.  The last
+line is one JSON object with all of it.  Needs a CUDA card; exits 2
+without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -62,17 +66,22 @@ def main() -> int:
             except AdmissionDeferred:
                 pass
         eng.step(smoke.ENGINE_DISPATCH)  # unprofiled: warms every shape
-        r = _profile(f"engine_{name}", lambda: eng.step(args.steps))
-        r.update(live_slots=sum(o is not None for o in eng.owner),
-                 wall_ms_per_step=r["wall_ms"] / args.steps,
-                 device_ms_per_step=r["device_busy_ms"] / args.steps,
-                 kernels_per_step=r["kernels_launched"] / args.steps)
-        result[name] = r
-        print(f"{name} engine, {r['live_slots']} live slots, {args.steps} steps: wall "
-              f"{r['wall_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, idle share "
-              f"{r['device_idle_share']:.4f}, {r['kernels_per_step']:.1f} kernels a step")
-        for k in r["top_kernels"][:8]:
-            print(f"    {k['device_ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
+        for path in ("graph", "eager"):
+            with smoke.eager_dispatch() if path == "eager" else contextlib.nullcontext():
+                r = _profile(f"engine_{name}_{path}", lambda: eng.step(args.steps))
+            r.update(live_slots=sum(o is not None for o in eng.owner),
+                     wall_ms_per_step=r["wall_ms"] / args.steps,
+                     device_ms_per_step=r["device_busy_ms"] / args.steps,
+                     kernels_per_step=r["kernels_launched"] / args.steps)
+            if r["host_launch_calls"] is not None:
+                r["host_launches_per_step"] = r["host_launch_calls"] / args.steps
+            result[name if path == "graph" else f"{name}_eager"] = r
+            print(f"{name} engine, {path}, {r['live_slots']} live slots, {args.steps} steps: "
+                  f"wall {r['wall_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, idle "
+                  f"share {r['device_idle_share']:.4f}, {r['kernels_per_step']:.1f} kernels and "
+                  f"{r.get('host_launches_per_step')} host launch calls a step")
+            for k in r["top_kernels"][:8]:
+                print(f"    {k['device_ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
     print(json.dumps(result))
     return 0
 

@@ -1,13 +1,15 @@
 """BiCodec: (wav2vec2 features, reference wav) <-> (semantic, global) token
 ids <-> waveform.
 
-Port of `bicodec_tokenize` and `bicodec_detokenize` of
-`sparktts_tpu/codec/bicodec.py`.  Both run in fp32 under `full_fp32`, so
-their numbers do not depend on the caller's TF32 settings.
+Port of `bicodec_tokenize`, `bicodec_detokenize` and
+`detokenize_receptive_field` of `sparktts_tpu/codec/bicodec.py`.  The first
+two run in fp32 under `full_fp32`, so their numbers do not depend on the
+caller's TF32 settings.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -46,3 +48,41 @@ def bicodec_detokenize(
     x = feat_decoder_apply(p["prenet"], z_q, cfg.prenet, cond=d_vector)
     x = x + d_vector[:, None, :]
     return wave_generator_apply(p["decoder"], x, cfg.decoder)[..., 0]
+
+
+def detokenize_receptive_field(cfg: BiCodecConfig) -> int:
+    """One-sided receptive field of `bicodec_detokenize`, in input latent
+    frames (rounded up): an output sample at time t depends on input frames
+    [t - RF, t + RF] only, since the detokenize path is convolutional (the
+    FVQ/FSQ lookups and the d-vector conditioning are per frame or global).
+    A streaming server can vocode a token window with RF frames of left
+    context and emit a tail equal to a full-prefix recompute.
+
+    An upper bound: a conv with one-sided reach r samples in a domain
+    upsampled `up` times relative to the input frames reaches r / up input
+    frames.  The prenet's Vocos backbones are an embed conv k7 plus k7
+    depthwise convs; its sampler deconv (k = 2 ratio, pad = ceil(ratio / 2),
+    stride ratio) reaches (k - 1 - pad) / ratio frames of its own input; the
+    WaveGenerator's blocks are a transposed conv (k, s) and three residual
+    units k7 at dilations 1, 3, 9, between two k7 convs."""
+
+    def vocos_rf(num_layers: int) -> float:
+        return 3.0 + 3.0 * num_layers
+
+    rf, up = 0.0, 1.0
+    pre = cfg.prenet
+    for ratio in pre.sample_ratios:
+        if ratio > 1:
+            pad = ratio // 2 + ratio % 2
+            rf += ((2 * ratio - 1 - pad) / ratio) / up
+            up *= ratio
+        rf += vocos_rf(2) / up  # per-stage 2-layer backbone
+    rf += vocos_rf(pre.vocos_num_layers) / up
+    dec = cfg.decoder
+    rf += 3.0 / up  # conv_in k7
+    for k, s in zip(dec.kernel_sizes, dec.rates):
+        rf += (k / s) / up  # transposed conv, one-sided bound
+        up *= s
+        rf += (3.0 * (1 + 3 + 9)) / up  # residual units k7, d = 1/3/9
+    rf += 3.0 / up  # conv_out k7
+    return int(math.ceil(rf))

@@ -162,6 +162,18 @@ class SamplingConfig:
 
 
 @dataclass(frozen=True)
+class StreamingConfig:
+    """The streaming chunk schedule (the reference's Triton BLS defaults):
+    chunks grow from 1 s by x8 to at most 30 s, 0.1 s overlap, 50 tokens/s."""
+
+    audio_chunk_duration: float = 1.0
+    max_audio_chunk_duration: float = 30.0
+    audio_chunk_size_scale_factor: float = 8.0
+    audio_chunk_overlap_duration: float = 0.1
+    frame_rate: int = 50
+
+
+@dataclass(frozen=True)
 class SparkTTSConfig:
     sample_rate: int = 16000
     highpass_cutoff_freq: int = 40
@@ -172,6 +184,7 @@ class SparkTTSConfig:
     wav2vec2: Wav2Vec2Config = field(default_factory=Wav2Vec2Config)
     llm: QwenConfig = field(default_factory=QwenConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    streaming: StreamingConfig = field(default_factory=StreamingConfig)
 
 
 def tiny_test_config() -> SparkTTSConfig:

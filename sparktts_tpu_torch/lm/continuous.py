@@ -13,22 +13,27 @@ larger than the tightest budget is safe.
 
 Where the port differs from the JAX engine:
 
-  * A dispatch is an eager loop of n_steps decode steps, each through every
-    layer, where JAX runs one jitted scan.  The host reads nothing until the
+  * A dispatch of n_steps runs as n_steps / U replays of a decode unit
+    (`lm/graphs.py`, `dispatch_steps`): U steps captured as one CUDA graph
+    over the engine's own slot buffers on the card, run eagerly on the CPU,
+    where JAX runs one jitted scan.  The host reads nothing until the
     step's fetch: `chain_step_result` starts a non_blocking copy of the packed
     result into pinned host memory and records a CUDA event, and
     `step_fetch` waits on that event.  Host values go to the card through
     pinned memory without blocking (`to_device`), so `submit` and
     `step_begin` never wait for the card.
-  * The KV cache is written in place (JAX donates it to each program); the
-    small per-slot vectors are replaced step by step as in JAX, or written
-    in place at admission and release.
+  * The state is written in place (JAX donates it to each program): the
+    KV cache by every step, the per-slot vectors at admission and release
+    and by the last step of each unit, which copies its results back into
+    the buffers the graph binds.  So `self.slots` keeps its tensors, at
+    their addresses, for the life of the engine.
   * One engine `torch.Generator`, seeded with `seed`, takes the place of the
     carried rng key.  Each sampled admission prefill and each sampled
     decode step draws once, so a token stream does not depend on how steps
-    are split into dispatches.  `jax.random` and torch draw different
-    numbers: sampled tokens agree with JAX in distribution, greedy ids
-    exactly.
+    are split into dispatches (a unit draws from its own generator, set to
+    the engine's before a dispatch and copied back after it).  `jax.random`
+    and torch draw different numbers: sampled tokens agree with JAX in
+    distribution, greedy ids exactly.
   * A slot that finished but is still active keeps write_pos == limit,
     which may equal the cache length.  JAX drops that write; here it is
     clamped to the row's last cache slot, which the next admission
@@ -41,12 +46,14 @@ their executable caches are not ported (the server that calls them is not).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
+import math
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sparktts_tpu_torch.config import QwenConfig
+from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.generate import expand_constrained, packed_allowed_mask
 from sparktts_tpu_torch.lm.qwen import KVCache, init_kv_cache, qwen_forward
 from sparktts_tpu_torch.lm.sample import NEG_INF, greedy_token, sample_token
@@ -56,6 +63,10 @@ from sparktts_tpu_torch.lm.sample import NEG_INF, greedy_token, sample_token
 #: enforcement lives on the device (SlotState.limit), so a dispatch larger
 #: than a slot's remaining budget is safe: the slot just stops early.
 DISPATCH_LADDER = (4, 8, 16, 32, 64, 128, 256, 512)
+
+#: Steps per captured engine unit: the smallest rung, so a unit divides every
+#: rung (a dispatch of another size takes a unit of gcd(size, this) steps).
+ENGINE_UNIT = DISPATCH_LADDER[0]
 
 #: How many steps of overshoot a rung may add: every step of a dispatch runs
 #: even after each slot stopped, so rounding far up costs real compute.
@@ -358,15 +369,41 @@ def dense_step_logits(
     return _mode_masked(logits[:, -1], s.control, allowed)
 
 
-def run_steps(n_steps: int, slots, step_fn):
-    """Run `step_fn(slots) -> (slots, emitted, live)` n_steps times and pack
-    what the steps emitted; returns (slots, packed (B, 2n+1) int32)."""
+def scan_steps(n_steps: int, slots, step_fn):
+    """Run `step_fn(slots) -> (slots, emitted, live)` n_steps times; returns
+    (slots, emitted (B, n), live (B, n)): a decode unit's scan."""
     toks, valid = [], []
     for _ in range(n_steps):
         slots, emitted, live = step_fn(slots)
         toks.append(emitted)
         valid.append(live)
-    return slots, pack_step_result(torch.stack(toks, 1), torch.stack(valid, 1), slots.done)
+    return slots, torch.stack(toks, 1), torch.stack(valid, 1)
+
+
+def dispatch_steps(kind: str, params, slots, n_steps: int, generator: torch.Generator,
+                   make_step: Callable[[torch.Generator], Callable], static: Tuple,
+                   ) -> Tuple[object, torch.Tensor]:
+    """n_steps decode steps of either engine as replays of its decode unit,
+    bound to the engine's own slot buffers (the unit's key holds their
+    addresses, the params' identity and the `static` arguments); returns
+    (slots, packed (B, 2n+1) int32, see `pack_step_result`).
+    `make_step(generator)` gives the engine's one-step function."""
+    steps = math.gcd(n_steps, ENGINE_UNIT)
+    bufs = graphs.tensors(slots)
+    key = (kind, id(params), steps, static, tuple(t.data_ptr() for t in bufs))
+
+    def build() -> graphs.DecodeUnit:
+        def make_scan(gen):
+            step = make_step(gen)
+            return lambda s: scan_steps(steps, s, step)
+
+        return graphs.DecodeUnit(make_scan, slots, steps,
+                                 name=f"{kind} B={slots.cur_token.shape[0]} U={steps}")
+
+    unit = graphs.unit(key, bufs[0].device, build)
+    with unit.bound(slots, generator):
+        toks, valid = unit.run(n_steps)
+    return slots, pack_step_result(toks, valid, slots.done)
 
 
 def decode_steps(
@@ -387,20 +424,26 @@ def decode_steps(
     packed (B, 2n+1) int32, see `pack_step_result`).  The validity half of
     the pack is the explicit liveness mask: pad_id may be a legitimately
     sampled id.  A slot whose write_pos reaches its limit stops on the
-    device.  `allowed` narrows clone slots (`packed_allowed_mask`)."""
+    device.  `allowed` narrows clone slots (`packed_allowed_mask`).  The
+    slots are updated in place (`dispatch_steps`)."""
 
-    def step(s: SlotState):
-        logits = dense_step_logits(params, cfg, s, vocab_slice, extra_ids, allowed)
-        live, nxt, new_write, done = advance_slots(
-            s, logits, generator, top_k, greedy, vocab_slice, extra_ids, eos_ids, pad_id
-        )
-        new_s = s._replace(
-            cur_token=nxt, write_pos=new_write, done=done,
-            position=torch.where(live, s.position + 1, s.position),
-        )
-        return new_s, s.cur_token, live
+    def make_step(gen: torch.Generator):
+        def step(s: SlotState):
+            logits = dense_step_logits(params, cfg, s, vocab_slice, extra_ids, allowed)
+            live, nxt, new_write, done = advance_slots(
+                s, logits, gen, top_k, greedy, vocab_slice, extra_ids, eos_ids, pad_id
+            )
+            new_s = s._replace(
+                cur_token=nxt, write_pos=new_write, done=done,
+                position=torch.where(live, s.position + 1, s.position),
+            )
+            return new_s, s.cur_token, live
+        return step
 
-    return run_steps(n_steps, slots, step)
+    static = (cfg, top_k, eos_ids, pad_id, greedy, vocab_slice, extra_ids,
+              None if allowed is None else allowed.data_ptr())
+    kind = "dense engine, greedy" if greedy else "dense engine"
+    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:
@@ -591,8 +634,9 @@ class StepProtocolMixin:
 
 
 class ContinuousBatchingEngine(StepProtocolMixin):
-    """Host-side slot manager around admission and eager decode dispatches
-    over the dense slot cache.  Runs on the card unless `device="cpu"`."""
+    """Host-side slot manager around admission and decode dispatches (unit
+    replays) over the dense slot cache.  Runs on the card unless
+    `device="cpu"`."""
 
     def __init__(
         self,

@@ -1,0 +1,244 @@
+"""Captured decode units: the port's counterpart of `jax.jit`'s program cache
+for the decode loops.
+
+The JAX package runs each decode loop as one XLA program: `generate`'s
+`while_loop`, `decode_chunk`'s `lax.scan` and the engines' n-step scans.
+Run eagerly, one decode step of the port launches ~1200 kernels, and the
+host's launch overhead takes ~90% of the step's wall time.  So the port
+captures a *unit* of U decode steps as one CUDA graph over fixed state
+buffers, and replays it n / U times for a dispatch of n steps: the host
+launches one graph per U steps instead of ~1200 kernels per step.
+
+A `DecodeUnit` is built from a scan function (`make_scan(generator)` gives
+`scan(state) -> (state, tokens (B, U), valid (B, U))`) and the state
+buffers it is bound to.  The last step of the unit copies its state back
+into those buffers and the unit's tokens and validity into `out`, so every
+replay starts from where the previous one ended.  Around the capture:
+
+  * the warm-up that must precede it (it builds the kernels, cuBLAS plans
+    and the RoPE table) runs on a scratch copy of the buffers, so it never
+    advances a live request's state;
+  * it is captured on a stream of its own, whose arrival counters
+    (`kernels/arrivals.py`) are made first; a graph keeps its capture
+    stream's counters wherever it replays, so units that share a capture
+    stream (PyTorch hands out pooled streams) share one lock, and never
+    replay at the same time;
+  * the unit owns a generator registered with the graph; `bound` copies a
+    caller's generator state into it before the first replay and back
+    after the last, so a request's draws are those of its own generator,
+    one per sampled step, as in the eager loop;
+  * temperature and top_p are device buffers of the unit (`inputs`), filled
+    per request, because JAX traces them;
+  * the warm-up and the capture are set-up, not the caller's work (the
+    capture records launches without running them): the wrappers'
+    `launches` ticks of both are taken back (the warm-up's are kept in
+    `setup_launches`), and every replay adds the unit's launches to
+    `REPLAYED` instead.
+
+A capture or replay error raises: there is no eager fallback on the card.
+On the CPU the same unit runs its scan eagerly at each replay; nothing is
+captured and nothing is cached (`unit` builds a fresh one every call).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+
+import torch
+
+from sparktts_tpu_torch.kernels import (
+    arrivals,
+    decode_attention,
+    flash_attention,
+    int4_matmul,
+    int8_mlp,
+    paged_attention,
+    vocoder_fusion,
+)
+
+#: The kernel wrapper modules, by kernel name; each keeps a `launches` count.
+KERNELS = {
+    "flash_attention_prefill": flash_attention,
+    "dense_decode_attention": decode_attention,
+    "fused_residual_unit": vocoder_fusion,
+    "int8_mlp_matvec": int8_mlp,
+    "int4_matvec": int4_matmul,
+    "paged_decode_attention": paged_attention,
+}
+
+#: Kernel launches made by graph replays since the last `reset_launches`.
+REPLAYED: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_replayed_lock = threading.Lock()
+
+Scan = Callable[[Any], Tuple[Any, torch.Tensor, torch.Tensor]]
+
+
+def tensors(state) -> List[torch.Tensor]:
+    """The tensors of a state (nested tuples of tensors), in field order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for field in state for t in tensors(field)]
+
+
+def _clone(state):
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return type(state)(*(_clone(field) for field in state))
+
+
+def launches() -> Dict[str, int]:
+    """Launches of each kernel: eager ones (the wrappers' counts) plus those
+    of graph replays."""
+    with _replayed_lock:
+        return {name: m.launches + REPLAYED[name] for name, m in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's count and every replayed count to 0."""
+    with _replayed_lock:
+        for name, m in KERNELS.items():
+            m.launches = 0
+            REPLAYED[name] = 0
+
+
+_stream_locks: Dict[Tuple[int, int], threading.RLock] = {}
+
+
+class DecodeUnit:
+    """U decode steps over fixed state buffers: one CUDA graph on the card,
+    the eager scan on the CPU."""
+
+    def __init__(self, make_scan: Callable[[torch.Generator], Scan], state, steps: int,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None, name: str = "decode unit"):
+        self.state = state            # the buffers every replay reads and updates
+        self.steps = steps
+        self.inputs = inputs or {}    # static inputs the caller fills before replaying
+        self.name = name
+        self.device = tensors(state)[0].device
+        self.generator = torch.Generator(device=self.device)
+        self._scan = make_scan(self.generator)
+        b = state.cur_token.shape[0]
+        self.out = torch.zeros((b, 2 * steps), dtype=torch.int32, device=self.device)
+        self.replays = 0
+        self.unit_launches = dict.fromkeys(KERNELS, 0)   # launches a replay
+        self.setup_launches = dict.fromkeys(KERNELS, 0)  # launches of the warm-up
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.lock = threading.RLock()
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _body(self, state, out: torch.Tensor) -> None:
+        new, toks, valid = self._scan(state)
+        for mine, theirs in zip(tensors(state), tensors(new)):
+            if mine is not theirs:
+                mine.copy_(theirs)
+        out.copy_(torch.cat([toks.int(), valid.int()], dim=1))
+
+    def _capture(self) -> None:
+        stream = torch.cuda.Stream(self.device)
+        arrivals.prepare(stream)
+        with _replayed_lock:
+            self.lock = _stream_locks.setdefault(arrivals.stream_key(stream), threading.RLock())
+        before = {name: m.launches for name, m in KERNELS.items()}
+        scratch = _clone(self.state)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._body(scratch, torch.empty_like(self.out))
+        stream.synchronize()
+        del scratch
+        warm = {name: m.launches - before[name] for name, m in KERNELS.items()}
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        caller = torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self._body(self.state, self.out)
+        finally:
+            torch.cuda.set_stream(caller)  # a failed capture leaves its stream current
+            for name, m in KERNELS.items():
+                n = m.launches - before[name]
+                m.launches -= n  # set-up: replays count the unit's launches
+                self.setup_launches[name] = warm[name]
+                self.unit_launches[name] = n - warm[name]
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+
+    @contextlib.contextmanager
+    def bound(self, state, generator: torch.Generator):
+        """Inside the block the unit's buffers hold `state` and its generator
+        holds `generator`'s state; after it `state` (each of its tensors that
+        is not the unit's own) and `generator` hold the unit's.  Holds the
+        unit's lock throughout."""
+        with self.lock:
+            pairs = [(mine, theirs) for mine, theirs in zip(tensors(self.state), tensors(state))
+                     if mine.data_ptr() != theirs.data_ptr()]
+            for mine, theirs in pairs:
+                mine.copy_(theirs)
+            self.generator.set_state(generator.get_state())
+            try:
+                yield self
+            finally:
+                for mine, theirs in pairs:
+                    theirs.copy_(mine)
+                generator.set_state(self.generator.get_state())
+
+    def replay(self) -> torch.Tensor:
+        """Run the unit's U steps once; returns `out` (B, 2U) int32: the U
+        emitted tokens, then their validity.  The next replay overwrites it."""
+        with self.lock:
+            if self.graph is None:
+                self._body(self.state, self.out)
+            else:
+                self.graph.replay()
+                with _replayed_lock:
+                    for name, n in self.unit_launches.items():
+                        REPLAYED[name] += n
+            self.replays += 1
+        return self.out
+
+    def run(self, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """n_steps (a multiple of U) as n_steps / U replays; returns (tokens
+        (B, n) int64, valid (B, n) bool)."""
+        if n_steps % self.steps:
+            raise ValueError(f"{self.name}: {n_steps} steps are not a multiple of {self.steps}")
+        outs = [self.replay().clone() for _ in range(n_steps // self.steps)]
+        return unpack(outs, self.steps)
+
+
+def unpack(outs: List[torch.Tensor], steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay outputs (each (B, 2U)) -> (tokens (B, n) int64, valid (B, n) bool)."""
+    toks = torch.cat([o[:, :steps] for o in outs], dim=1).long()
+    valid = torch.cat([o[:, steps:] for o in outs], dim=1).bool()
+    return toks, valid
+
+
+_units: Dict[Hashable, DecodeUnit] = {}
+_units_lock = threading.Lock()
+
+
+def unit(key: Hashable, device: torch.device, build: Callable[[], DecodeUnit]) -> DecodeUnit:
+    """The captured unit of `key` on a card, built (and captured) by `build`
+    on first use; on the CPU a fresh unit every call."""
+    if device.type != "cuda":
+        return build()
+    with _units_lock:
+        u = _units.get(key)
+        if u is None:
+            u = build()
+            _units[key] = u
+        return u
+
+
+def units() -> List[DecodeUnit]:
+    """The captured units, in capture order."""
+    with _units_lock:
+        return list(_units.values())

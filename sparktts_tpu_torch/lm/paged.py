@@ -15,11 +15,13 @@ request reserves its worst case.  Here K/V live in a shared page pool:
 
 Admission reserves each request's worst-case page count and raises
 AdmissionDeferred when the pool cannot cover every admitted request's
-budget, so a request never runs out of pages mid-decode.  A dispatch is an
-eager loop of decode steps (`paged_decode_steps`), each through every layer;
-the engine state is built and changed under `torch.inference_mode()`, and
-the protocol and sampling are the dense engine's (`StepProtocolMixin`,
-`advance_slots`).
+budget, so a request never runs out of pages mid-decode.  A dispatch runs
+as replays of a decode unit over the engine's own buffers
+(`paged_decode_steps`, the dense engine's `dispatch_steps`): pools, page
+table and slot vectors keep their addresses for the life of the engine, so
+page growth copies a new table into the old one.  The engine state is
+built and changed under `torch.inference_mode()`, and the protocol and
+sampling are the dense engine's (`StepProtocolMixin`, `advance_slots`).
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ from sparktts_tpu_torch.lm.continuous import (
     _mode_masked,
     advance_slots,
     chain_step_result,
+    dispatch_steps,
     install_slot,
     prefill_one,
-    run_steps,
     slot_vectors,
     snap_to_ladder,
     to_device,
@@ -166,16 +168,21 @@ def paged_decode_steps(
     """Advance every active slot up to n_steps tokens over the paged pools.
     Returns (slots, packed (B, 2n+1)): the dense engine's `decode_steps`
     contract (budget limit on the device, per-slot mode constraint, one
-    packed host transfer)."""
+    packed host transfer, the slots updated in place)."""
 
-    def step(s: PagedSlotState):
-        logits = paged_step_logits(params, cfg, s, vocab_slice, extra_ids, allowed)
-        live, nxt, new_write, done = advance_slots(
-            s, logits, generator, top_k, greedy, vocab_slice, extra_ids, eos_ids, pad_id
-        )
-        return s._replace(cur_token=nxt, write_pos=new_write, done=done), s.cur_token, live
+    def make_step(gen: torch.Generator):
+        def step(s: PagedSlotState):
+            logits = paged_step_logits(params, cfg, s, vocab_slice, extra_ids, allowed)
+            live, nxt, new_write, done = advance_slots(
+                s, logits, gen, top_k, greedy, vocab_slice, extra_ids, eos_ids, pad_id
+            )
+            return s._replace(cur_token=nxt, write_pos=new_write, done=done), s.cur_token, live
+        return step
 
-    return run_steps(n_steps, slots, step)
+    static = (cfg, top_k, eos_ids, pad_id, greedy, vocab_slice, extra_ids,
+              None if allowed is None else allowed.data_ptr())
+    kind = "paged engine, greedy" if greedy else "paged engine"
+    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
 
 
 def paged_admit_prefill(
@@ -341,6 +348,7 @@ class PagedContinuousEngine(StepProtocolMixin):
         self.reserved[slot] = total_pages
         return self._register_request(slot, max_new_tokens)
 
+    @torch.inference_mode()
     def _ensure_pages(self, n_steps: int) -> None:
         """Grow page tables so every active slot can absorb n_steps tokens.
 
@@ -373,7 +381,8 @@ class PagedContinuousEngine(StepProtocolMixin):
             self.slot_pages[slot].extend(got[:d])
             got = got[d:]
         table = np.stack([self._table_row(s) for s in range(self.max_slots)])
-        self.slots = self.slots._replace(page_table=to_device(table, self.device))
+        # into the table the engine's decode unit binds, never a new tensor
+        self.slots.page_table.copy_(to_device(table, self.device))
 
     def _release(self, slot: int) -> None:
         self.free_pages.extend(self.slot_pages[slot])

@@ -8,8 +8,9 @@ one `qkv` block and gate/up into one `gateup` block.  The cache is a pair of
 through a scan carry that XLA aliases).  Prompts are left-padded, so every
 row's cache is aligned at the right edge of the prefill window and decode
 writes one shared slot per step.  The continuous engine (`lm/continuous.py`)
-right-pads instead and passes a (B,) write position: each row's decode step
-writes at its own slot.
+right-pads instead.  Every decode step passes a (B,) device write position
+(each row writes at its own slot; `generate` gives every row the same one),
+so no step depends on a host int and a CUDA graph can replay it.
 
 Attention goes through the two kernel modules: prefill through
 `kernels.flash_attention` when `flash_start` is given, every decode step
@@ -27,7 +28,7 @@ int8 MLP through the fused kernel module `kernels.int8_mlp`.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,9 +83,24 @@ def rope_frequencies(cfg: QwenConfig) -> np.ndarray:
     return 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
 
 
+_INV_FREQ: Dict[Tuple[float, int, torch.device], torch.Tensor] = {}
+
+
+def rope_inv_freq(cfg: QwenConfig, device: torch.device) -> torch.Tensor:
+    """The fp32 RoPE frequencies on `device`, uploaded once per (theta,
+    head_dim, device): a host-to-card copy on every step could not be
+    captured in a CUDA graph."""
+    key = (cfg.rope_theta, cfg.head_dim, device)
+    inv_freq = _INV_FREQ.get(key)
+    if inv_freq is None:
+        inv_freq = torch.as_tensor(rope_frequencies(cfg), dtype=torch.float32, device=device)
+        _INV_FREQ[key] = inv_freq
+    return inv_freq
+
+
 def rope_cos_sin(positions: torch.Tensor, cfg: QwenConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (B, T) -> fp32 cos/sin (B, T, 1, hd/2), shared by all layers."""
-    inv_freq = torch.as_tensor(rope_frequencies(cfg), dtype=torch.float32, device=positions.device)
+    inv_freq = rope_inv_freq(cfg, positions.device)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
@@ -133,10 +149,10 @@ def _attention_block(
     """Attention for prefill (T >= 1) and decode (T == 1).
 
     New K/V are written into cache plane `layer_idx` at [write_pos,
-    write_pos + T), in place; a (B,) tensor write_pos (T == 1, the
-    continuous engine) writes row b at its own write_pos[b], which must lie
-    in [0, S).  flash_start (B,) int32: prefill from slot 0
-    through the flash kernel module.  decode_window ((B,) start, (B,) pos)
+    write_pos + T), in place; a (B,) tensor write_pos (T == 1, a decode
+    step) writes row b at its own write_pos[b], which must lie in [0, S).
+    flash_start (B,) int32: prefill from slot 0 through the flash kernel
+    module.  decode_window ((B,) start, (B,) pos)
     int32: T == 1 decode through the decode kernel module, keys valid in
     [start, pos].  Otherwise key_mask_bias (B, T, S), an additive fp32 bias
     encoding causality and left padding, masks a dense attention."""

@@ -8,7 +8,9 @@ Port of `SparkTTSPipeline` of `sparktts_tpu/pipeline.py` in its two modes:
     tokenize the wav into global and semantic ids, which go into the clone
     prompt; the LM emits semantic tokens only.
 
-Both vocode with the BiCodec decoder into a 16 kHz waveform.  The pipeline
+Both vocode with the BiCodec decoder into a 16 kHz waveform.  The LM's
+decode replays captured CUDA graphs on the card (`lm/graphs.py`); token
+streaming over the same pipeline is `serve/streaming.py`.  The pipeline
 runs on the CUDA card unless the caller passes `device="cpu"`; without a
 card the default raises instead of falling back to the CPU.  Weights are
 random (from `seed`) unless numpy param trees with the JAX package's keys
@@ -276,7 +278,10 @@ class SparkTTSPipeline:
         mode: str = "control",
     ) -> np.ndarray:
         """Run the LM on one prompt under `mode`'s guided vocabulary; returns
-        the generated ids (new tokens only, up to and including EOS)."""
+        the generated ids (new tokens only, up to and including EOS).  On
+        the card the decode replays a captured decode unit (`generate`,
+        `lm/graphs.py`), which takes the state of this request's generator,
+        seeded with `seed`."""
         max_new = max_new_tokens or self.max_new_tokens
         input_ids, mask = self.prompt_inputs(prompt_ids)
         t_pad = input_ids.shape[1]

@@ -617,3 +617,190 @@ def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
         i4.int4_matvec(torch.zeros((64, 2), dtype=torch.bfloat16, device=dev).t(), packed, gscale)
     with pytest.raises(ValueError):
         i4.int4_matvec(x[:2, :32], packed, gscale)  # in != 2 packed rows
+
+
+# ---------------------------------------------------------------------------
+# decode units (lm/graphs.py): captured decode loops against the eager loop
+# ---------------------------------------------------------------------------
+
+UNIT_LAYERS = 2  # the full Qwen2.5-0.5B widths, two layers
+GUIDED = dict(vocab_slice=(151665, 151665 + 8192), extra_ids=(151645, 151650))
+
+
+def _unit_lm(dev, lm):
+    from sparktts_tpu_torch.config import QwenConfig
+    from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
+    from sparktts_tpu_torch.weights import init_qwen
+
+    cfg = QwenConfig(num_hidden_layers=UNIT_LAYERS)
+    params = init_qwen(cfg, torch.Generator(device=dev).manual_seed(3), torch.bfloat16, dev)
+    if lm == "int8":
+        params = quantize_qwen_int8(params)
+    elif lm == "int4":
+        params = quantize_qwen_int4(params, group=128)
+    return cfg, params
+
+
+def _unit_prompt(dev, t_pad=64, n=41):
+    ids = torch.full((1, t_pad), 151643, dtype=torch.long)
+    ids[0, t_pad - n:] = torch.arange(1000, 1000 + n)
+    mask = torch.zeros((1, t_pad), dtype=torch.bool)
+    mask[0, t_pad - n:] = True
+    return ids.to(dev), mask.to(dev)
+
+
+def _eager_generate(cfg, params, ids, mask, seed, greedy, max_new):
+    """`generate`'s semantics as `decode_step` in a Python loop."""
+    from sparktts_tpu_torch.lm import generate as tgen
+    from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
+
+    dev, t_pad = ids.device, ids.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cache = init_kv_cache(cfg, 1, aligned_cache_len(t_pad + max_new), torch.bfloat16, dev)
+    temperature, top_p = (torch.full((), v, device=dev) for v in (0.8, 0.95))
+    state = tgen.prefill(params, cfg, ids, mask, cache, gen, 0.8, 50, 0.95, greedy, **GUIDED)
+    toks = []
+    for _ in range(max_new):
+        toks.append(state.cur_token)
+        state = tgen.decode_step(params, cfg, state, t_pad, gen, temperature, 50, top_p, (), 0,
+                                 greedy, **GUIDED)
+    return torch.stack(toks, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm", ["bf16", "int8", "int4"])
+def test_generate_replays_equal_the_eager_loop(lm):
+    """`generate` on the card replays its captured unit of 8 steps: greedy
+    and sampled ids equal the eager loop's with the same seed, a seed twice
+    gives the same ids, and the launches are the unit's times its replays
+    (kernel 2 and, quantized, kernel 4 or 5 in every step; one prefill)."""
+    from sparktts_tpu_torch.lm import generate as tgen
+    from sparktts_tpu_torch.lm import graphs
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, lm)
+    ids, mask = _unit_prompt(dev)
+    max_new = 37
+    with torch.inference_mode():
+        for greedy in (True, False):
+            want = _eager_generate(cfg, params, ids, mask, 5, greedy, max_new)
+            graphs.reset_launches()
+            runs = [tgen.generate(params, cfg, ids, mask,
+                                  torch.Generator(device=dev).manual_seed(5), max_new,
+                                  64 + max_new, greedy=greedy, **GUIDED)[0]
+                    for _ in range(2)]
+            counts = graphs.launches()
+            assert torch.equal(runs[0], want) and torch.equal(runs[1], want)
+            steps = 2 * 8 * -(-max_new // 8)  # two calls, whole units
+            assert counts["flash_attention_prefill"] == 2 * UNIT_LAYERS
+            assert counts["dense_decode_attention"] == UNIT_LAYERS * steps
+            assert counts["int8_mlp_matvec"] == (UNIT_LAYERS * steps if lm == "int8" else 0)
+            assert counts["int4_matvec"] == (4 * UNIT_LAYERS * steps if lm == "int4" else 0)
+
+
+@pytest.mark.cuda
+def test_generate_from_threads_equals_each_alone():
+    """Three threads call `generate` at once (two share a decode unit, one
+    has another prompt bucket): each gets the ids it gets alone."""
+    import threading
+
+    from sparktts_tpu_torch.lm import generate as tgen
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, "bf16")
+    jobs = [(*_unit_prompt(dev), 1), (*_unit_prompt(dev, n=30), 2),
+            (*_unit_prompt(dev, 128, 90), 3)]
+
+    def one(ids, mask, seed):
+        with torch.inference_mode():
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return tgen.generate(params, cfg, ids, mask, gen, 40, ids.shape[1] + 40, **GUIDED)[0]
+
+    alone = [one(*job) for job in jobs]
+    got = [None] * len(jobs)
+    threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, one(*jobs[i])))
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert all(torch.equal(a, b) for a, b in zip(alone, got))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_is_not_kept():
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.generate import GenState
+
+    dev = _cuda()
+    state = GenState(*(torch.zeros(2, dtype=torch.long, device=dev) for _ in range(6)))
+
+    def make_scan(_generator):
+        def scan(s):
+            int(s.cur_token[0])  # a host read: no capture takes it
+            return s, s.cur_token[:, None], s.done[:, None].bool()
+        return scan
+
+    stream = torch.cuda.current_stream(dev)
+    n = len(graphs.units())
+    with pytest.raises(RuntimeError):
+        graphs.unit(("failing",), dev, lambda: graphs.DecodeUnit(make_scan, state, 1))
+    assert len(graphs.units()) == n
+    assert torch.cuda.current_stream(dev) == stream
+    assert float(torch.ones(1, device=dev).add_(1)) == 2.0
+
+
+def _eager_dispatch(monkeypatch):
+    """Both engines dispatch as their step functions in a Python loop."""
+    from sparktts_tpu_torch.lm import continuous, graphs, paged
+
+    def dispatch(kind, params, slots, n_steps, generator, make_step, static):
+        new, toks, valid = continuous.scan_steps(n_steps, slots, make_step(generator))
+        for mine, theirs in zip(graphs.tensors(slots), graphs.tensors(new)):
+            if mine is not theirs:
+                mine.copy_(theirs)
+        return slots, continuous.pack_step_result(toks, valid, slots.done)
+
+    monkeypatch.setattr(continuous, "dispatch_steps", dispatch)
+    monkeypatch.setattr(paged, "dispatch_steps", dispatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_engine_units_equal_the_eager_loop(monkeypatch, kind, greedy):
+    """An engine's dispatches replay its captured unit of 4 steps over its
+    own slot buffers: five requests (two admitted mid-decode) finish with
+    the eager loop's ids, and each dispatch launches the engine's attention
+    kernel layers x steps times."""
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
+    from sparktts_tpu_torch.lm.paged import PagedContinuousEngine
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, "bf16")
+    kw = dict(max_slots=5, prompt_pad=64, eos_ids=(151645,), pad_id=151643, greedy=greedy,
+              seed=7, device=dev, clone_slice=(151665, 151665 + 4096), clone_extras=(151645,),
+              **GUIDED)
+    prompts = [list(range(2000 + 7 * i, 2000 + 7 * i + n))
+               for i, n in enumerate((40, 70, 9, 64, 100))]
+
+    def serve():
+        eng = (ContinuousBatchingEngine(params, cfg, cache_len=384, **kw) if kind == "dense" else
+               PagedContinuousEngine(params, cfg, n_pages=24, page_size=64, pages_per_slot=6, **kw))
+        reqs = [eng.submit(p, 120, mode=("control", "clone")[i % 2])
+                for i, p in enumerate(prompts[:3])]
+        eng.step(16)
+        reqs += [eng.submit(p, 100) for p in prompts[3:]]
+        eng.run_until_done(32)
+        return [eng.finished[r] for r in reqs]
+
+    graphs.reset_launches()
+    got = serve()
+    counts = graphs.launches()
+    attn = "dense_decode_attention" if kind == "dense" else "paged_decode_attention"
+    assert counts[attn] > 0 and counts[attn] % (UNIT_LAYERS * 4) == 0
+    _eager_dispatch(monkeypatch)
+    want = serve()
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))

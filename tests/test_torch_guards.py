@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("pipeline", "kernels.flash_attention", "kernels.decode_attention",
                  "kernels.vocoder_fusion", "kernels.int8_mlp", "kernels.int4_matmul",
-                 "kernels.paged_attention", "lm.continuous", "lm.paged",
+                 "kernels.paged_attention", "lm.generate", "lm.graphs", "lm.continuous",
+                 "lm.paged", "serve.streaming",
                  "lm.quant", "codec.quant", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
                  "nn.perceiver", "codec.feat_encoder", "codec.fsq", "codec.fvq",
                  "codec.speaker_encoder", "codec.bicodec"):
