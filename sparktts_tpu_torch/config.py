@@ -3,14 +3,20 @@
 A copy of the dataclasses of `sparktts_tpu/config.py` that the port's
 modules read.  The defaults are the published Spark-TTS-0.5B dims (Qwen2.5-0.5B
 LM, BiCodec with a 12-layer prenet and a 1536-channel WaveGenerator), so the
-whole stack can be built with random weights without a checkpoint.  There is
-no YAML loader: the defaults already equal the checkpoint's `config.yaml`.
+whole stack can be built with random weights without a checkpoint.
+`load_spark_config` reads a checkpoint directory's `config.yaml`,
+`BiCodec/config.yaml`, `LLM/config.json` and
+`wav2vec2-large-xlsr-53/config.json` into the same tree, as the JAX
+package's loader does (`sparktts_tpu/config.py:232-339`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +111,7 @@ class BiCodecConfig:
 
 
 # ---------------------------------------------------------------------------
-# wav2vec2 feature extractor (clone mode; its modules are not ported yet)
+# wav2vec2 feature extractor (clone mode)
 # ---------------------------------------------------------------------------
 
 
@@ -185,6 +191,109 @@ class SparkTTSConfig:
     llm: QwenConfig = field(default_factory=QwenConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     streaming: StreamingConfig = field(default_factory=StreamingConfig)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint config files -> dataclasses
+# ---------------------------------------------------------------------------
+
+
+def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
+    """The entries of `d` that are fields of `cls`, lists made tuples
+    (training-only keys of the checkpoint's files are dropped)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in names}
+
+
+def load_yaml_config(path: str | Path) -> Dict[str, Any]:
+    """A checkpoint `config.yaml` as a dict, with a recursive `base_config`
+    (a path relative to the file) merged under it."""
+    import yaml
+
+    path = Path(path)
+    with open(path) as f:
+        cfg = yaml.safe_load(f) or {}
+    base = cfg.pop("base_config", None)
+    if base:
+        base_path = Path(base)
+        if not base_path.is_absolute():
+            base_path = path.parent / base_path
+        merged = load_yaml_config(base_path)
+        merged.update(cfg)
+        cfg = merged
+    return cfg
+
+
+def bicodec_config_from_dict(cfg: Dict[str, Any]) -> BiCodecConfig:
+    """A BiCodecConfig from the `audio_tokenizer` section of a BiCodec
+    `config.yaml` (or from the section itself); absent parts keep their
+    defaults."""
+    at = cfg.get("audio_tokenizer", cfg)
+    parts = (
+        ("mel_params", MelParams),
+        ("encoder", EncoderConfig),
+        ("quantizer", QuantizerConfig),
+        ("prenet", DecoderConfig),
+        ("postnet", DecoderConfig),
+        ("decoder", WaveGeneratorConfig),
+        ("speaker_encoder", SpeakerEncoderConfig),
+    )
+    return BiCodecConfig(
+        **{name: cls(**_filter_kwargs(cls, at[name])) for name, cls in parts if name in at}
+    )
+
+
+def qwen_config_from_dict(cfg: Dict[str, Any]) -> QwenConfig:
+    """A QwenConfig from an HF `config.json` dict (`head_dim` derived when
+    absent; the first of a list of EOS ids)."""
+    kw = _filter_kwargs(QwenConfig, cfg)
+    if "head_dim" not in cfg and "hidden_size" in cfg and "num_attention_heads" in cfg:
+        kw["head_dim"] = cfg["hidden_size"] // cfg["num_attention_heads"]
+    eos = cfg.get("eos_token_id")
+    if isinstance(eos, list):
+        kw["eos_token_id"] = eos[0]
+    return QwenConfig(**kw)
+
+
+def wav2vec2_config_from_dict(cfg: Dict[str, Any]) -> Wav2Vec2Config:
+    return Wav2Vec2Config(**_filter_kwargs(Wav2Vec2Config, cfg))
+
+
+_ROOT_KEYS = (
+    "sample_rate",
+    "highpass_cutoff_freq",
+    "latent_hop_length",
+    "ref_segment_duration",
+    "volume_normalize",
+)
+
+
+def load_spark_config(model_dir: str | Path) -> SparkTTSConfig:
+    """The SparkTTSConfig of a checkpoint directory laid out as the published
+    Spark-TTS-0.5B (`config.yaml`, `BiCodec/`, `LLM/`,
+    `wav2vec2-large-xlsr-53/`); a missing file leaves its part at the
+    defaults."""
+    model_dir = Path(model_dir)
+    root_kw: Dict[str, Any] = {}
+    top_path = model_dir / "config.yaml"
+    top: Dict[str, Any] = load_yaml_config(top_path) if top_path.exists() else {}
+    root_kw.update({k: top[k] for k in _ROOT_KEYS if k in top})
+
+    bicodec_path = model_dir / "BiCodec" / "config.yaml"
+    if bicodec_path.exists():
+        root_kw["bicodec"] = bicodec_config_from_dict(load_yaml_config(bicodec_path))
+    elif "audio_tokenizer" in top:
+        root_kw["bicodec"] = bicodec_config_from_dict(top)
+
+    llm_path = model_dir / "LLM" / "config.json"
+    if llm_path.exists():
+        root_kw["llm"] = qwen_config_from_dict(json.loads(llm_path.read_text()))
+
+    w2v_path = model_dir / "wav2vec2-large-xlsr-53" / "config.json"
+    if w2v_path.exists():
+        root_kw["wav2vec2"] = wav2vec2_config_from_dict(json.loads(w2v_path.read_text()))
+
+    return SparkTTSConfig(**root_kw)
 
 
 def tiny_test_config() -> SparkTTSConfig:

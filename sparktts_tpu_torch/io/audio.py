@@ -1,10 +1,10 @@
 """Host-side audio I/O and DSP (numpy and scipy only).
 
-A copy of the parts of `sparktts_tpu/io/audio.py` that voice cloning reads:
-wav read/write, polyphase resampling, loudness normalisation, and the 6 s
-reference clip.  The JAX package's optional C++ host library is not carried
-over; this module always takes the scipy paths, which that package uses
-when its library is not built.
+A copy of `sparktts_tpu/io/audio.py`: wav read/write, polyphase resampling,
+loudness normalisation, random segment selection, silence trimming and the
+6 s reference clip.  The JAX package's optional C++ host library is not
+carried over; this module always takes the scipy paths, which that package
+uses when its library is not built.
 """
 
 from __future__ import annotations
@@ -93,17 +93,48 @@ def audio_volume_normalize(audio: np.ndarray, coeff: float = 0.2) -> np.ndarray:
     return out
 
 
-def load_audio(
-    adfile: PathLike, sampling_rate: int | None = None, volume_normalize: bool = False
+def random_select_audio_segment(
+    audio: np.ndarray, length: int, rng: np.random.Generator | None = None
 ) -> np.ndarray:
-    """Read a wav, resample it to `sampling_rate` and optionally normalise its
-    loudness.  (The JAX package's random segment selection and silence trim
-    are not on the voice-cloning path and are not copied.)"""
+    """A uniformly placed `length`-sample window (a short input is
+    zero-padded first)."""
+    if audio.shape[0] < length:
+        audio = np.pad(audio, (0, int(length - audio.shape[0])))
+    rng = rng or np.random.default_rng()
+    start = int(rng.integers(0, audio.shape[0] - length + 1))
+    return audio[start : start + length]
+
+
+def load_audio(
+    adfile: PathLike,
+    sampling_rate: int | None = None,
+    length: int | None = None,
+    volume_normalize: bool = False,
+    segment_duration: float | None = None,
+    remove_silence: bool = False,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Read a wav and resample it to `sampling_rate`; then optionally a
+    random `segment_duration` window (drawn from `rng`), silence trimmed at
+    both ends, loudness normalised, and cropped or zero-padded to `length`
+    samples (which must lie within 1000 of the audio's)."""
     audio, sr = read_wav(adfile)
     if sampling_rate is not None and sr != sampling_rate:
         audio = resample(audio, sr, sampling_rate)
+        sr = sampling_rate
+    if segment_duration is not None:
+        audio = random_select_audio_segment(audio, int(sr * segment_duration), rng)
+    if remove_silence:
+        audio = remove_silence_on_both_ends(audio, sr)
     if volume_normalize:
         audio = audio_volume_normalize(audio)
+    if length is not None:
+        if abs(audio.shape[0] - length) >= 1000:
+            raise ValueError(f"load_audio: {audio.shape[0]} samples, asked for {length}")
+        if audio.shape[0] > length:
+            audio = audio[:length]
+        else:
+            audio = np.pad(audio, (0, int(length - audio.shape[0])))
     return audio
 
 
@@ -120,3 +151,43 @@ def get_ref_clip(
     if ref_segment_length > wav_length:
         wav = np.tile(wav, ref_segment_length // wav_length + 1)
     return wav[:ref_segment_length]
+
+
+def frame_rms(wav: np.ndarray, frame: int, hop: int) -> np.ndarray:
+    """Per-frame RMS over windows of `frame` samples every `hop`, from a
+    cumulative sum of squares."""
+    sq = np.concatenate([[0.0], np.cumsum(np.square(wav, dtype=np.float64))])
+    starts = np.arange(0, len(wav) - frame + 1, hop)
+    return np.sqrt(np.maximum(sq[starts + frame] - sq[starts], 0.0) / frame)
+
+
+def detect_speech_boundaries(
+    wav: np.ndarray,
+    sample_rate: int,
+    window_duration: float = 0.1,
+    energy_threshold: float = 0.01,
+    margin_factor: int = 2,
+) -> Tuple[int, int]:
+    """(start, end) samples: the first and last `window_duration` frame
+    (hopped at a tenth of a frame) whose RMS reaches `energy_threshold`,
+    widened by `margin_factor` frames.  Raises ValueError on silence."""
+    frame = int(window_duration * sample_rate)
+    hop = max(frame // 10, 1)
+    voiced = np.flatnonzero(frame_rms(wav, frame, hop) >= energy_threshold)
+    if voiced.size == 0:
+        raise ValueError("No speech detected in audio (only silence)")
+    margin = margin_factor * frame
+    start = max(int(voiced[0]) * hop - margin, 0)
+    end = min(int(voiced[-1]) * hop + margin, len(wav))
+    return start, end
+
+
+def remove_silence_on_both_ends(
+    wav: np.ndarray,
+    sample_rate: int,
+    window_duration: float = 0.1,
+    volume_threshold: float = 0.01,
+) -> np.ndarray:
+    """The wav with its leading and trailing silence trimmed."""
+    bounds = detect_speech_boundaries(wav, sample_rate, window_duration, volume_threshold)
+    return wav[slice(*bounds)]

@@ -184,13 +184,15 @@ def decode_unit(
     extra_ids: Tuple[int, ...],
     eos_ids: Tuple[int, ...],
     pad_id: int,
+    n_generators: int = 1,
 ) -> graphs.DecodeUnit:
     """The decode unit of `steps` steps for these static arguments (JAX's
     static argnames of `decode_chunk`, the params' identity, the cache's
-    shape), over buffers of its own; shared by `generate` and
-    `decode_chunk`.  Its inputs `temperature` and `top_p` are () fp32."""
+    shape, one generator or one per row), over buffers of its own; shared
+    by `generate` and `decode_chunk`.  Its inputs `temperature` and `top_p`
+    are () fp32."""
     key = ("decode", cfg, id(params), batch, cache_len, cache_dtype, device, t_pad, steps, top_k,
-           greedy, vocab_slice, extra_ids, eos_ids, pad_id)
+           greedy, vocab_slice, extra_ids, eos_ids, pad_id, n_generators)
 
     def build() -> graphs.DecodeUnit:
         state = GenState(
@@ -213,9 +215,16 @@ def decode_unit(
 
         return graphs.DecodeUnit(make_scan, state, steps, inputs,
                                  name=f"decode B={batch} t_pad={t_pad} S={cache_len} U={steps}"
-                                 + (" greedy" if greedy else ""))
+                                 + (" greedy" if greedy else "")
+                                 + (" per-row generators" if n_generators > 1 else ""),
+                                 n_generators=n_generators)
 
     return graphs.unit(key, device, build)
+
+
+def n_generators(generator: Generators) -> int:
+    """1 for one generator, else the number of per-row generators."""
+    return 1 if isinstance(generator, torch.Generator) else len(generator)
 
 
 def _fill_sampling(unit: graphs.DecodeUnit, temperature: float, top_p: float) -> None:
@@ -230,7 +239,7 @@ def decode_chunk(
     state: GenState,
     t_pad: int,
     n_steps: int,
-    generator: torch.Generator,
+    generator: Generators,
     temperature: float = 0.8,
     top_k: int = 50,
     top_p: float = 0.95,
@@ -252,7 +261,7 @@ def decode_chunk(
     b, s_len = state.cur_token.shape[0], state.cache.k.shape[2]
     unit = decode_unit(params, cfg, b, s_len, state.cache.k.dtype, state.cur_token.device, t_pad,
                        unit_steps, top_k, greedy, vocab_slice, tuple(extra_ids), tuple(eos_ids),
-                       pad_id)
+                       pad_id, n_generators(generator))
     with unit.bound(state, generator):
         _fill_sampling(unit, temperature, top_p)
         tokens, valid = unit.run(n_steps)
@@ -265,7 +274,7 @@ def generate(
     cfg: QwenConfig,
     input_ids: torch.Tensor,    # (B, T_pad) int64, left-padded
     prompt_mask: torch.Tensor,  # (B, T_pad) bool
-    generator: torch.Generator,
+    generator: Generators,
     max_new_tokens: int,
     cache_len: int,
     temperature: float = 0.8,
@@ -281,7 +290,9 @@ def generate(
     """Returns (tokens (B, max_new_tokens) int64 padded with pad_id after
     EOS, lengths (B,) including the EOS token).  Emission validity is the
     explicit `valid` mask, never inferred from token values (pad_id may be a
-    legal sampled id).  The prompt is prefilled into the cache of the
+    legal sampled id).  `generator` is one generator for the batch, or a
+    list of one per row (per-row seeds: a row's draws then depend on its
+    own generator alone).  The prompt is prefilled into the cache of the
     decode unit of `DONE_CHECK_EVERY` steps, which then replays until every
     row is done or the budget is spent; the unit is held for the whole call,
     so calls that share it from several threads run one after another."""
@@ -290,7 +301,7 @@ def generate(
         raise ValueError(f"cache_len {cache_len} < {t_pad} + {max_new_tokens}")
     unit = decode_unit(params, cfg, b, aligned_cache_len(cache_len), cache_dtype,
                        input_ids.device, t_pad, DONE_CHECK_EVERY, top_k, greedy, vocab_slice,
-                       tuple(extra_ids), tuple(eos_ids), pad_id)
+                       tuple(extra_ids), tuple(eos_ids), pad_id, n_generators(generator))
     outs = []
     with unit.lock:
         state = prefill(

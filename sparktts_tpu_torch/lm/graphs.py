@@ -9,8 +9,9 @@ captures a *unit* of U decode steps as one CUDA graph over fixed state
 buffers, and replays it n / U times for a dispatch of n steps: the host
 launches one graph per U steps instead of ~1200 kernels per step.
 
-A `DecodeUnit` is built from a scan function (`make_scan(generator)` gives
-`scan(state) -> (state, tokens (B, U), valid (B, U))`) and the state
+A `DecodeUnit` is built from a scan function (`make_scan(generators)` gives
+`scan(state) -> (state, tokens (B, U), valid (B, U))`; `generators` is one
+generator, or a list of one per row) and the state
 buffers it is bound to.  The last step of the unit copies its state back
 into those buffers and the unit's tokens and validity into `out`, so every
 replay starts from where the previous one ended.  Around the capture:
@@ -23,10 +24,12 @@ replay starts from where the previous one ended.  Around the capture:
     stream's counters wherever it replays, so units that share a capture
     stream (PyTorch hands out pooled streams) share one lock, and never
     replay at the same time;
-  * the unit owns a generator registered with the graph; `bound` copies a
-    caller's generator state into it before the first replay and back
-    after the last, so a request's draws are those of its own generator,
-    one per sampled step, as in the eager loop;
+  * the unit owns a generator registered with the graph, or one per batch
+    row (`n_generators`, for per-row seeds: each registered with the same
+    graph); `bound` copies the caller's generator states into them before
+    the first replay and back after the last, so a request's draws are
+    those of its own generators, one per sampled step, as in the eager
+    loop;
   * temperature and top_p are device buffers of the unit (`inputs`), filled
     per request, because JAX traces them;
   * the warm-up and the capture are set-up, not the caller's work (the
@@ -58,6 +61,7 @@ from sparktts_tpu_torch.kernels import (
     paged_attention,
     vocoder_fusion,
 )
+from sparktts_tpu_torch.lm.sample import Generators
 
 #: The kernel wrapper modules, by kernel name; each keeps a `launches` count.
 KERNELS = {
@@ -111,15 +115,16 @@ class DecodeUnit:
     """U decode steps over fixed state buffers: one CUDA graph on the card,
     the eager scan on the CPU."""
 
-    def __init__(self, make_scan: Callable[[torch.Generator], Scan], state, steps: int,
-                 inputs: Optional[Dict[str, torch.Tensor]] = None, name: str = "decode unit"):
+    def __init__(self, make_scan: Callable[[Generators], Scan], state, steps: int,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None, name: str = "decode unit",
+                 n_generators: int = 1):
         self.state = state            # the buffers every replay reads and updates
         self.steps = steps
         self.inputs = inputs or {}    # static inputs the caller fills before replaying
         self.name = name
         self.device = tensors(state)[0].device
-        self.generator = torch.Generator(device=self.device)
-        self._scan = make_scan(self.generator)
+        self.generators = [torch.Generator(device=self.device) for _ in range(n_generators)]
+        self._scan = make_scan(self.generators[0] if n_generators == 1 else self.generators)
         b = state.cur_token.shape[0]
         self.out = torch.zeros((b, 2 * steps), dtype=torch.int32, device=self.device)
         self.replays = 0
@@ -155,7 +160,8 @@ class DecodeUnit:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         caller = torch.cuda.current_stream(self.device)
         t0 = time.perf_counter()
         try:
@@ -173,23 +179,30 @@ class DecodeUnit:
         self.graph = graph
 
     @contextlib.contextmanager
-    def bound(self, state, generator: torch.Generator):
-        """Inside the block the unit's buffers hold `state` and its generator
-        holds `generator`'s state; after it `state` (each of its tensors that
-        is not the unit's own) and `generator` hold the unit's.  Holds the
-        unit's lock throughout."""
+    def bound(self, state, generator: Generators):
+        """Inside the block the unit's buffers hold `state` and its
+        generators hold the states of `generator` (one, or a list of one per
+        row, as the unit was built); after it `state` (each of its tensors
+        that is not the unit's own) and `generator` hold the unit's.  Holds
+        the unit's lock throughout."""
+        theirs_gens = [generator] if isinstance(generator, torch.Generator) else list(generator)
+        if len(theirs_gens) != len(self.generators):
+            raise ValueError(f"{self.name}: got {len(theirs_gens)} generators for a unit of "
+                             f"{len(self.generators)}")
         with self.lock:
             pairs = [(mine, theirs) for mine, theirs in zip(tensors(self.state), tensors(state))
                      if mine.data_ptr() != theirs.data_ptr()]
             for mine, theirs in pairs:
                 mine.copy_(theirs)
-            self.generator.set_state(generator.get_state())
+            for mine, theirs in zip(self.generators, theirs_gens):
+                mine.set_state(theirs.get_state())
             try:
                 yield self
             finally:
                 for mine, theirs in pairs:
                     theirs.copy_(mine)
-                generator.set_state(self.generator.get_state())
+                for mine, theirs in zip(self.generators, theirs_gens):
+                    theirs.set_state(mine.get_state())
 
     def replay(self) -> torch.Tensor:
         """Run the unit's U steps once; returns `out` (B, 2U) int32: the U

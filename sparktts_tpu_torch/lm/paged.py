@@ -51,8 +51,8 @@ from sparktts_tpu_torch.lm.continuous import (
 )
 from sparktts_tpu_torch.lm.qwen import (
     embed_lookup,
-    lm_logits,
     mlp_block,
+    output_logits,
     project_qkv,
     rope_cos_sin,
     unstack_layers,
@@ -118,8 +118,6 @@ def paged_step_logits(
     write to the trash page), attends to keys [0, write_pos] through the
     page table, and returns the step's guided logits (B, W) narrowed per
     mode."""
-    if not cfg.tie_word_embeddings:
-        raise NotImplementedError("untied lm_head is not ported; Spark-TTS ties embeddings")
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     page_size, pages_per_slot = s.k_pages.shape[3], s.page_table.shape[1]
     live = s.active & ~s.done
@@ -147,7 +145,7 @@ def paged_step_logits(
         y = rms_norm_apply(layer["ln2"], x, eps=cfg.rms_norm_eps)
         x = x + mlp_block(layer, y, decode_fused=True)
     x = rms_norm_apply(params["final_ln"], x, eps=cfg.rms_norm_eps)
-    logits = lm_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids)
+    logits = output_logits(params, cfg, x, vocab_slice, extra_ids)
     return _mode_masked(logits[:, -1], s.control, allowed)
 
 

@@ -23,7 +23,9 @@ tree, the dtype of its norm gains).
 Weight-only quantized trees (`lm/quant.py`) run as in the JAX package: int8
 or int4 linears through `nn/layers.linear_apply`, an int8 embedding with its
 per-row scale in the lookup and the tied logits, and on a decode step an
-int8 MLP through the fused kernel module `kernels.int8_mlp`.
+int8 MLP through the fused kernel module `kernels.int8_mlp`.  An untied
+config projects through its own `lm_head` (`head_logits`): bf16, int8 or
+int4, its guided columns selected before they are dequantized.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from sparktts_tpu_torch.kernels.decode_attention import dense_decode_attention
 from sparktts_tpu_torch.kernels.flash_attention import flash_attention_prefill
 from sparktts_tpu_torch.kernels.int8_mlp import MAX_ROWS as MLP_MATVEC_ROWS
 from sparktts_tpu_torch.kernels.int8_mlp import int8_mlp_matvec
+from sparktts_tpu_torch.lm.quant import unpack_int4
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
 
 
@@ -229,8 +232,6 @@ def qwen_forward(
     vocab_slice/extra_ids constrain the OUTPUT vocabulary (guided decoding):
     logits cover embedding rows [lo, hi) then `extra_ids`, in that packed
     order.  logits_last_only computes logits for the final position only."""
-    if not cfg.tie_word_embeddings:
-        raise NotImplementedError("untied lm_head is not ported; Spark-TTS ties embeddings")
     x = embed_lookup(params, input_ids)
     rope = rope_cos_sin(positions, cfg)
     for li, layer in enumerate(unstack_layers(params["layers"])):
@@ -244,7 +245,16 @@ def qwen_forward(
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm_apply(params["final_ln"], x, eps=cfg.rms_norm_eps)
-    return lm_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids), cache
+    return output_logits(params, cfg, x, vocab_slice, extra_ids), cache
+
+
+def output_logits(params, cfg: QwenConfig, x: torch.Tensor, vocab_slice=None,
+                  extra_ids: Tuple[int, ...] = ()) -> torch.Tensor:
+    """The final hidden states' fp32 logits: through the tied embedding or,
+    for an untied config, through `lm_head`."""
+    if cfg.tie_word_embeddings:
+        return lm_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids)
+    return head_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids)
 
 
 def embed_lookup(params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -281,6 +291,49 @@ def lm_logits(
             scale = _select_vocab_rows(scale, vocab_slice, extra_ids)
     logits = torch.matmul(x.float(), w.float().T)
     return logits if scale is None else logits * scale
+
+
+def _select_vocab_cols(w: torch.Tensor, vocab_slice, extra_ids) -> torch.Tensor:
+    """Columns [lo, hi) then the `extra_ids` columns of a (..., V) table."""
+    lo, hi = vocab_slice
+    cols = [w[:, lo:hi]] + [w[:, e : e + 1] for e in extra_ids]
+    return torch.cat(cols, dim=1) if extra_ids else cols[0]
+
+
+def head_logits(
+    params,
+    x: torch.Tensor,
+    vocab_slice: Optional[Tuple[int, int]] = None,
+    extra_ids: Tuple[int, ...] = (),
+) -> torch.Tensor:
+    """Untied `lm_head` logits in fp32 (the head is (H, V): guided rows of
+    the tied table are guided columns here).  Products of x's dtype summed
+    in fp32, as `lm_logits`.  An int4 head (`w_p4`/`gscale`) has its guided
+    columns selected first and only those dequantized, since a whole-table
+    dequant in every decode step would move hundreds of MB; an int8 head
+    (`w_q`/`scale`) multiplies the fp32 logits by its selected scales.
+    Without a constraint the head is a plain `linear_apply`."""
+    head = params["lm_head"]
+    if vocab_slice is None:
+        return linear_apply(head, x).float()
+    scale = None
+    if "w_p4" in head:
+        packed = _select_vocab_cols(head["w_p4"], vocab_slice, extra_ids)  # (H/2, W)
+        gscale = _select_vocab_cols(head["gscale"], vocab_slice, extra_ids)  # (G, W)
+        w_sel = unpack_int4(packed)  # (H, W) fp32
+        group = w_sel.shape[0] // gscale.shape[0]
+        w = (w_sel * gscale.repeat_interleave(group, dim=0)).T
+    elif "w_q" in head:
+        w = _select_vocab_cols(head["w_q"], vocab_slice, extra_ids).T
+        scale = _select_vocab_cols(head["scale"].reshape(1, -1), vocab_slice, extra_ids)[0]
+    else:
+        w = _select_vocab_cols(head["w"], vocab_slice, extra_ids).T
+    logits = torch.matmul(x.float(), w.to(x.dtype).float().T)
+    if scale is not None:
+        logits = logits * scale
+    if "b" in head:
+        logits = logits + _select_vocab_cols(head["b"].reshape(1, -1), vocab_slice, extra_ids)[0]
+    return logits
 
 
 # ---------------------------------------------------------------------------

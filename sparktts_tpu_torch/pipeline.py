@@ -1,43 +1,61 @@
 """End-to-end Spark-TTS: the port's public API.
 
-Port of `SparkTTSPipeline` of `sparktts_tpu/pipeline.py` in its two modes:
+Port of `SparkTTSPipeline` of `sparktts_tpu/pipeline.py`:
 
   * voice creation (gender/pitch/speed): the control prompt; the Qwen2.5 LM
     emits both the global speaker tokens and the semantic tokens;
   * voice cloning (a prompt wav): wav2vec2 features and the BiCodec encoder
     tokenize the wav into global and semantic ids, which go into the clone
-    prompt; the LM emits semantic tokens only.
+    prompt; the LM emits semantic tokens only;
+  * longform (`inference_long`): sentence-packed segments in one voice;
+  * the batch surfaces a server calls: `tokenize_audio_batch(_device)`,
+    clone prompts assembled on the device (`assemble_clone_ids_batch`),
+    `generate_tokens_batch` with per-row seeds, `detokenize_batch` and the
+    fused `generate_and_vocode_batch`; and a voice cache of tokenized
+    prompt wavs.
 
-Both vocode with the BiCodec decoder into a 16 kHz waveform.  The LM's
-decode replays captured CUDA graphs on the card (`lm/graphs.py`); token
-streaming over the same pipeline is `serve/streaming.py`.  The pipeline
-runs on the CUDA card unless the caller passes `device="cpu"`; without a
-card the default raises instead of falling back to the CPU.  Weights are
-random (from `seed`) unless numpy param trees with the JAX package's keys
-are passed in.
+Every mode vocodes with the BiCodec decoder into a 16 kHz waveform.  The
+LM's decode replays captured CUDA graphs on the card (`lm/graphs.py`);
+token streaming over the same pipeline is `serve/streaming.py`.  The
+pipeline runs on the CUDA card unless the caller passes `device="cpu"`;
+without a card the default raises instead of falling back to the CPU.
+Weights come from a checkpoint directory (`model_dir`, the published
+Spark-TTS-0.5B layout, `checkpoint.py`), from numpy or tensor trees with the
+JAX package's keys, or at random from `seed`.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
+import threading
+import time
+from collections import OrderedDict
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sparktts_tpu_torch import checkpoint as ckpt
 from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
-from sparktts_tpu_torch.config import SparkTTSConfig
+from sparktts_tpu_torch.config import SparkTTSConfig, load_spark_config
 from sparktts_tpu_torch.io.audio import get_ref_clip, load_audio
 from sparktts_tpu_torch.lm.generate import generate
+from sparktts_tpu_torch.lm.sample import Generators
 from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
 from sparktts_tpu_torch.prompt import (
+    HFSparkTokenizer,
+    SparkTokenizerBase,
     SyntheticSparkTokenizer,
     build_clone_prompt,
     build_control_prompt,
+    clone_prompt_scaffold,
     extract_semantic_ids,
     padded_global_tokens,
 )
+from sparktts_tpu_torch.utils.textseg import pack_segments
 from sparktts_tpu_torch.weights import (
     bicodec_state,
     init_bicodec,
@@ -49,13 +67,26 @@ from sparktts_tpu_torch.weights import (
 
 logger = logging.getLogger(__name__)
 
-PROMPT_BUCKET = 64  # prompts are left-padded to a multiple of this many tokens
-VOCODE_BUCKET = 50  # semantic tokens are edge-padded to a multiple of this
+PROMPT_BUCKET = 64  # default: prompts are left-padded to a multiple of this many tokens
+VOCODE_BUCKET = 50  # default: semantic tokens are edge-padded to a multiple of this
 MODES = ("control", "clone")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def seed_generators(seed, b: int, device) -> Generators:
+    """Sampling generator(s) for a batch of `b` rows.  An int seed gives one
+    generator for the whole batch; a sequence of per-row seeds gives one
+    generator per row, so each row's draws depend on its own seed alone and
+    its ids do not change with the rest of the batch (at equal padding)."""
+    if isinstance(seed, (int, np.integer)):
+        return torch.Generator(device=device).manual_seed(int(seed))
+    seeds = [int(s) for s in seed]
+    if len(seeds) != b:
+        raise ValueError(f"got {len(seeds)} seeds for a batch of {b}")
+    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
 
 
 def codec_tokenize(
@@ -70,16 +101,28 @@ def codec_tokenize(
 
 
 class SparkTTSPipeline:
-    """Voice creation and voice cloning at the config's widths (default:
-    Spark-TTS-0.5B)."""
+    """Voice creation, voice cloning and longform at the config's widths
+    (default: Spark-TTS-0.5B), plus the batch surfaces of a server.
+
+    `model_dir` loads a checkpoint directory (config, tokenizer and the
+    three weight trees; `config` and the `*_params` arguments are then not
+    read).  `prompt_bucket` / `wav_bucket_s` set the prompt and wav padding,
+    `guided=False` samples the full vocabulary instead of the mode's token
+    ranges, and `voice_cache_size > 0` keeps that many tokenized prompt
+    voices (LRU)."""
 
     def __init__(
         self,
+        model_dir: Optional[str | Path] = None,
         config: Optional[SparkTTSConfig] = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
         lm_dtype: torch.dtype = torch.bfloat16,
         max_new_tokens: Optional[int] = None,
+        prompt_bucket: int = PROMPT_BUCKET,
+        wav_bucket_s: float = 1.0,
+        guided: bool = True,
+        voice_cache_size: int = 0,
         llm_params=None,
         bicodec_params=None,
         wav2vec2_params=None,
@@ -89,32 +132,127 @@ class SparkTTSPipeline:
             raise RuntimeError(
                 "SparkTTSPipeline: no CUDA device is available; pass device='cpu' to run on the CPU"
             )
-        self.config = config or SparkTTSConfig()
-        bc = self.config.bicodec
-        self.tokenizer = SyntheticSparkTokenizer(
-            n_semantic=bc.quantizer.codebook_size,
-            n_global=int(np.prod(bc.speaker_encoder.fsq_levels)),
-        )
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        if llm_params is None:
-            self.llm_params = init_qwen(self.config.llm, gen, lm_dtype, self.device)
+        self.lm_dtype = lm_dtype
+        self.load_seconds: dict = {}
+        if model_dir is not None:
+            self.config = load_spark_config(model_dir)
+            bc = self.config.bicodec
+            self.tokenizer: SparkTokenizerBase = HFSparkTokenizer(
+                model_dir,
+                n_semantic=bc.quantizer.codebook_size,
+                n_global=int(np.prod(bc.speaker_encoder.fsq_levels)),
+            )
+            self._load_params(Path(model_dir))
         else:
-            self.llm_params = qwen_state(llm_params, self.device, lm_dtype)
-        if bicodec_params is None:
-            self.bicodec_params = init_bicodec(bc, gen, self.device)
-        else:
-            self.bicodec_params = bicodec_state(bicodec_params, self.device)
-        if wav2vec2_params is None:
-            self.w2v_params = init_wav2vec2(self.config.wav2vec2, gen, self.device)
-        else:
-            self.w2v_params = wav2vec2_state(wav2vec2_params, self.device)
+            self.config = config or SparkTTSConfig()
+            bc = self.config.bicodec
+            self.tokenizer = SyntheticSparkTokenizer(
+                n_semantic=bc.quantizer.codebook_size,
+                n_global=int(np.prod(bc.speaker_encoder.fsq_levels)),
+            )
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            if llm_params is None:
+                self.llm_params = init_qwen(self.config.llm, gen, lm_dtype, self.device)
+            else:
+                self.llm_params = qwen_state(llm_params, self.device, lm_dtype)
+            if bicodec_params is None:
+                self.bicodec_params = init_bicodec(bc, gen, self.device)
+            else:
+                self.bicodec_params = bicodec_state(bicodec_params, self.device)
+            if wav2vec2_params is None:
+                self.w2v_params = init_wav2vec2(self.config.wav2vec2, gen, self.device)
+            else:
+                self.w2v_params = wav2vec2_state(wav2vec2_params, self.device)
 
         self.sample_rate = self.config.sample_rate
-        self.wav_bucket = self.sample_rate  # prompt wavs are zero-padded to whole seconds
+        self.prompt_bucket = prompt_bucket
+        self.wav_bucket = int(wav_bucket_s * self.sample_rate)  # prompt wavs are zero-padded to it
+        self.vocode_bucket = VOCODE_BUCKET
         self.max_new_tokens = max_new_tokens or self.config.sampling.max_new_tokens
-        self.lm_dtype = lm_dtype
+        self.guided = guided
         self._enc_ratio = int(np.prod(bc.encoder.sample_ratios))  # wav2vec2 frames per semantic id
         self._wave_upsample = int(np.prod(bc.decoder.rates)) * int(np.prod(bc.prenet.sample_ratios))
+
+        # tokenized prompt voices, LRU, keyed by content; tokenize is a pure
+        # function of the wav, so a hit changes no output
+        self.voice_cache_size = voice_cache_size
+        self._voice_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self._voice_lock = threading.Lock()
+        self.voice_cache_stats = {"hits": 0, "misses": 0}
+
+    # ------------------------------------------------------------------
+    # weights
+    # ------------------------------------------------------------------
+
+    def _load_params(self, model_dir: Path) -> None:
+        """Read the three checkpoints (`BiCodec/`, `wav2vec2-large-xlsr-53/`,
+        `LLM/`), convert them to the JAX trees on the CPU, and upload them
+        once: the LM in `lm_dtype`, the codec in fp32.  `load_seconds` keeps
+        the time of each stage."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        bc_state = ckpt.load_safetensors(model_dir / "BiCodec" / "model.safetensors")
+        w2v_state = ckpt.load_hf_state(model_dir / "wav2vec2-large-xlsr-53")
+        llm_state = ckpt.load_hf_state(model_dir / "LLM")
+        t1 = time.perf_counter()
+        bc_tree = ckpt.convert_bicodec(bc_state, cfg.bicodec)
+        w2v_tree = ckpt.convert_wav2vec2(w2v_state, cfg.wav2vec2)
+        llm_tree = ckpt.convert_qwen(llm_state, cfg.llm)
+        del bc_state, w2v_state, llm_state
+        t2 = time.perf_counter()
+        self.bicodec_params = bicodec_state(bc_tree, self.device)
+        self.w2v_params = wav2vec2_state(w2v_tree, self.device)
+        self.llm_params = qwen_state(llm_tree, self.device, self.lm_dtype)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t3 = time.perf_counter()
+        self.load_seconds = {"read": t1 - t0, "convert": t2 - t1, "upload": t3 - t2}
+
+    # ------------------------------------------------------------------
+    # voice cache
+    # ------------------------------------------------------------------
+
+    def voice_cache_key(self, audio) -> Optional[bytes]:
+        """Cache key of a prompt voice, or None when the cache is off.  An
+        array is keyed by its content; a path by (realpath, size, mtime), so
+        an edited file tokenizes again.  The same bytes as the JAX
+        package's keys."""
+        if self.voice_cache_size <= 0 or audio is None:
+            return None
+        if isinstance(audio, (str, Path)):
+            st = os.stat(audio)
+            basis = f"p:{os.path.realpath(audio)}:{st.st_size}:{st.st_mtime_ns}".encode()
+        else:
+            a = np.ascontiguousarray(audio)
+            basis = b"a:" + str((a.shape, a.dtype)).encode() + a.tobytes()
+        return hashlib.blake2b(basis, digest_size=16).digest()
+
+    def voice_cache_get(self, key: Optional[bytes]):
+        """(global ids, semantic ids, true semantic count) of a cached voice
+        (the ids on the device), else None."""
+        if key is None:
+            return None
+        with self._voice_lock:
+            hit = self._voice_cache.get(key)
+            if hit is not None:
+                self._voice_cache.move_to_end(key)
+                self.voice_cache_stats["hits"] += 1
+            else:
+                self.voice_cache_stats["misses"] += 1
+            return hit
+
+    def voice_cache_put(self, key: Optional[bytes], value: tuple) -> None:
+        if key is None:
+            return
+        with self._voice_lock:
+            self._voice_cache[key] = value
+            self._voice_cache.move_to_end(key)
+            while len(self._voice_cache) > self.voice_cache_size:
+                self._voice_cache.popitem(last=False)
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
 
     def inference(
         self,
@@ -164,10 +302,17 @@ class SparkTTSPipeline:
         max_new_tokens: Optional[int] = None,
         seed: int = 0,
         greedy: bool = False,
+        speaker_globals: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """One prompt -> (wav, the codec global ids it was vocoded with: the
-        prompt wav's in voice cloning, the LM-emitted ones in voice creation)."""
-        if gender is not None:
+        prompt wav's in voice cloning, the LM-emitted ones in voice creation,
+        or `speaker_globals` when given: a longform continuation, a clone
+        prompt of those global ids alone)."""
+        if speaker_globals is not None:
+            global_ids = np.asarray(speaker_globals, np.int32).reshape(1, -1)
+            ids = build_clone_prompt(self.tokenizer, text, global_ids)
+            mode = "clone"
+        elif gender is not None:
             ids = build_control_prompt(self.tokenizer, text, gender, pitch, speed)
             mode = "control"
         elif prompt_speech_path is not None:
@@ -204,50 +349,233 @@ class SparkTTSPipeline:
             return np.zeros(0, dtype=np.float32), global_ids
         return self.detokenize(global_ids, semantic_ids[None, :]), global_ids
 
-    def tokenize_host_prep(self, audio) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-        """Host half of audio tokenization.  A path is loaded at 16 kHz (with
-        the config's loudness normalisation); an array is taken as it is.
-        Returns (wav (1, P) float32: the normalised wav zero-padded to whole
-        seconds; feature_mask (1, F) bool: its true wav2vec2 frames; ref_wav
-        (1, R) float32: the 6 s reference clip; the true semantic id count)."""
+    def inference_long(
+        self,
+        text: str,
+        prompt_speech_path: Optional[str | Path] = None,
+        prompt_text: Optional[str] = None,
+        gender: Optional[str] = None,
+        pitch: Optional[str] = None,
+        speed: Optional[str] = None,
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_new_tokens: Optional[int] = None,
+        seed: int = 0,
+        greedy: bool = False,
+        max_segment_chars: int = 400,
+        inter_segment_silence_s: float = 0.1,
+    ) -> np.ndarray:
+        """Longform synthesis: `text` packed at sentence boundaries into
+        segments of at most `max_segment_chars`, each synthesized in one
+        voice, joined with `inter_segment_silence_s` of silence between them.
+
+        The first segment sets the voice: the prompt wav's global ids
+        (cloning) or the LM-emitted ones (creation); every later segment is
+        a clone prompt of exactly those global ids, so the voice cannot
+        drift.  Segment i samples with seed `seed + i`."""
+        segments = pack_segments(text, max_segment_chars)
+        shared = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                      max_new_tokens=max_new_tokens, greedy=greedy)
+        if len(segments) <= 1:
+            return self.inference(text, prompt_speech_path=prompt_speech_path,
+                                  prompt_text=prompt_text, gender=gender, pitch=pitch,
+                                  speed=speed, seed=seed, **shared)
+        wavs = []
+        speaker_globals: Optional[np.ndarray] = None
+        for i, segment in enumerate(segments):
+            if speaker_globals is None:
+                wav, speaker_globals = self._synthesize_segment(
+                    segment, prompt_speech_path=prompt_speech_path, prompt_text=prompt_text,
+                    gender=gender, pitch=pitch, speed=speed, seed=seed + i, **shared,
+                )
+            else:
+                wav, _ = self._synthesize_segment(
+                    segment, speaker_globals=speaker_globals, seed=seed + i, **shared
+                )
+            if wav.size:
+                wavs.append(wav)
+        if not wavs:
+            return np.zeros(0, dtype=np.float32)
+        gap = np.zeros(int(self.sample_rate * max(inter_segment_silence_s, 0.0)), np.float32)
+        joined = [wavs[0]]
+        for wav in wavs[1:]:
+            joined += [gap, wav]
+        return np.concatenate(joined)
+
+    # ------------------------------------------------------------------
+    # audio tokenization
+    # ------------------------------------------------------------------
+
+    def _load_prompt_wav(self, audio) -> np.ndarray:
+        """A path is loaded at 16 kHz (with the config's loudness
+        normalisation); an array is taken as it is."""
         if isinstance(audio, (str, Path)):
-            wav = load_audio(
-                audio, sampling_rate=self.sample_rate, volume_normalize=self.config.volume_normalize
-            )
-        else:
-            wav = np.asarray(audio, dtype=np.float64)
+            return load_audio(audio, sampling_rate=self.sample_rate,
+                              volume_normalize=self.config.volume_normalize)
+        return np.asarray(audio, dtype=np.float64)
+
+    def _pad_wavs(self, wavs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+        """Wavs -> (wav (B, P) float32: each normalised and zero-padded to the
+        longest's whole wav bucket; feature_mask (B, F) bool: each row's
+        true wav2vec2 frames; the true semantic id count of each row)."""
         cfg = self.config
-        ref_wav = get_ref_clip(wav, self.sample_rate, cfg.ref_segment_duration,
-                               cfg.latent_hop_length)
-        true_len = len(wav)
-        pad_len = _round_up(max(true_len, self.wav_bucket), self.wav_bucket)
-        wav_in = np.zeros((1, pad_len), np.float32)
-        wav_in[0, :true_len] = (
-            normalize_input(wav[None, :])[0] if cfg.wav2vec2.do_normalize else wav
-        )
-        true_frames = feature_lengths(cfg.wav2vec2, true_len)
-        feature_mask = np.arange(feature_lengths(cfg.wav2vec2, pad_len))[None, :] < true_frames
-        ref = ref_wav.astype(np.float32)[None, :]
-        return wav_in, feature_mask, ref, true_frames // self._enc_ratio
+        lens = [len(w) for w in wavs]
+        pad_len = _round_up(max(max(lens), self.wav_bucket), self.wav_bucket)
+        wav_in = np.zeros((len(wavs), pad_len), np.float32)
+        for i, w in enumerate(wavs):
+            wav_in[i, : lens[i]] = (normalize_input(w[None, :])[0] if cfg.wav2vec2.do_normalize
+                                    else w)
+        frames = [feature_lengths(cfg.wav2vec2, n) for n in lens]
+        total = feature_lengths(cfg.wav2vec2, pad_len)
+        feature_mask = np.arange(total)[None, :] < np.asarray(frames)[:, None]
+        return wav_in, feature_mask, [f // self._enc_ratio for f in frames]
+
+    def _ref_clip(self, wav: np.ndarray) -> np.ndarray:
+        cfg = self.config
+        return get_ref_clip(wav, self.sample_rate, cfg.ref_segment_duration,
+                            cfg.latent_hop_length).astype(np.float32)
+
+    def tokenize_host_prep(self, audio) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """Host half of audio tokenization: (wav (1, P) float32: the
+        normalised wav zero-padded to whole wav buckets; feature_mask (1, F)
+        bool: its true wav2vec2 frames; ref_wav (1, R) float32: the 6 s
+        reference clip; the true semantic id count)."""
+        wav = self._load_prompt_wav(audio)
+        wav_in, feature_mask, (true_sem,) = self._pad_wavs([wav])
+        return wav_in, feature_mask, self._ref_clip(wav)[None, :], true_sem
+
+    _KEY_UNSET = object()
 
     @torch.inference_mode()
-    def tokenize_audio(self, audio) -> Tuple[np.ndarray, np.ndarray]:
-        """Audio path or float array -> (global ids (1, token_num), semantic
-        ids (1, T)), the semantic ids cropped to the wav's true frames."""
+    def tokenize_audio_device(self, audio, cache_key=_KEY_UNSET):
+        """Audio path or float array -> (global ids (1, N), semantic ids
+        (1, S_pad), true semantic count) with the ids left on the device: the
+        count follows from the wav's length, so a caller that assembles the
+        prompt on the device never reads the ids.  Through the voice cache;
+        `cache_key`: a key the caller already looked up and missed (the get
+        is skipped, the put is not)."""
+        if cache_key is SparkTTSPipeline._KEY_UNSET:
+            cache_key = self.voice_cache_key(audio)
+            hit = self.voice_cache_get(cache_key)
+            if hit is not None:
+                return hit
         *arrays, true_sem = self.tokenize_host_prep(audio)
         global_ids, semantic = codec_tokenize(
             self.w2v_params, self.bicodec_params, self.config,
             *(torch.from_numpy(a).to(self.device) for a in arrays),
         )
+        self.voice_cache_put(cache_key, (global_ids, semantic, true_sem))
+        return global_ids, semantic, true_sem
+
+    def tokenize_audio(self, audio) -> Tuple[np.ndarray, np.ndarray]:
+        """Audio path or float array -> (global ids (1, token_num), semantic
+        ids (1, T)), the semantic ids cropped to the wav's true frames."""
+        global_ids, semantic, true_sem = self.tokenize_audio_device(audio)
         return global_ids.cpu().numpy(), semantic[:, :true_sem].cpu().numpy()
 
+    @torch.inference_mode()
+    def tokenize_audio_batch_device(self, wavs) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+        """Float arrays -> (global ids (B, N), semantic ids (B, S_pad), the
+        true semantic count of each row), the ids on the device: one padded
+        batch through wav2vec2 (with its feature mask) and the BiCodec
+        encoder."""
+        wavs = [np.asarray(w, dtype=np.float64) for w in wavs]
+        wav_in, feature_mask, counts = self._pad_wavs(wavs)
+        refs = np.stack([self._ref_clip(w) for w in wavs])
+        global_ids, semantic = codec_tokenize(
+            self.w2v_params, self.bicodec_params, self.config,
+            *(torch.from_numpy(a).to(self.device) for a in (wav_in, feature_mask, refs)),
+        )
+        return global_ids, semantic, counts
+
+    def tokenize_audio_batch(self, wavs) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Float arrays -> [(global ids (1, N), semantic ids (1, T_i))], one
+        padded batch on the device."""
+        global_ids, semantic, counts = self.tokenize_audio_batch_device(wavs)
+        global_ids, semantic = global_ids.cpu().numpy(), semantic.cpu().numpy()
+        return [(global_ids[i : i + 1], semantic[i : i + 1, :n]) for i, n in enumerate(counts)]
+
+    # ------------------------------------------------------------------
+    # clone prompts assembled on the device
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def assemble_clone_ids_batch(self, scaffolds, global_ids, semantic, g_offs, s_offs,
+                                 n_sems) -> torch.Tensor:
+        """Each row's codec ids gathered into its scaffold on the device
+        (a masked gather: no host sync).  scaffolds (B, t_pad) int32 from
+        `clone_prompt_scaffold`, left- or right-padded; global_ids (B, N) and
+        semantic (B, S_pad) on the device; g_offs, s_offs, n_sems (B,): each
+        row's global and semantic offsets and how many semantic ids it takes
+        (0 = none).  Returns (B, t_pad) int32 ids, equal to
+        `build_clone_prompt` at those positions."""
+        dev = global_ids.device
+        scaffolds = torch.as_tensor(np.asarray(scaffolds, np.int32), device=dev)
+        g = global_ids.to(torch.int64)
+        s = semantic.to(torch.int64)
+        g_off, s_off, n_sem = (torch.as_tensor(np.asarray(a, np.int64), device=dev)[:, None]
+                               for a in (g_offs, s_offs, n_sems))
+        pos = torch.arange(scaffolds.shape[1], device=dev)[None, :]
+        n_g = g.shape[1]
+        from_g = torch.gather(g, 1, (pos - g_off).clamp(0, n_g - 1)) + self.tokenizer.global_base
+        from_s = torch.gather(s, 1, (pos - s_off).clamp(0, s.shape[1] - 1))
+        from_s = from_s + self.tokenizer.semantic_base
+        in_g = (pos >= g_off) & (pos < g_off + n_g)
+        in_s = (pos >= s_off) & (pos < s_off + n_sem)
+        return torch.where(in_g, from_g, torch.where(in_s, from_s, scaffolds)).to(torch.int32)
+
+    def assemble_clone_ids(self, scaffold, global_ids, semantic, g_off: int, s_off: int,
+                           n_sem: int) -> torch.Tensor:
+        """One row of `assemble_clone_ids_batch`: (1, t_pad) int32 ids."""
+        return self.assemble_clone_ids_batch(np.asarray(scaffold, np.int32)[None, :], global_ids,
+                                             semantic, [g_off], [s_off], [n_sem])
+
+    def clone_batch_inputs(
+        self,
+        texts: Sequence[str],
+        global_ids: torch.Tensor,
+        semantic: torch.Tensor,
+        sem_counts: Sequence[int],
+        prompt_texts: Optional[Sequence[Optional[str]]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Clone prompts of a batch assembled on the device from the
+        still-on-device output of `tokenize_audio_batch_device`: (input_ids
+        (B, t_pad) int64, mask (B, t_pad) bool), left-padded to the prompt
+        bucket as `generate_tokens_batch` pads.  Row i's semantic ids go in
+        only with a `prompt_texts[i]`, as `build_clone_prompt` does."""
+        prompt_texts = list(prompt_texts) if prompt_texts is not None else [None] * len(texts)
+        parts = []
+        for text, count, prompt_text in zip(texts, sem_counts, prompt_texts):
+            use_sem = count if prompt_text is not None else 0
+            parts.append((use_sem,) + clone_prompt_scaffold(
+                self.tokenizer, text, global_ids.shape[1], use_sem, prompt_text))
+        t_pad = _round_up(max(p[2] for p in parts), self.prompt_bucket)
+        b = len(parts)
+        rows = np.full((b, t_pad), self.tokenizer.pad_id, np.int32)
+        mask = np.zeros((b, t_pad), bool)
+        g_offs, s_offs, n_sems = (np.zeros(b, np.int64) for _ in range(3))
+        for r, (use_sem, scaffold, plen, g_off, s_off) in enumerate(parts):
+            shift = t_pad - plen
+            rows[r, shift:] = scaffold
+            mask[r, shift:] = True
+            g_offs[r], s_offs[r], n_sems[r] = g_off + shift, s_off + shift, use_sem
+        ids = self.assemble_clone_ids_batch(rows, global_ids, semantic, g_offs, s_offs, n_sems)
+        return ids.long(), torch.from_numpy(mask).to(self.device)
+
+    # ------------------------------------------------------------------
+    # LM
+    # ------------------------------------------------------------------
+
     def guided_constraint(self, mode: str = "control"):
-        """(vocab_slice, extra_ids) for guided decoding.  Voice creation
-        ("control") emits global and semantic tokens, their start/end
-        markers and EOS; voice cloning ("clone") emits semantic tokens and
-        EOS only."""
+        """(vocab_slice, extra_ids) for guided decoding, or (None, ()) with
+        `guided=False` (the full vocabulary).  Voice creation ("control")
+        emits global and semantic tokens, their start/end markers and EOS;
+        voice cloning ("clone") emits semantic tokens and EOS only."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if not self.guided:
+            return None, ()
         tok = self.tokenizer
         if mode == "control":
             lo = min(tok.semantic_base, tok.global_base)
@@ -266,6 +594,28 @@ class SparkTTSPipeline:
             extras = tuple(tok.eos_ids)
         return (lo, hi), tuple(e for e in extras if not lo <= e < hi)
 
+    def _generate(self, input_ids, mask, generator: Generators, max_new: int, temperature,
+                  top_k, top_p, greedy, mode) -> Tuple[torch.Tensor, torch.Tensor]:
+        vocab_slice, extra_ids = self.guided_constraint(mode)
+        return generate(
+            self.llm_params,
+            self.config.llm,
+            input_ids,
+            mask,
+            generator,
+            max_new_tokens=max_new,
+            cache_len=input_ids.shape[1] + max_new,
+            temperature=temperature,
+            top_k=top_k,
+            top_p=top_p,
+            eos_ids=tuple(self.tokenizer.eos_ids),
+            pad_id=self.tokenizer.pad_id,
+            greedy=greedy,
+            cache_dtype=self.lm_dtype,
+            vocab_slice=vocab_slice,
+            extra_ids=extra_ids,
+        )
+
     def generate_tokens(
         self,
         prompt_ids,
@@ -282,53 +632,134 @@ class SparkTTSPipeline:
         the card the decode replays a captured decode unit (`generate`,
         `lm/graphs.py`), which takes the state of this request's generator,
         seeded with `seed`."""
-        max_new = max_new_tokens or self.max_new_tokens
         input_ids, mask = self.prompt_inputs(prompt_ids)
-        t_pad = input_ids.shape[1]
-        vocab_slice, extra_ids = self.guided_constraint(mode)
-        tokens, lengths = generate(
-            self.llm_params,
-            self.config.llm,
-            input_ids,
-            mask,
-            torch.Generator(device=self.device).manual_seed(seed),
-            max_new_tokens=max_new,
-            cache_len=t_pad + max_new,
-            temperature=temperature,
-            top_k=top_k,
-            top_p=top_p,
-            eos_ids=tuple(self.tokenizer.eos_ids),
-            pad_id=self.tokenizer.pad_id,
-            greedy=greedy,
-            cache_dtype=self.lm_dtype,
-            vocab_slice=vocab_slice,
-            extra_ids=extra_ids,
-        )
+        tokens, lengths = self._generate(
+            input_ids, mask, torch.Generator(device=self.device).manual_seed(seed),
+            max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
         return tokens[0, : int(lengths[0])].cpu().numpy()
 
-    def prompt_inputs(self, prompt_ids) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One prompt -> (input_ids (1, T_pad) int64, mask (1, T_pad) bool) on
-        the device, left-padded with pad_id to a multiple of PROMPT_BUCKET."""
-        n = len(prompt_ids)
-        t_pad = _round_up(max(n, 1), PROMPT_BUCKET)
-        input_ids = np.full((1, t_pad), self.tokenizer.pad_id, np.int64)
-        input_ids[0, t_pad - n :] = prompt_ids
-        mask = np.zeros((1, t_pad), bool)
-        mask[0, t_pad - n :] = True
+    def batch_inputs(self, prompts: Sequence[Sequence[int]]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prompts -> (input_ids (B, T_pad) int64, mask (B, T_pad) bool) on
+        the device, each left-padded with pad_id to a multiple of the
+        prompt bucket that holds the longest."""
+        t_pad = _round_up(max(max(len(p) for p in prompts), 1), self.prompt_bucket)
+        input_ids = np.full((len(prompts), t_pad), self.tokenizer.pad_id, np.int64)
+        mask = np.zeros((len(prompts), t_pad), bool)
+        for i, p in enumerate(prompts):
+            input_ids[i, t_pad - len(p) :] = p
+            mask[i, t_pad - len(p) :] = True
         return torch.from_numpy(input_ids).to(self.device), torch.from_numpy(mask).to(self.device)
+
+    def prompt_inputs(self, prompt_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prompt -> (input_ids (1, T_pad) int64, mask (1, T_pad) bool)."""
+        return self.batch_inputs([prompt_ids])
+
+    def generate_tokens_batch(
+        self,
+        prompts,
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_new_tokens: Optional[int] = None,
+        seed=0,
+        greedy: bool = False,
+        mode: str = "clone",
+    ) -> List[np.ndarray]:
+        """Prompt id lists -> generated id arrays (new tokens up to and
+        including EOS), as one left-padded batch through one decode unit.
+        `seed`: an int (one generator for the batch) or one seed per row
+        (`seed_generators`: a row's ids then depend on its own prompt and
+        seed alone)."""
+        input_ids, mask = self.batch_inputs(prompts)
+        tokens, lengths = self._generate(
+            input_ids, mask, seed_generators(seed, len(prompts), self.device),
+            max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
+        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        return [tokens[i, : int(n)] for i, n in enumerate(lengths)]
+
+    # ------------------------------------------------------------------
+    # vocode
+    # ------------------------------------------------------------------
 
     @torch.inference_mode()
     def detokenize(self, global_tokens, semantic_tokens) -> np.ndarray:
         """(global (1, N), semantic (1, T)) -> waveform float32 (T * hop,)."""
-        semantic = np.asarray(semantic_tokens, np.int64)
-        t_true = semantic.shape[1]
-        t_pad = _round_up(max(t_true, 1), VOCODE_BUCKET)
-        # edge-replicate pad: no spectral discontinuity at the crop point
-        padded = np.pad(semantic, ((0, 0), (0, t_pad - t_true)), mode="edge")
-        wav = bicodec_detokenize(
-            self.bicodec_params,
-            self.config.bicodec,
-            torch.from_numpy(padded).to(self.device),
-            torch.from_numpy(np.asarray(global_tokens, np.int64).reshape(1, -1)).to(self.device),
-        )
-        return wav[0, : t_true * self._wave_upsample].float().cpu().numpy()
+        return self.detokenize_batch(np.asarray(global_tokens).reshape(1, -1),
+                                     [semantic_tokens])[0]
+
+    @torch.inference_mode()
+    def detokenize_batch(self, global_tokens, semantic_list) -> List[np.ndarray]:
+        """Global ids (B, N) and B semantic id arrays -> B waveforms: one
+        vocode of the batch, each row edge-replicated to the longest row's
+        vocode bucket (no spectral step at the crop point), then cropped to
+        its own length."""
+        semantic_list = [np.asarray(s, np.int64).reshape(-1) for s in semantic_list]
+        t_pad = _round_up(max(max(len(s) for s in semantic_list), 1), self.vocode_bucket)
+        padded = np.zeros((len(semantic_list), t_pad), np.int64)
+        for i, s in enumerate(semantic_list):
+            padded[i, : len(s)] = s
+            if 0 < len(s) < t_pad:
+                padded[i, len(s) :] = s[-1]
+        global_t = torch.as_tensor(np.asarray(global_tokens, np.int64), device=self.device)
+        wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec,
+                                 torch.from_numpy(padded).to(self.device),
+                                 global_t.reshape(len(semantic_list), -1))
+        wav = wav.float().cpu().numpy()
+        return [wav[i, : len(s) * self._wave_upsample] for i, s in enumerate(semantic_list)]
+
+    @torch.inference_mode()
+    def generate_and_vocode_batch(
+        self,
+        input_ids: torch.Tensor,
+        mask: torch.Tensor,
+        global_rows: torch.Tensor,
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_new_tokens: Optional[int] = None,
+        seed=0,
+        greedy: bool = False,
+    ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """Guided voice cloning of a batch with one host fetch: generate ->
+        semantic ids extracted on the device -> one vocode -> one copy of
+        ids, lengths and waveforms to the host.  input_ids / mask (B, t_pad)
+        left-padded (e.g. `clone_batch_inputs`), global_rows (B, token_num),
+        all on the device.  In guided clone mode every emission before EOS
+        is a semantic id, so extraction is offset arithmetic on the device
+        lengths.  Every row vocodes the vocode bucket of `max_new_tokens`;
+        with `vocode_bucket` set to that budget the result equals
+        `generate_tokens_batch` + `detokenize_batch` bit for bit.  Returns
+        (waveforms, generated ids)."""
+        if not self.guided:
+            raise ValueError("generate_and_vocode_batch needs guided decoding")
+        tok = self.tokenizer
+        max_new = max_new_tokens or self.max_new_tokens
+        b = input_ids.shape[0]
+        tokens, lengths = self._generate(
+            input_ids.to(self.device, torch.int64), mask.to(self.device),
+            seed_generators(seed, b, self.device), max_new, temperature, top_k, top_p, greedy,
+            "clone")
+        last = torch.gather(tokens, 1, (lengths - 1).clamp_min(0)[:, None])[:, 0]
+        is_eos = torch.zeros_like(lengths, dtype=torch.bool)
+        for e in tok.eos_ids:
+            is_eos |= last == e
+        sem_count = lengths - (is_eos & (lengths > 0)).long()
+        bucket = _round_up(max(max_new, 1), self.vocode_bucket)
+        idx = torch.minimum(torch.arange(bucket, device=self.device)[None, :],
+                            sem_count.clamp_min(1)[:, None] - 1)
+        sem = (torch.gather(tokens, 1, idx) - tok.semantic_base).clamp(0, tok.n_semantic - 1)
+        wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec, sem,
+                                 global_rows.to(self.device, torch.int64).reshape(b, -1))
+        flat = torch.cat([
+            tokens.int().reshape(-1),
+            lengths.int(),
+            sem_count.int(),
+            wav.float().contiguous().reshape(-1).view(torch.int32),
+        ]).cpu().numpy()  # the one host transfer
+        toks_h = flat[: b * max_new].reshape(b, max_new).astype(np.int64)
+        lens_h = flat[b * max_new : b * max_new + b]
+        counts_h = flat[b * max_new + b : b * max_new + 2 * b]
+        wav_h = flat[b * max_new + 2 * b :].view(np.float32).reshape(b, -1)
+        up = self._wave_upsample
+        wavs = [wav_h[i, : counts_h[i] * up] for i in range(b)]
+        return wavs, [toks_h[i, : lens_h[i]] for i in range(b)]

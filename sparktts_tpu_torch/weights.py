@@ -4,8 +4,9 @@ The port's params are nested dicts (and lists) of tensors with the same keys,
 shapes and layouts as the JAX package's `init_qwen` (`lm/qwen.py:84`),
 `init_bicodec` (`codec/bicodec.py:36`, the whole tree, encode side included)
 and `init_wav2vec2` (`nn/wav2vec2.py:38`).  `qwen_state` / `bicodec_state` /
-`wav2vec2_state` turn a numpy tree of those keys (for instance a JAX init
-passed through `np.asarray`) into port state; `init_qwen` / `init_bicodec` /
+`wav2vec2_state` turn a tree of those keys, of numpy arrays (for instance a
+JAX init passed through `np.asarray`) or of CPU tensors (a converted
+checkpoint, `checkpoint.py`), into port state on a device; `init_qwen` / `init_bicodec` /
 `init_wav2vec2` build random weights of the same keys and shapes directly in
 torch, from an explicit `torch.Generator`, with the JAX init's
 distributions.  Weight-only quantized trees (`lm/quant.py`,
@@ -37,9 +38,9 @@ SCALE_KEYS = ("scale", "gscale")
 
 
 def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
-    """numpy-like tree -> same tree of tensors on `device`; float leaves cast
-    to `dtype` (default: float32), except quantization scales (fp32);
-    integer leaves (int8 quantized weights, ids) keep their dtype."""
+    """numpy-like or tensor tree -> same tree of tensors on `device`; float
+    leaves cast to `dtype` (default: float32), except quantization scales
+    (fp32); integer leaves (int8 quantized weights, ids) keep their dtype."""
     if isinstance(tree, dict):
         return {
             k: to_torch(v, device, torch.float32 if k in SCALE_KEYS and not _is_tree(v) else dtype)
@@ -47,6 +48,10 @@ def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
         }
     if _is_tree(tree):
         return [to_torch(v, device, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point():
+            return tree.to(device=device, dtype=dtype or torch.float32)
+        return tree.to(device)
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(arr, dtype=np.float32))

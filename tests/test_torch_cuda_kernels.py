@@ -627,12 +627,12 @@ UNIT_LAYERS = 2  # the full Qwen2.5-0.5B widths, two layers
 GUIDED = dict(vocab_slice=(151665, 151665 + 8192), extra_ids=(151645, 151650))
 
 
-def _unit_lm(dev, lm):
+def _unit_lm(dev, lm, tied=True):
     from sparktts_tpu_torch.config import QwenConfig
     from sparktts_tpu_torch.lm.quant import quantize_qwen_int4, quantize_qwen_int8
     from sparktts_tpu_torch.weights import init_qwen
 
-    cfg = QwenConfig(num_hidden_layers=UNIT_LAYERS)
+    cfg = QwenConfig(num_hidden_layers=UNIT_LAYERS, tie_word_embeddings=tied)
     params = init_qwen(cfg, torch.Generator(device=dev).manual_seed(3), torch.bfloat16, dev)
     if lm == "int8":
         params = quantize_qwen_int8(params)
@@ -649,14 +649,23 @@ def _unit_prompt(dev, t_pad=64, n=41):
     return ids.to(dev), mask.to(dev)
 
 
+def _generators(dev, seed):
+    """One generator for an int seed, one per row for a list of seeds."""
+    if isinstance(seed, int):
+        return torch.Generator(device=dev).manual_seed(seed)
+    return [torch.Generator(device=dev).manual_seed(s) for s in seed]
+
+
 def _eager_generate(cfg, params, ids, mask, seed, greedy, max_new):
-    """`generate`'s semantics as `decode_step` in a Python loop."""
+    """`generate`'s semantics as `decode_step` in a Python loop (`seed`: an
+    int, or a list of per-row seeds)."""
     from sparktts_tpu_torch.lm import generate as tgen
     from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
 
     dev, t_pad = ids.device, ids.shape[1]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cache = init_kv_cache(cfg, 1, aligned_cache_len(t_pad + max_new), torch.bfloat16, dev)
+    gen = _generators(dev, seed)
+    cache = init_kv_cache(cfg, ids.shape[0], aligned_cache_len(t_pad + max_new), torch.bfloat16,
+                          dev)
     temperature, top_p = (torch.full((), v, device=dev) for v in (0.8, 0.95))
     state = tgen.prefill(params, cfg, ids, mask, cache, gen, 0.8, 50, 0.95, greedy, **GUIDED)
     toks = []
@@ -696,6 +705,58 @@ def test_generate_replays_equal_the_eager_loop(lm):
             assert counts["dense_decode_attention"] == UNIT_LAYERS * steps
             assert counts["int8_mlp_matvec"] == (UNIT_LAYERS * steps if lm == "int8" else 0)
             assert counts["int4_matvec"] == (4 * UNIT_LAYERS * steps if lm == "int4" else 0)
+
+
+@pytest.mark.cuda
+def test_per_row_generators_replay_equal_the_eager_loop():
+    """A decode unit of B = 4 rows with one generator per row (each
+    registered with its graph): sampled ids with per-row seeds [7, 9, 7, 5]
+    equal the eager loop's with four such generators; rows 0 and 2 (one
+    prompt, one seed) are equal; the rows swapped with their seeds give each
+    row's ids again."""
+    from sparktts_tpu_torch.lm import generate as tgen
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, "bf16")
+    lengths, seeds, max_new = (41, 20, 41, 60), [7, 9, 7, 5], 37
+    ids = torch.full((4, 64), 151643, dtype=torch.long)
+    mask = torch.zeros((4, 64), dtype=torch.bool)
+    for i, n in enumerate(lengths):
+        ids[i, 64 - n:] = torch.arange(1000 + 100 * (i % 2) + 50 * (i == 3),
+                                       1000 + 100 * (i % 2) + 50 * (i == 3) + n)
+        mask[i, 64 - n:] = True
+    ids, mask = ids.to(dev), mask.to(dev)
+    with torch.inference_mode():
+        want = _eager_generate(cfg, params, ids, mask, seeds, False, max_new)
+        got = tgen.generate(params, cfg, ids, mask, _generators(dev, seeds), max_new,
+                            64 + max_new, **GUIDED)[0]
+        perm = [1, 0, 3, 2]
+        swapped = tgen.generate(params, cfg, ids[perm], mask[perm],
+                                _generators(dev, [seeds[i] for i in perm]), max_new,
+                                64 + max_new, **GUIDED)[0]
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], got[2]) and not torch.equal(got[0], got[1])
+    assert torch.equal(swapped, got[perm])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+def test_untied_int4_head_replays_equal_the_eager_loop(greedy):
+    """An untied LM whose int4 head (`w_p4`/`gscale`, its guided columns
+    dequantized in the step) runs inside the captured unit: ids equal the
+    eager loop's."""
+    from sparktts_tpu_torch.lm import generate as tgen
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, "int4", tied=False)
+    assert set(params["lm_head"]) == {"w_p4", "gscale"}
+    ids, mask = _unit_prompt(dev)
+    max_new = 29
+    with torch.inference_mode():
+        want = _eager_generate(cfg, params, ids, mask, 4, greedy, max_new)
+        got = tgen.generate(params, cfg, ids, mask, _generators(dev, 4), max_new, 64 + max_new,
+                            greedy=greedy, **GUIDED)[0]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

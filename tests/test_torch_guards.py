@@ -1,7 +1,8 @@
-"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points do not fall back to the CPU, its kernel wrappers launch on
-their tensors' card, and its random init has the JAX init's tree at the full
-Spark-TTS-0.5B widths."""
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package
+(nor `transformers` or `safetensors`: it reads checkpoints and tokenizers
+with its own reader and the `tokenizers` package), its entry points do not
+fall back to the CPU, its kernel wrappers launch on their tensors' card, and
+its random init has the JAX init's tree at the full Spark-TTS-0.5B widths."""
 
 import ast
 import json
@@ -36,7 +37,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "sparktts_tpu" or m.startswith("sparktts_tpu."))
+             or m == "sparktts_tpu" or m.startswith("sparktts_tpu.")
+             or m.split(".")[0] in ("transformers", "safetensors"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -53,7 +55,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "lm.paged", "serve.streaming",
                  "lm.quant", "codec.quant", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
                  "nn.perceiver", "codec.feat_encoder", "codec.fsq", "codec.fvq",
-                 "codec.speaker_encoder", "codec.bicodec"):
+                 "codec.speaker_encoder", "codec.bicodec", "checkpoint", "utils.textseg",
+                 "config", "prompt"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
