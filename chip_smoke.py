@@ -134,16 +134,42 @@ and capture are set-up, counted apart).
    segments, the clone prompts of segments 2 and 3 carrying exactly
    segment 1's 32 global ids, the length the segments' plus two gaps; RTF;
 23. the voice cache (size 2): one clone request twice from one wav, one
-   miss then one hit, the hit running no tokenize and giving the same ids.
+   miss then one hit, the hit running no tokenize and giving the same ids;
+24. the continuous-batching server (`ContinuousTTSServer`, dense, cache
+   960, 8 slots, bf16, sampled, 500 tokens), after its warm-up passes
+   (batched admissions, speculative chains, stream windows, a
+   representative burst, the vocode batches it saw): eight requests through
+   `synthesize`/`synthesize_streaming` in two waves (three creations, a
+   clone of the 6 s prompt with its transcript, a streamed creation; then
+   that clone again, which hits the voice cache, a clone of a 4 s prompt,
+   which takes the fused admission, a streamed clone), counts 0 just before
+   and read after: 8 completed, no failure, finite waveforms of 320 samples
+   a semantic id, every stream window within WINDOW_REL_TOL of the
+   full-prefix vocode at its end and every speculative first chunk of the
+   plain vocode path at its chain's batch, fused and voice-cache admissions,
+   no decode unit captured in the burst, the TF32 flags as the caller set
+   them; aggregate tokens/s beside phase 13's bare engine, first-chunk ms,
+   stages; the same burst traced for the device's idle share;
+25. the same on the paged server (the half pool): deferrals, every page
+   back; kernels 2, 6 and 3 at the servers' state and batched windows;
+26. greedy servers, dense and paged at dispatch depth 1 and 2, and a dense
+   one on the int8 LM (kernel 4): every request's ids the bare dense
+   engine's greedy ids of its prompt, or first apart at a near tie (phase
+   14's rule);
+27. a decode unit captured by a background thread while the vocode worker
+   renders: the live dispatches' unit lookups wait less than the capture,
+   and the ids equal a run without it.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
-17 and 19 to 23, its times those of the voice-creation shapes, for the int8
+17, 19 to 23 and the server bursts of 24 to 27, its times those of the
+voice-creation shapes, for the int8
 MLP one call at one row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
 flash, decode, vocoder and paged entries list every timed shape in
 `by_shape`: both requests' and the B = 4 batch's and, for decode, the dense
-engine's state, for paged the engine's and the late state); the last line
+engine's state, for paged the engine's and the late state, and the
+servers' shapes); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
 result.
@@ -878,11 +904,11 @@ def check_tokenize_on_cpu(pipe, wav_path: Path):
     from sparktts_tpu_torch.pipeline import codec_tokenize
 
     glob, sem = pipe.tokenize_audio(wav_path)
-    *arrays, true_sem = pipe.tokenize_host_prep(wav_path)
+    _, (_, _, *arrays), true_sem, _ = pipe.tokenize_host_prep(wav_path)
     t0 = time.perf_counter()
     with torch.inference_mode():
         glob_cpu, sem_cpu = codec_tokenize(_cpu(pipe.w2v_params), _cpu(pipe.bicodec_params),
-                                           pipe.config, *(torch.from_numpy(a) for a in arrays))
+                                           pipe.config, *(a.cpu() for a in arrays))
     cpu_s = time.perf_counter() - t0
     glob_cpu, sem_cpu = glob_cpu.numpy(), sem_cpu[:, :true_sem].numpy()
     agree = {"global": float(np.mean(glob == glob_cpu)), "semantic": float(np.mean(sem == sem_cpu))}
@@ -1586,7 +1612,8 @@ def run_engines(pipe, wav_path: Path):
     engine's forward card vs CPU; the paged kernel vs plain; the decode
     kernel at the dense engine's state.  Returns (the paged kernel's
     kernels-line entry, the decode kernel's `by_shape` item at the dense
-    engine's state, the launches of the two runs)."""
+    engine's state, the launches of the two runs, the dense engine's
+    tokens/s)."""
     from sparktts_tpu_torch.lm.continuous import dense_step_logits
     from sparktts_tpu_torch.lm.paged import paged_step_logits
 
@@ -1622,7 +1649,8 @@ def run_engines(pipe, wav_path: Path):
     check_engine_forward("dense engine", dense, run_d["snapshot"], dense_step_logits)
     entry = check_paged(pipe.device, cfg, run_p["snapshot"])
     dense_state = check_dense_engine_decode(pipe.device, cfg, run_d["snapshot"])
-    return entry, dense_state, (run_p["launches"], run_d["launches"])
+    return (entry, dense_state, (run_p["launches"], run_d["launches"]),
+            run_d["summary"]["tokens_per_s"])
 
 
 def eager_generate(pipe, prompt, mode: str, seed: int, greedy: bool,
@@ -2638,6 +2666,614 @@ def run_voice_cache(pipe, wav_path: Path):
     return summary, launches
 
 
+# The server phases (`sparktts_tpu_torch/serve/continuous_server.py`): eight
+# requests in two waves; the second prompt wav is shorter (another wav
+# bucket), so its clone takes the fused admission while the first wav's
+# second clone hits the voice cache.
+SERVER_SLOTS = 8
+SECOND_PROMPT_SECONDS = 4.0
+# A streamed chunk against the plain vocode path's samples (a window against
+# the full-prefix vocode at its render end, a speculative first chunk against
+# `detokenize_batch` of its chain's rows), relative to the peak: the same math,
+# but cuDNN and cuBLAS choose their algorithms (and so their sums' order) by
+# shape and by the workspace they find free, so on the card the two are not
+# bit-equal as they are on the CPU: on an H100 a window and its full prefix
+# differ by up to 6.3e-6 of the peak, batch 2 and batch 1 of one row by 2.4e-6,
+# a speculative chunk and the same call after the burst by 5.1e-7 (absolute).
+# An off-by-one window, a short left context or wrong speaker ids miss by O(1).
+WINDOW_REL_TOL = 1e-4
+
+
+def _server_wavs(pipe, wav_path: Path):
+    """(first prompt wav, second) as float arrays: phase 4's prompt, and a
+    shorter one made from the same seed."""
+    second = make_prompt_wav(OUT_DIR / "clone_prompt_2.wav", seconds=SECOND_PROMPT_SECONDS)
+    return pipe._load_prompt_wav(wav_path), pipe._load_prompt_wav(second)
+
+
+def make_server(pipe, **kw):
+    """A ContinuousTTSServer as the server phases build it: 8 slots, the
+    500-token budget, cold admission signatures warmed inline."""
+    from sparktts_tpu_torch.serve.continuous_server import ContinuousTTSServer
+
+    return ContinuousTTSServer(pipe, max_slots=SERVER_SLOTS, default_max_new_tokens=MAX_NEW_TOKENS,
+                               fused_warm="sync", **kw)
+
+
+def server_requests(wav_a, wav_b):
+    """The eight requests of a server burst: (label, synthesize kwargs,
+    streamed, wave).  Texts are unique (the ids are recorded by text)."""
+    c = ENGINE_CREATIONS
+    voice = lambda i: dict(zip(("gender", "pitch", "speed"), c[i][1]))  # noqa: E731
+    return [
+        ("creation 0", dict(text=c[0][0], **voice(0)), False, 1),
+        ("creation 1", dict(text=c[1][0], **voice(1)), False, 1),
+        ("creation 2", dict(text=c[2][0], **voice(2)), False, 1),
+        ("clone A, transcript", dict(text="One clone of the first voice, here.",
+                                     prompt_wav=wav_a, prompt_text=PROMPT_TEXT), False, 1),
+        ("stream creation", dict(text=c[3][0], **voice(3)), True, 1),
+        ("clone A again, transcript", dict(text=ENGINE_CLONE_TEXTS[1], prompt_wav=wav_a,
+                                           prompt_text=PROMPT_TEXT), False, 2),
+        ("clone B", dict(text="The second voice has its own prompt.", prompt_wav=wav_b), False, 2),
+        ("stream clone A", dict(text="A streamed clone of the first voice.", prompt_wav=wav_a),
+         True, 2),
+    ]
+
+
+def _server_prompts(pipe, requests):
+    """Each request's prompt ids and mode, built on the host as the bare
+    engine takes them."""
+    from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+    tok, out = pipe.tokenizer, {}
+    for label, kw, _, _ in requests:
+        if "gender" in kw:
+            out[label] = (build_control_prompt(tok, kw["text"], kw["gender"], kw["pitch"],
+                                               kw["speed"]), "control")
+        else:
+            g, s = pipe.tokenize_audio(kw["prompt_wav"])
+            pt = kw.get("prompt_text")
+            out[label] = (build_clone_prompt(tok, kw["text"], g, s if pt else None, pt), "clone")
+    return out
+
+
+def server_burst(label, server, requests, trace_path=None, before_sync=None):
+    """The server phases' main path: start the server (its decode units are
+    captured there), then serve `requests` through `synthesize` and
+    `synthesize_streaming`: wave 1 at once, wave 2 once wave 1's clone is
+    admitted; every launch count 0 just before wave 1 and read after the
+    last request.  Records each request's ids, the dispatch with the most
+    live slots (its state), the batched vocode shapes and every speculative
+    chunk with the chain that rendered it.  Returns the run's record."""
+    import asyncio
+
+    import numpy as np
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.utils.profiling import device_busy_ms, device_trace
+
+    pipe, eng = server.pipe, server.engine
+    rec = dict(ids={}, pendings={}, windows={}, snapshot=None, live=0, groups={}, chains={},
+               specs=[])
+    finish, step_begin = server._finish, eng.step_begin
+    group, apply_specs = server._vocode_group, server._apply_specs
+    chain_multi = pipe.spec_vocode_chain_multi
+
+    def spy_finish(req_id, tokens):
+        pending = server.inflight[req_id]
+        rec["ids"][pending.text] = np.asarray(tokens)
+        rec["pendings"][pending.text] = pending
+        return finish(req_id, tokens)
+
+    def spy_step_begin(n_steps, chain_fn=None):
+        live = sum(o is not None for o in eng.owner)
+        handle = step_begin(n_steps, chain_fn)
+        if handle is not None and live > rec["live"]:
+            rec["live"], rec["snapshot"] = live, _clone_state(eng.slots)
+        return handle
+
+    def spy_group(take, b, out):
+        key = (b, -(-max(w[2].size for w in take) // pipe.vocode_bucket) * pipe.vocode_bucket)
+        rec["groups"][key] = rec["groups"].get(key, 0) + 1
+        return group(take, b, out)
+
+    def spy_chain(specs, batch):
+        chain = chain_multi(specs, batch)
+        rec["chains"][id(chain)] = (list(specs), batch)
+        return chain
+
+    def spy_apply(spec, chained, increments):
+        consumed = apply_specs(spec, chained, increments)
+        specs, batch = rec["chains"][id(spec[1])]
+        up, off, rows = pipe._wave_upsample, 0, []
+        for req_id, slot, target, sem_off, control in spec[0]:
+            new = increments.get(req_id)
+            rows.append(dict(consumed=req_id in consumed, target=target, sem_off=sem_off,
+                             ids=None if new is None else np.asarray(new),
+                             chunk=chained[off : off + target * up].view(np.float32).copy()))
+            off += target * up
+        if consumed:
+            rec["specs"].append(dict(specs=specs, batch=batch, rows=rows))
+        return consumed
+
+    plan = server._plan_stream_chunks
+
+    def spy_plan(pending, new_tokens, final):
+        windows = plan(pending, new_tokens, final)
+        rec["windows"].setdefault(pending.text, []).extend(windows)
+        return windows
+
+    server._plan_stream_chunks = spy_plan
+    server._finish, eng.step_begin = spy_finish, spy_step_begin
+    server._vocode_group, server._apply_specs = spy_group, spy_apply
+    pipe.spec_vocode_chain_multi = spy_chain
+    results = {}
+
+    async def one(lbl, kw, streamed):
+        t0 = time.perf_counter()
+        if not streamed:
+            results[lbl] = dict(wav=await server.synthesize(**kw),
+                                wall_s=time.perf_counter() - t0)
+            return
+        chunks, first = [], None
+        async for c in server.synthesize_streaming(**kw):
+            if first is None:
+                first = (time.perf_counter() - t0) * 1e3
+            chunks.append(c)
+        results[lbl] = dict(chunks=chunks, wav=np.concatenate(chunks) if chunks else
+                            np.zeros(0, np.float32), first_chunk_ms=first,
+                            wall_s=time.perf_counter() - t0)
+
+    async def go():
+        await server.start()
+        _sync(pipe.device)
+        units = len(graphs.units())
+        _reset_counts()
+        t0 = time.perf_counter()
+        tasks = [asyncio.create_task(one(lbl, kw, st)) for lbl, kw, st, w in requests if w == 1]
+        while not pipe._voice_cache and all(not t.done() for t in tasks):
+            await asyncio.sleep(0.002)
+        tasks += [asyncio.create_task(one(lbl, kw, st)) for lbl, kw, st, w in requests
+                  if w == 2]
+        await asyncio.gather(*tasks)
+        if before_sync is not None:
+            # a device-wide synchronize during another thread's capture would
+            # invalidate that capture: wait for it off the loop first
+            await asyncio.get_running_loop().run_in_executor(None, before_sync)
+        _sync(pipe.device)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        new_units = len(graphs.units()) - units
+        await server.stop()
+        return wall, launches, new_units
+
+    try:
+        with device_trace(trace_path) if trace_path else contextlib.nullcontext():
+            wall, launches, new_units = asyncio.new_event_loop().run_until_complete(go())
+    finally:
+        server._finish, eng.step_begin = finish, step_begin
+        server._vocode_group, server._apply_specs = group, apply_specs
+        server._plan_stream_chunks = plan
+        pipe.spec_vocode_chain_multi = chain_multi
+    rec.update(results=results, wall_s=wall, launches=launches, new_units=new_units,
+               stats=dict(server.stats), stages=server.stage_stats.summary())
+    if trace_path:
+        rec["device_busy_ms"] = device_busy_ms(trace_path)
+        rec["idle_share"] = 1.0 - rec["device_busy_ms"] / (wall * 1e3)
+        Path(trace_path).unlink()
+    n_ids = sum(len(v) for v in rec["ids"].values())
+    rec["tokens"], rec["tokens_per_s"] = n_ids, n_ids / wall
+    return rec
+
+
+def check_server_burst(label, pipe, run, requests, kernel):
+    """Phase (a)/(b) gates: every request completes with no failure; each
+    waveform finite at 320 samples a semantic id (a stream's chunks joined
+    as long as the offline vocode of its ids); every window of a stream
+    within WINDOW_REL_TOL of the full-prefix vocode at its render end, and
+    every validated speculative chunk within it of the plain vocode path at
+    its chain's batch (`detokenize_batch` of the same rows padded the same
+    way), whether bit-equal printed; no decode unit captured in the burst;
+    the engine's attention kernel launched n_layers times a decode step, no
+    other attention kernel, the vocoder kernel launched.  Prints the run's
+    numbers."""
+    import numpy as np
+
+    from sparktts_tpu_torch.prompt import extract_semantic_ids
+    from sparktts_tpu_torch.serve.continuous_server import ContinuousTTSServer
+
+    tok, up = pipe.tokenizer, pipe._wave_upsample
+    n_layers = pipe.config.llm.num_hidden_layers
+    st = run["stats"]
+    print(f"{label}: {run['tokens']} ids in {run['wall_s']:.3f} s, {run['tokens_per_s']:.1f} "
+          f"tokens/s; stats {json.dumps(st)}")
+    print(f"{label} stages: {json.dumps(run['stages'])}")
+    print(f"launch counters over the {label}:", json.dumps(run["launches"]))
+    if st["completed"] != len(requests) or st.get("failures", 0):
+        raise AssertionError(f"{label}: {st['completed']} of {len(requests)} completed, "
+                             f"{st.get('failures', 0)} failures")
+    if run["new_units"]:
+        raise AssertionError(f"{label}: {run['new_units']} decode units captured in the burst")
+    window_gap, bit_equal = 0.0, True
+    for lbl, kw, streamed, _ in requests:
+        res, ids = run["results"][lbl], run["ids"].get(kw["text"])
+        if ids is None:
+            raise AssertionError(f"{label}: no ids recorded for {lbl}")
+        sem = extract_semantic_ids(tok, ids)
+        wav = res["wav"]
+        if not (np.isfinite(wav).all() and len(wav) == sem.size * up):
+            raise AssertionError(f"{label}: {lbl} gave {len(wav)} samples for {sem.size} "
+                                 f"semantic ids (want x{up}, finite)")
+        line = f"{label}: {lbl}: {len(ids)} ids, {len(wav)} samples, wall {res['wall_s']:.3f} s"
+        if streamed:
+            # the speaker ids the stream was vocoded with: its prompt's, or
+            # those it had emitted when its first window was planned
+            glob = ContinuousTTSServer._host_globals(run["pendings"][kw["text"]].global_tokens)
+            end, gaps = 0, []
+            # a window renders [start, render) and emits [emitted, upto): the
+            # full prefix to compare with ends at its render (a split piece
+            # renders look-ahead past its cut); a speculative first chunk is
+            # no planned window and renders what it emits
+            render_of = {(w[1], w[2]): w[3] for w in run["windows"].get(kw["text"], [])}
+            for chunk in res["chunks"]:
+                start, end = end, end + len(chunk)
+                render = render_of.get((start // up, end // up), end // up)
+                full = pipe.detokenize(glob, sem[None, :render])
+                gaps.append(float(np.abs(full[start:end] - chunk).max())
+                            / float(np.abs(full).max()))
+                bit_equal &= bool(np.array_equal(full[start:end], chunk))
+            window_gap = max([window_gap] + gaps)
+            line += (f", first chunk {res['first_chunk_ms']:.1f} ms, {len(res['chunks'])} chunks "
+                     f"of {[len(c) // up for c in res['chunks']]} tokens (windows "
+                     f"{run['windows'].get(kw['text'], [])}), each within "
+                     f"{[f'{g:.2e}' for g in gaps]} of the full prefix's peak")
+        print(line)
+    print(f"{label}: stream windows vs the full-prefix vocode: largest gap {window_gap:.3e} of "
+          f"the peak (tol {WINDOW_REL_TOL}), bit-equal: {bit_equal}")
+    if not window_gap <= WINDOW_REL_TOL:
+        raise AssertionError(f"{label}: a stream window differs from the full-prefix vocode")
+    n_spec, spec_gap, spec_equal = 0, 0.0, True
+    for sp in run["specs"]:
+        n_spec += sum(r["consumed"] for r in sp["rows"])
+        for k, row in enumerate(sp["rows"]):
+            if row["consumed"]:
+                plain = _plain_spec_row(pipe, sp, k)
+                spec_gap = max(spec_gap, float(np.abs(plain - row["chunk"]).max())
+                               / float(np.abs(plain).max()))
+                spec_equal &= bool(np.array_equal(plain, row["chunk"]))
+    if not spec_gap <= WINDOW_REL_TOL:
+        raise AssertionError(f"{label}: a speculative first chunk differs from the plain vocode "
+                             f"path by {spec_gap:.3e} of its peak")
+    print(f"{label}: {n_spec} speculative first chunks against the plain vocode path at "
+          f"their chain's batch: largest gap {spec_gap:.3e} of the peak (tol {WINDOW_REL_TOL}), "
+          f"bit-equal: {spec_equal}; batched vocode shapes (batch, t_pad): "
+          f"{ {str(k): v for k, v in run['groups'].items()} }")
+    launches = run["launches"]
+    steps = launches[kernel] / n_layers
+    other = ("dense_decode_attention" if kernel == "paged_decode_attention"
+             else "paged_decode_attention")
+    if not (steps > 0 and steps == int(steps) and launches[other] == 0):
+        raise AssertionError(f"{label}: {launches[kernel]} {kernel} launches (want n_layers a "
+                             f"step), {launches[other]} {other}")
+    if launches["fused_residual_unit"] == 0:
+        raise AssertionError(f"{label}: the vocoder kernel never launched")
+
+
+def _plain_spec_row(pipe, sp, k):
+    """Row k of a speculative chain recomputed by the plain vocode path:
+    `detokenize_batch` of the chain's rows (padded to its batch by
+    repeating row 0) taken from the fetched ids as the chain takes them from
+    the packed result; a row whose ids did not all come back (its request
+    ended inside the window) is replaced by row k (rows of one batched call
+    do not mix)."""
+    import numpy as np
+
+    from sparktts_tpu_torch.serve.continuous_server import ContinuousTTSServer
+
+    tok, tn = pipe.tokenizer, pipe.config.bicodec.speaker_encoder.token_num
+    rows = list(zip(sp["specs"], sp["rows"]))
+    rows += [rows[0]] * (sp["batch"] - len(rows))
+    globs, sems = [], []
+    for (slot, target, sem_off, g), row in rows:
+        ids = row["ids"]
+        if ids is None or len(ids) < sem_off + target:
+            (slot, target, sem_off, g), row = rows[k]
+            ids = row["ids"]
+        sems.append(np.clip(ids[sem_off : sem_off + target] - tok.semantic_base, 0,
+                            tok.n_semantic - 1))
+        if g is None:  # a controllable row: the speaker ids it emitted
+            g = np.clip(ids[1 : 1 + tn] - tok.global_base, 0, tok.n_global - 1)
+        globs.append(ContinuousTTSServer._host_globals(g))
+    return pipe.detokenize_batch(np.concatenate(globs), sems)[k]
+
+
+def _near_tie_ok(pipe, params, prompt, mode, got, want):
+    """Phase 14's argmax rule for a greedy stream against a reference: equal,
+    or the first difference at a step where the reference's top two guided
+    logits (prompt + the common prefix through the dense path, on the card)
+    lie closer than LOGITS_REL_TOL of the largest logit.  Returns (ok, the
+    first differing step or None)."""
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.lm.qwen import init_kv_cache, qwen_forward
+
+    n = min(len(got), len(want))
+    diff = np.flatnonzero(got[:n] != want[:n])
+    if not diff.size and len(got) == len(want):
+        return True, None
+    step = int(diff[0]) if diff.size else n
+    ids = torch.tensor([list(prompt) + [int(t) for t in want[:step]]], device=pipe.device)
+    vocab_slice, extra_ids = pipe.guided_constraint(mode)
+    t = ids.shape[1]
+    with torch.inference_mode():
+        idx = torch.arange(t, device=pipe.device)
+        bias = torch.where(idx[None, :] <= idx[:, None], 0.0, -1e9).float()[None]
+        cache = init_kv_cache(pipe.config.llm, 1, t, pipe.lm_dtype, pipe.device)
+        logits, _ = qwen_forward(params, pipe.config.llm, ids, idx[None], cache, 0, bias,
+                                 vocab_slice=vocab_slice, extra_ids=extra_ids,
+                                 logits_last_only=True)
+    top = logits[0, -1].float().topk(2).values
+    gap, scale = float(top[0] - top[1]), float(logits[0, -1].abs().max())
+    return gap <= LOGITS_REL_TOL * scale, step
+
+
+def check_greedy_servers(pipe, requests, int8_params):
+    """Phase (c): greedy servers, dense and paged, at dispatch depth 1 and 2,
+    and a dense server on the int8 LM (kernel 4 on its path): every
+    request's ids those of the bare engine of the server's kind (on the same
+    LM) run greedily on its prompt, under phase 14's argmax rule.  Returns
+    the runs' launches."""
+    from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
+    from sparktts_tpu_torch.lm.paged import PagedContinuousEngine
+
+    prompts = _server_prompts(pipe, requests)
+    text_of = {lbl: kw["text"] for lbl, kw, _, _ in requests}
+    bf16 = pipe.llm_params
+    out = []
+
+    def bare(params, paged):
+        """The engine of the server's kind alone (a paged one with a pool for
+        every request at once), all the prompts submitted together."""
+        kw = _engine_kwargs(pipe, True)
+        if paged:
+            pps = -(-4 * kw["prompt_pad"] // PAGE_SIZE) + -(-MAX_NEW_TOKENS // PAGE_SIZE) + 1
+            eng = PagedContinuousEngine(params, pipe.config.llm, max_slots=SERVER_SLOTS,
+                                        n_pages=SERVER_SLOTS * pps + 1, page_size=PAGE_SIZE,
+                                        pages_per_slot=pps, **kw)
+        else:
+            eng = ContinuousBatchingEngine(params, pipe.config.llm, max_slots=SERVER_SLOTS,
+                                           cache_len=DENSE_CACHE_LEN, **kw)
+        reqs = {lbl: eng.submit(p, MAX_NEW_TOKENS, mode=m) for lbl, (p, m) in prompts.items()}
+        eng.run_until_done(64)
+        return {lbl: eng.finished[r] for lbl, r in reqs.items()}
+
+    for name, params, kw in (
+            ("dense, depth 1", bf16, dict(dispatch_depth=1)),
+            ("dense, depth 2", bf16, dict(dispatch_depth=2)),
+            ("paged, depth 1", bf16, dict(dispatch_depth=1, paged=True)),
+            ("paged, depth 2", bf16, dict(dispatch_depth=2, paged=True)),
+            ("dense, int8 LM", int8_params, dict(dispatch_depth=2))):
+        pipe.llm_params = params
+        try:
+            want = bare(params, kw.get("paged", False))
+            if "paged" not in kw:
+                kw["cache_len"] = DENSE_CACHE_LEN
+            server = make_server(pipe, greedy=True, **kw)
+            pipe._voice_cache.clear()
+            run = server_burst(f"greedy server, {name}", server, requests)
+        finally:
+            pipe.llm_params = bf16
+        same, ties = 0, []
+        for lbl, (prompt, mode) in prompts.items():
+            got = run["ids"][text_of[lbl]]
+            ok, step = _near_tie_ok(pipe, params, prompt, mode, got, want[lbl])
+            if not ok:
+                raise AssertionError(f"greedy server, {name}: {lbl} differs from the bare "
+                                     f"engine at step {step}, not at a near tie")
+            if step is None:
+                same += 1
+            else:
+                ties.append((lbl, step))
+        if "int8" in name and run["launches"]["int8_mlp_matvec"] == 0:
+            raise AssertionError("greedy server on the int8 LM launched no int8 MLP kernel")
+        print(f"greedy server, {name}: {same} of {len(prompts)} requests' ids equal the bare "
+              f"engine's; first differences at near ties: {ties}; {run['tokens_per_s']:.1f} "
+              f"tokens/s; launches {json.dumps(run['launches'])}")
+        out.append(run["launches"])
+    return out
+
+
+def check_server_threads(pipe, requests):
+    """Phase (d): a greedy dense server serves four streams while, once the
+    vocode worker renders its first window, a background thread captures a
+    new decode unit (another engine's).  The live dispatches' unit lookups
+    must each wait less than that capture took, and the ids must equal a run
+    of the same server without the capture (phase 14's argmax rule)."""
+    import threading
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
+
+    streams = [(lbl, kw, True, 1) for lbl, kw, _, _ in requests
+               if lbl in ("creation 0", "creation 1", "stream creation", "clone B")]
+    prompts = _server_prompts(pipe, streams)
+
+    def make():
+        return make_server(pipe, greedy=True, cache_len=DENSE_CACHE_LEN)
+
+    pipe._voice_cache.clear()
+    alone = server_burst("thread check, alone", make(), streams)
+    server = make()
+    rendering, captured, waits = threading.Event(), {}, []
+    real_unit, real_scalar, real_group = graphs.unit, server._vocode_scalar, server._vocode_group
+
+    def timed_unit(key, device, build):
+        with graphs._units_lock:
+            built = key in graphs._units  # a lookup, not the server's own capture at start
+        t0 = time.perf_counter()
+        u = real_unit(key, device, build)
+        if built and threading.current_thread() is threading.main_thread():
+            waits.append((time.perf_counter() - t0) * 1e3)
+        return u
+
+    def mark(fn):
+        def inner(*a):
+            captured.setdefault("during", "batched window" if fn is real_group else "window")
+            rendering.set()
+            return fn(*a)
+        return inner
+
+    def capture():
+        import torch
+
+        rendering.wait(timeout=120)
+        with torch.inference_mode():
+            before = {id(u) for u in graphs.units()}
+            eng = ContinuousBatchingEngine(pipe.llm_params, pipe.config.llm, max_slots=3,
+                                           cache_len=256, **_engine_kwargs(pipe, True))
+            eng.warm_units()
+            new = [u for u in graphs.units() if id(u) not in before]
+        captured["ms"] = max(u.capture_ms for u in new) if new else None
+
+    graphs.unit = timed_unit
+    server._vocode_scalar, server._vocode_group = mark(real_scalar), mark(real_group)
+    worker = threading.Thread(target=capture, name="capture-while-serving")
+    worker.start()
+    pipe._voice_cache.clear()
+    try:
+        run = server_burst("thread check, with a capture", server, streams,
+                           before_sync=lambda: worker.join(timeout=300))
+    finally:
+        graphs.unit = real_unit
+        worker.join(timeout=300)
+    if captured.get("ms") is None:
+        raise AssertionError("thread check: the background thread captured no decode unit")
+    for lbl, (prompt, mode) in prompts.items():
+        text = next(kw["text"] for l2, kw, _, _ in streams if l2 == lbl)
+        ok, step = _near_tie_ok(pipe, pipe.llm_params, prompt, mode, run["ids"][text],
+                                alone["ids"][text])
+        if not ok:
+            raise AssertionError(f"thread check: {lbl} differs from the run without the capture "
+                                 f"at step {step}")
+        print(f"thread check: {lbl}: ids equal the run without the capture: {step is None}")
+    wait = max(waits)
+    print(f"thread check: a decode unit captured in {captured['ms']:.1f} ms while the vocode "
+          f"worker rendered a {captured['during']}; the live dispatches' {len(waits)} unit "
+          f"lookups waited at most {wait:.3f} ms")
+    if not wait < captured["ms"]:
+        raise AssertionError("thread check: a live dispatch waited out the background capture")
+    return [alone["launches"], run["launches"]]
+
+
+def run_servers(pipe, wav_path: Path, bare_tokens_per_s: float, int8_params):
+    """Phases 24-27 (ContinuousTTSServer): (a) the dense server's burst after
+    the warm-up passes, timed, then traced for the idle share; (b) the paged
+    server's burst; (c) greedy servers against the bare engine; (d) a
+    decode-unit capture while serving.  Returns (launches of the runs, the
+    decode kernel's `by_shape` item at the dense server's state, the paged
+    kernel's at the paged server's, the vocoder kernel's at the batched
+    windows' shape, and the largest error of those checks by kernel)."""
+    import torch
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.serve.continuous_server import (
+        warm_admit_batches,
+        warm_spec_chains,
+        warm_stream_windows,
+        warm_vocode_batches_seen,
+    )
+
+    dev, cfg = pipe.device, pipe.config.llm
+    wav_a, wav_b = _server_wavs(pipe, wav_path)
+    requests = server_requests(wav_a, wav_b)
+    pipe.voice_cache_size = 2 * SERVER_SLOTS
+    flags = (True, True)  # the caller's TF32 setting, which the codec must not disturb
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    launches, items, errs = [], {}, {}
+
+    def server(**kw):
+        return make_server(pipe, **kw)
+
+    # (a) the dense server: warm-up passes, one representative burst, then the
+    # batched-vocode shapes it saw; then the timed burst and the traced one
+    warm = server(cache_len=DENSE_CACHE_LEN)
+    t0 = time.perf_counter()
+    tasks = [type("Task", (), dict(text=kw["text"], prompt_wav=kw["prompt_wav"],
+                                   prompt_text=kw.get("prompt_text")))
+             for _, kw, _, _ in requests if "prompt_wav" in kw]
+    n_admit = warm_admit_batches(warm, tasks, SERVER_SLOTS)
+    n_spec = warm_spec_chains(warm, SERVER_SLOTS)
+    n_win = warm_stream_windows(pipe, warm.max_vocode_window + warm.stream_ctx)
+    pipe._voice_cache.clear()
+    server_burst("dense server warm-up burst", warm, requests)
+    n_voc = warm_vocode_batches_seen(pipe, SERVER_SLOTS)
+    print(f"server warm-up ({time.perf_counter() - t0:.1f} s): {n_admit} batched admissions, "
+          f"{n_spec} speculative chains, {n_win} stream windows, {n_voc} vocode batches; "
+          f"{len(graphs.units())} decode units captured so far")
+    pipe._voice_cache.clear()
+    dense = server_burst("dense server burst", server(cache_len=DENSE_CACHE_LEN), requests)
+    check_server_burst("dense server burst", pipe, dense, requests, "dense_decode_attention")
+    if not (dense["stats"].get("fused_admissions", 0) >= 1
+            and dense["stats"].get("voice_cache_admissions", 0) >= 1):
+        raise AssertionError("dense server burst: no fused or no voice-cache admission")
+    pipe._voice_cache.clear()
+    traced = server_burst("dense server burst, traced", server(cache_len=DENSE_CACHE_LEN),
+                          requests, trace_path=OUT_DIR / "_trace_server.json")
+    streams = [r for r in dense["results"].values() if "first_chunk_ms" in r]
+    print(f"dense server, 8 concurrent requests: {dense['tokens_per_s']:.1f} tokens/s, "
+          f"{dense['tokens_per_s'] / bare_tokens_per_s:.4f} of the bare dense engine's "
+          f"{bare_tokens_per_s:.1f} (phase 13, same card); first chunks "
+          f"{[round(r['first_chunk_ms'], 1) for r in streams]} ms; deferrals "
+          f"{dense['stats']['deferrals']}; traced: {traced['tokens_per_s']:.1f} tokens/s, device "
+          f"busy {traced['device_busy_ms']:.1f} ms of {traced['wall_s'] * 1e3:.1f}, idle share "
+          f"{traced['idle_share']:.4f}")
+    launches += [dense["launches"], traced["launches"]]
+
+    # (b) the paged server (the half pool: deferrals)
+    pipe._voice_cache.clear()
+    paged_server = server(paged=True)
+    server_burst("paged server warm-up burst", paged_server, requests)
+    pipe._voice_cache.clear()
+    paged_server = server(paged=True)
+    paged = server_burst("paged server burst", paged_server, requests)
+    check_server_burst("paged server burst", pipe, paged, requests, "paged_decode_attention")
+    if paged["stats"]["deferrals"] < 1 or paged_server.engine.pages_in_use() != 0:
+        raise AssertionError(f"paged server burst: {paged['stats']['deferrals']} deferrals, "
+                             f"{paged_server.engine.pages_in_use()} pages in use at the end")
+    print(f"paged server, 8 concurrent requests: {paged['tokens_per_s']:.1f} tokens/s, "
+          f"{paged['stats']['deferrals']} deferrals, every page back in the pool")
+    launches.append(paged["launches"])
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("the server bursts changed the TF32 flags")
+    print(f"TF32 flags (cudnn, matmul) before and after the bursts: {flags}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the kernels at the servers' shapes
+    items["dense_decode_attention"] = check_dense_engine_decode(dev, cfg, dense["snapshot"])
+    items["dense_decode_attention"]["shape"] = "dense server " + \
+        items["dense_decode_attention"]["shape"]
+    paged_entry = check_paged(dev, cfg, paged["snapshot"])
+    items["paged_decode_attention"] = dict(paged_entry["by_shape"][0])
+    items["paged_decode_attention"]["shape"] = "paged server " + \
+        items["paged_decode_attention"]["shape"]
+    errs["paged_decode_attention"] = paged_entry["max_abs_err"]
+    shapes = dense["groups"]
+    if shapes:
+        (b, t_pad) = max(shapes, key=shapes.get)
+        voc = check_vocoder(dev, pipe.config.bicodec.decoder, [t_pad], batch=b)
+        items["fused_residual_unit"] = dict(voc["by_shape"][0],
+                                            shape=f"server batched windows: {voc['by_shape'][0]['shape']}")
+        errs["fused_residual_unit"] = voc["max_abs_err"]
+
+    # (c) greedy servers against the bare engine; (d) a capture while serving
+    launches += check_greedy_servers(pipe, requests, int8_params)
+    launches += check_server_threads(pipe, requests)
+    pipe.voice_cache_size = 0
+    pipe._voice_cache.clear()
+    return launches, items, errs
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -2681,6 +3317,12 @@ def main() -> int:
 
     pipe = SparkTTSPipeline(device=dev, seed=SEED)
     n_layers = pipe.config.llm.num_hidden_layers
+    if "--servers-only" in sys.argv[1:]:
+        # a shorter run for working on the server phases: no other phase, no
+        # bare-engine yardstick, no kernels line and no result line
+        run_servers(pipe, make_prompt_wav(OUT_DIR / "clone_prompt.wav"), float("nan"),
+                    quantize_qwen_int8(pipe.llm_params))
+        return 0
     creation = run_voice_creation(pipe)
     check_graph_vs_eager("voice creation", pipe, creation[1], "control", creation[2])
     wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
@@ -2707,7 +3349,7 @@ def main() -> int:
     check_int8_codec(pipe, cloning_int8[3])
 
     # continuous batching: the paged and the dense engine serve one burst
-    paged_entry, dense_state, engine_launches = run_engines(pipe, wav_path)
+    paged_entry, dense_state, engine_launches, engine_tokens_per_s = run_engines(pipe, wav_path)
     # token streaming over decode_chunk
     _, stream_launches = run_streaming(pipe)
     # a checkpoint directory, the untied head, the batch surfaces, longform,
@@ -2735,6 +3377,11 @@ def main() -> int:
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], check_decode_two_streams(dev, cfg))
     entries.append(check_int8_mlp(dev, unstack_layers(int8_params["layers"])))
     entries.append(check_int4(dev, unstack_layers(int4_params["layers"])))
+    # the continuous-batching server over both engines, after the launch
+    # traces above: when it ran before them, on an H100, none of their later
+    # profiler sessions recorded device activity
+    server_launches, server_items, server_errs = run_servers(pipe, wav_path, engine_tokens_per_s,
+                                                             int8_params)
     for _, prompt, _, _ in (creation, cloning):
         check_lm_prefill(pipe, prompt)
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
@@ -2749,13 +3396,19 @@ def main() -> int:
             err, item = batch_kernels[e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["by_shape"].append(item)
+    for e in entries:
+        if e["name"] in server_items:
+            e["by_shape"].append(server_items[e["name"]])
+            e["max_abs_err"] = max(e["max_abs_err"], server_errs.get(e["name"], 0.0))
     check_units(n_layers)
     check_failed_capture(dev)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
-             cache_launches]
+             cache_launches, *server_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
+    print("launches of the server phases (24-27):",
+          json.dumps({e["name"]: sum(run[e["name"]] for run in server_launches) for e in entries}))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "yardsticks", "by_shape"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}))

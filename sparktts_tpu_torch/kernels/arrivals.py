@@ -19,12 +19,18 @@ eager launch on that stream) before capturing on it.  When a launch needs
 more counters than its stream's array holds, a larger array takes its place
 for later launches; the old one is kept alive, never freed, because a graph
 captured earlier holds its address and every replay counts on it.
+
+A decode unit counts on an array of its own instead (`private`): the unit's
+warm-up and capture run inside the block, so its graph binds that array, and
+no other work (another unit's warm-up on the same pooled stream, in another
+thread, or another unit's replays) can share its counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Hashable, List, Optional
+from typing import Dict, Hashable, Iterator, List, Optional
 
 import torch
 
@@ -74,8 +80,32 @@ def stream_key(stream: torch.cuda.Stream):
     return stream.device_index, stream.cuda_stream
 
 
+_private = threading.local()
+
+
+@contextlib.contextmanager
+def private(device, n: int = MIN_COUNTERS) -> Iterator[torch.Tensor]:
+    """Inside the block, this thread's launches count on a zeroed array of
+    `n` counters made here, whatever their stream; yields the array (keep it
+    alive as long as a graph captured in the block)."""
+    array = torch.zeros(n, dtype=torch.int32, device=device)
+    saved = getattr(_private, "array", None)
+    _private.array = array
+    try:
+        yield array
+    finally:
+        _private.array = saved
+
+
 def for_current_stream(device: torch.device, n: int) -> torch.Tensor:
-    """The counters of `device`'s current stream, for a launch on it."""
+    """The counters for a launch on `device`'s current stream: this thread's
+    `private` array inside that block, else the stream's."""
+    array = getattr(_private, "array", None)
+    if array is not None:
+        if array.numel() < n:
+            raise RuntimeError(f"arrival counters: a launch needs {n} counters, the private "
+                               f"array holds {array.numel()}")
+        return array
     stream = torch.cuda.current_stream(device)
     return REGISTRY.counters(stream_key(stream), device, n,
                              torch.cuda.is_current_stream_capturing())

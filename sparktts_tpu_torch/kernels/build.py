@@ -47,6 +47,29 @@ def _nvcc() -> str:
     return found
 
 
+_tallies = threading.local()
+
+
+def note_launch(name: str) -> None:
+    """Count a launch of kernel `name` into the tallies this thread has
+    open (`launch_tally`).  Every wrapper calls it beside its `launches`."""
+    for tally in getattr(_tallies, "open", ()):
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[Dict[str, int]]:
+    """The launches of each kernel that this thread makes inside the block
+    (the wrappers' module counts are shared by every thread)."""
+    tally: Dict[str, int] = {}
+    stack = _tallies.__dict__.setdefault("open", [])
+    stack.append(tally)
+    try:
+        yield tally
+    finally:
+        stack.remove(tally)
+
+
 @contextlib.contextmanager
 def launch_stream(t: torch.Tensor) -> Iterator[int]:
     """Inside the block `t`'s card is the current device; yields the handle

@@ -174,6 +174,7 @@ def dense_decode_attention(
             s, hkv, hq, float(sm_scale), stream,
         )
     launches += 1
+    build.note_launch("dense_decode_attention")
     if err != 0:
         raise RuntimeError(f"dense_decode_attention: CUDA launch failed with error {err}")
     return out

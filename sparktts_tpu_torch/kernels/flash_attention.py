@@ -117,6 +117,7 @@ def flash_attention_prefill(
             float(sm_scale), stream,
         )
     launches += 1
+    build.note_launch("flash_attention_prefill")
     if err != 0:
         raise RuntimeError(f"flash_attention_prefill: CUDA launch failed with error {err}")
     return out

@@ -99,6 +99,7 @@ def int4_matvec(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor) -> 
             counters.data_ptr(), out.data_ptr(), b, d_in, d_out, groups, stream,
         )
     launches += 1
+    build.note_launch("int4_matvec")
     if err != 0:
         raise RuntimeError(f"int4_matvec: CUDA launch failed with error {err}")
     return out

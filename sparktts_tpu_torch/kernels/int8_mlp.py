@@ -149,6 +149,7 @@ def int8_mlp_matvec(
             counters.numel(), out.data_ptr(), r, k, i, stream,
         )
     launches += 1
+    build.note_launch("int8_mlp_matvec")
     if err != 0:
         raise RuntimeError(f"int8_mlp_matvec: CUDA launch failed with error {err}")
     return out

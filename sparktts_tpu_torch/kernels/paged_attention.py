@@ -165,6 +165,7 @@ def paged_decode_attention(
             b, hkv, hq, n_pages, page, pps, float(sm_scale), stream,
         )
     launches += 1
+    build.note_launch("paged_decode_attention")
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed with error {err}")
     return out

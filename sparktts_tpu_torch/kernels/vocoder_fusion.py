@@ -117,6 +117,7 @@ def fused_residual_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
             stream,
         )
     launches += 1
+    build.note_launch("fused_residual_unit")
     if err != 0:
         raise RuntimeError(f"fused_residual_unit: CUDA launch failed with error {err}")
     return out

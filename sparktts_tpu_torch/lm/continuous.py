@@ -40,13 +40,21 @@ Where the port differs from the JAX engine:
     rewrites before anything reads it.
   * The engine state is built and changed under `torch.inference_mode()`.
 
-The fused, assembled and batched admission programs of the JAX engine and
-their executable caches are not ported (the server that calls them is not).
+  * Admission is eager PyTorch with no host read, as the JAX engine's
+    admission programs are one dispatch each: a clone request admits from
+    its prompt wav (`submit_fused`) or from the voice cache's device ids
+    (`submit_assembled`), alone or as a burst of one shape signature
+    (`submit_*_batch`, one `prefill_many`).  In place of JAX's executable
+    cache, a signature is ready once it has run on scratch slot state
+    (`warm_*`); the registry of ready signatures is shared by the engines
+    of one process.  The decode units of every dispatch size are captured
+    by `warm_units`, so a server captures none while it serves.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -73,6 +81,16 @@ ENGINE_UNIT = DISPATCH_LADDER[0]
 LADDER_OVERSHOOT_TOLERANCE = 32
 
 MODES = ("control", "clone")
+
+#: Batch sizes of the batched admissions: a burst snaps up to the next one,
+#: padded by repeating its row 0, so each shape signature has four warm-ups.
+ADMIT_BATCH_LADDER = (2, 4, 8, 16)
+
+# Process-wide registry of the admission signatures that have run once (see
+# `ContinuousBatchingEngine.warm_fused`): keyed by everything that shapes
+# the work, so a fresh engine over the same pipeline adopts them.
+_ADMIT_WARM: set = set()
+_ADMIT_WARM_LOCK = threading.Lock()
 
 
 def snap_to_ladder(
@@ -179,6 +197,63 @@ def _mode_masked(
     return torch.where(control[:, None] | allowed[None, :], logits, NEG_INF)
 
 
+_NP_DTYPES = {torch.int64: np.int64, torch.int32: np.int32, torch.float32: np.float32,
+              torch.bool: np.bool_}
+
+
+def _rows(values, dtype, device) -> torch.Tensor:
+    """A per-row host sequence (or a tensor) as a (B,) tensor on `device`."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device, dtype)
+    return to_device(np.asarray(values, _NP_DTYPES[dtype]), device)
+
+
+def prefill_many(
+    params,
+    cfg: QwenConfig,
+    input_ids: torch.Tensor,  # (B, t_pad) int64, right-padded
+    prompt_lens,              # (B,) true lengths
+    generator: torch.Generator,
+    cache_dtype,
+    temperature,              # (B,) fp32
+    top_k: int,
+    top_p,                    # (B,) fp32
+    greedy: bool,
+    vocab_slice: Optional[Tuple[int, int]],
+    extra_ids: Tuple[int, ...],
+    control,                  # (B,) bool
+    allowed: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Admission prefill of B right-padded prompts in one forward: each row
+    through the model with a causal + pad bias (dense attention, not the
+    flash kernel: the prompts are right-padded), then each row's first new
+    token from its last prompt position, sampled with its own temperature and
+    top_p and narrowed to the clone set where its `control` is False.  The
+    per-row arguments are host sequences or device tensors; nothing is read
+    back to the host.  Returns (first tokens (B,) int64, the prompts' KV cache
+    (L, B, t_pad, n_kv, hd))."""
+    b, t_pad = input_ids.shape
+    dev = input_ids.device
+    lens = _rows(prompt_lens, torch.int64, dev)
+    idx = torch.arange(t_pad, device=dev)
+    tmp_cache = init_kv_cache(cfg, b, t_pad, cache_dtype, dev)
+    positions = torch.minimum(idx[None, :], lens[:, None] - 1)
+    keep = (idx[None, None, :] <= idx[None, :, None]) & (idx[None, None, :] < lens[:, None, None])
+    bias = torch.where(keep, 0.0, NEG_INF).float()  # (B, q, k)
+    logits, tmp_cache = qwen_forward(
+        params, cfg, input_ids, positions, tmp_cache, 0, bias,
+        vocab_slice=vocab_slice, extra_ids=extra_ids,
+    )
+    last = logits[torch.arange(b, device=dev), (lens - 1).clamp_min(0)]
+    last = _mode_masked(last, _rows(control, torch.bool, dev), allowed)
+    if greedy:
+        first = greedy_token(last)
+    else:
+        first = sample_token(generator, last, _rows(temperature, torch.float32, dev)[:, None],
+                             top_k, _rows(top_p, torch.float32, dev)[:, None])
+    return expand_constrained(first, vocab_slice, extra_ids), tmp_cache
+
+
 def prefill_one(
     params,
     cfg: QwenConfig,
@@ -195,30 +270,12 @@ def prefill_one(
     control: bool = True,
     allowed: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Shared single-prompt admission prefill (dense and paged engines): the
-    prompt through the model with a causal + pad bias (dense attention, not
-    the flash kernel: the prompt is right-padded), then the first new token
-    sampled from the last prompt position.  Returns (first token (1,) int64,
-    the prompt's KV cache (L, 1, t_pad, n_kv, hd))."""
-    t_pad = input_ids.shape[1]
-    dev = input_ids.device
-    idx = torch.arange(t_pad, device=dev)
-    tmp_cache = init_kv_cache(cfg, 1, t_pad, cache_dtype, dev)
-    positions = idx.clamp(max=prompt_len - 1)[None, :]
-    keep = (idx[None, :] <= idx[:, None]) & (idx[None, :] < prompt_len)  # (q, k)
-    bias = torch.where(keep, 0.0, NEG_INF).float()[None]
-    logits, tmp_cache = qwen_forward(
-        params, cfg, input_ids, positions, tmp_cache, 0, bias,
-        vocab_slice=vocab_slice, extra_ids=extra_ids,
-    )
-    last = logits[:, prompt_len - 1]
-    if allowed is not None and not control:
-        last = last.masked_fill(~allowed, NEG_INF)
-    if greedy:
-        first_tok = greedy_token(last)
-    else:
-        first_tok = sample_token(generator, last, temperature, top_k, top_p)
-    return expand_constrained(first_tok, vocab_slice, extra_ids), tmp_cache
+    """Shared single-prompt admission prefill (dense and paged engines):
+    `prefill_many` at B = 1.  Returns (first token (1,) int64, the prompt's
+    KV cache (L, 1, t_pad, n_kv, hd))."""
+    return prefill_many(params, cfg, input_ids, [prompt_len], generator, cache_dtype,
+                        [temperature], top_k, [top_p], greedy, vocab_slice, extra_ids,
+                        [control], allowed)
 
 
 def install_slot(slots, slot: int, first_tok: torch.Tensor, prompt_len: int, limit: int,
@@ -270,6 +327,142 @@ def admit_prefill(
     slots.position[slot] = prompt_len
     slots.start[slot] = 0
     return slots
+
+
+def install_rows(slots: SlotState, slot_ids, first_toks: torch.Tensor, tmp_cache: KVCache,
+                 prompt_lens, limits, temperature, top_p) -> SlotState:
+    """Install the first n = len(slot_ids) rows of a batched clone-mode
+    admission prefill into their slots, in place: each row's prompt K/V
+    into its slot's cache row, its per-slot vectors by slot id.  Rows past
+    n (the ladder's pad rows) are dropped, so no slot is written twice and
+    the result does not depend on the order of the writes."""
+    dev = first_toks.device
+    n = len(slot_ids)
+    sid = _rows(slot_ids, torch.int64, dev)
+    t_pad = tmp_cache.k.shape[2]
+    slots.cache.k[:, sid, :t_pad] = tmp_cache.k[:, :n]
+    slots.cache.v[:, sid, :t_pad] = tmp_cache.v[:, :n]
+    lens = _rows(prompt_lens, torch.int32, dev)[:n]
+    slots.cur_token[sid] = first_toks[:n]
+    slots.write_pos[sid] = lens
+    slots.position[sid] = lens
+    slots.start[sid] = 0
+    slots.limit[sid] = _rows(limits, torch.int32, dev)[:n]
+    slots.active[sid] = True
+    slots.done[sid] = False
+    slots.control[sid] = False
+    slots.temperature[sid] = _rows(temperature, torch.float32, dev)[:n]
+    slots.top_p[sid] = _rows(top_p, torch.float32, dev)[:n]
+    return slots
+
+
+def admit_prefill_fused(
+    params,
+    slots: SlotState,
+    cfg: QwenConfig,
+    slot: int,
+    tokenize_fn,               # pipeline._tokenize_fn(pad_len, ref_len)
+    tok_args: tuple,           # (w2v params, codec params, wav, feature mask, ref wav), on the device
+    assemble_fn,               # pipeline._assemble_fn_batch(t_pad, s_pad)
+    scaffold,                  # (1, t_pad) int32 host-built prompt scaffold
+    g_off: int,
+    s_off: int,
+    n_sem: int,                # semantic ids the prompt takes (0 = none)
+    prompt_len: int,
+    generator: torch.Generator,
+    temperature: float = 0.8,
+    top_k: int = 50,
+    top_p: float = 0.95,
+    greedy: bool = False,
+    vocab_slice: Optional[Tuple[int, int]] = None,
+    extra_ids: Tuple[int, ...] = (),
+    limit: Optional[int] = None,
+    allowed: Optional[torch.Tensor] = None,
+) -> Tuple[SlotState, torch.Tensor, torch.Tensor]:
+    """Clone-mode admission with the audio tokenize and the prompt assembly
+    in the same chain of device work: wav -> wav2vec2 -> BiCodec tokenize ->
+    scaffold gather -> prefill -> slot install, with no host read between
+    them.  Returns (slots, global ids (1, N), semantic ids (1, S_pad)), the
+    ids left on the device for the vocoder and the voice cache."""
+    global_t, semantic = tokenize_fn(*tok_args)
+    ids = assemble_fn(scaffold, global_t, semantic, [g_off], [s_off], [n_sem])
+    slots = admit_prefill(params, slots, cfg, slot, ids.long(), prompt_len, generator,
+                          temperature, top_k, top_p, greedy, vocab_slice, extra_ids,
+                          limit=limit, control=False, allowed=allowed)
+    return slots, global_t, semantic
+
+
+def admit_prefill_assembled(
+    params,
+    slots: SlotState,
+    cfg: QwenConfig,
+    slot: int,
+    global_t: torch.Tensor,    # (1, N) cached voice ids, on the device
+    semantic: torch.Tensor,    # (1, S_pad)
+    assemble_fn,
+    scaffold,
+    g_off: int,
+    s_off: int,
+    n_sem: int,
+    prompt_len: int,
+    generator: torch.Generator,
+    temperature: float = 0.8,
+    top_k: int = 50,
+    top_p: float = 0.95,
+    greedy: bool = False,
+    vocab_slice: Optional[Tuple[int, int]] = None,
+    extra_ids: Tuple[int, ...] = (),
+    limit: Optional[int] = None,
+    allowed: Optional[torch.Tensor] = None,
+) -> SlotState:
+    """`admit_prefill_fused` for a voice-cache hit: the codec ids are
+    already on the device, so the audio tokenize stack is skipped."""
+    ids = assemble_fn(scaffold, global_t, semantic, [g_off], [s_off], [n_sem])
+    return admit_prefill(params, slots, cfg, slot, ids.long(), prompt_len, generator,
+                         temperature, top_k, top_p, greedy, vocab_slice, extra_ids,
+                         limit=limit, control=False, allowed=allowed)
+
+
+def admit_prefill_assembled_batch(
+    params, slots: SlotState, cfg: QwenConfig, slot_ids, global_t: torch.Tensor,
+    semantic: torch.Tensor, assemble_fn, scaffolds, g_offs, s_offs, n_sems, prompt_lens,
+    generator: torch.Generator, temperature, top_k: int, top_p, limits, greedy: bool = False,
+    vocab_slice: Optional[Tuple[int, int]] = None, extra_ids: Tuple[int, ...] = (),
+    allowed: Optional[torch.Tensor] = None,
+) -> SlotState:
+    """Batched `admit_prefill_assembled`: a burst of voice-cache-hit clone
+    admissions of one (S_pad, t_pad) signature as B assemblies, one (B,
+    t_pad) prefill and B slot installs.  The per-row arguments hold B rows
+    (the burst padded to the ladder by repeating row 0); `slot_ids` holds
+    the real rows' slots only (`install_rows`)."""
+    ids = assemble_fn(scaffolds, global_t, semantic, g_offs, s_offs, n_sems)
+    first, tmp_cache = prefill_many(params, cfg, ids.long(), prompt_lens, generator,
+                                    slots.cache.k.dtype, temperature, top_k, top_p, greedy,
+                                    vocab_slice, extra_ids, [False] * ids.shape[0], allowed)
+    return install_rows(slots, slot_ids, first, tmp_cache, prompt_lens, limits, temperature,
+                        top_p)
+
+
+def admit_prefill_fused_batch(
+    params, slots: SlotState, cfg: QwenConfig, slot_ids, tokenize_fn, tok_args: tuple,
+    assemble_fn, scaffolds, g_offs, s_offs, n_sems, prompt_lens, generator: torch.Generator,
+    temperature, top_k: int, top_p, limits, greedy: bool = False,
+    vocab_slice: Optional[Tuple[int, int]] = None, extra_ids: Tuple[int, ...] = (),
+    allowed: Optional[torch.Tensor] = None,
+) -> Tuple[SlotState, torch.Tensor, torch.Tensor]:
+    """Batched `admit_prefill_fused`: a burst of first-time clone admissions
+    of one (wav bucket, t_pad) signature as one batched audio tokenize, B
+    assemblies, one (B, t_pad) prefill and the slot installs.  `tok_args`
+    holds the B rows' wavs, masks and reference clips stacked.  Returns
+    (slots, global ids (B, N), semantic ids (B, S_pad)) on the device."""
+    global_t, semantic = tokenize_fn(*tok_args)
+    ids = assemble_fn(scaffolds, global_t, semantic, g_offs, s_offs, n_sems)
+    first, tmp_cache = prefill_many(params, cfg, ids.long(), prompt_lens, generator,
+                                    slots.cache.k.dtype, temperature, top_k, top_p, greedy,
+                                    vocab_slice, extra_ids, [False] * ids.shape[0], allowed)
+    slots = install_rows(slots, slot_ids, first, tmp_cache, prompt_lens, limits, temperature,
+                         top_p)
+    return slots, global_t, semantic
 
 
 def pack_step_result(toks: torch.Tensor, valid: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
@@ -380,13 +573,11 @@ def scan_steps(n_steps: int, slots, step_fn):
     return slots, torch.stack(toks, 1), torch.stack(valid, 1)
 
 
-def dispatch_steps(kind: str, params, slots, n_steps: int, generator: torch.Generator,
-                   make_step: Callable[[torch.Generator], Callable], static: Tuple,
-                   ) -> Tuple[object, torch.Tensor]:
-    """n_steps decode steps of either engine as replays of its decode unit,
-    bound to the engine's own slot buffers (the unit's key holds their
-    addresses, the params' identity and the `static` arguments); returns
-    (slots, packed (B, 2n+1) int32, see `pack_step_result`).
+def decode_unit(kind: str, params, slots, n_steps: int,
+                make_step: Callable[[torch.Generator], Callable], static: Tuple) -> graphs.DecodeUnit:
+    """The decode unit a dispatch of n_steps replays: bound to the engine's
+    own slot buffers (its key holds their addresses, the params' identity
+    and the `static` arguments), captured on the card at first use.
     `make_step(generator)` gives the engine's one-step function."""
     steps = math.gcd(n_steps, ENGINE_UNIT)
     bufs = graphs.tensors(slots)
@@ -400,7 +591,16 @@ def dispatch_steps(kind: str, params, slots, n_steps: int, generator: torch.Gene
         return graphs.DecodeUnit(make_scan, slots, steps,
                                  name=f"{kind} B={slots.cur_token.shape[0]} U={steps}")
 
-    unit = graphs.unit(key, bufs[0].device, build)
+    return graphs.unit(key, bufs[0].device, build)
+
+
+def dispatch_steps(kind: str, params, slots, n_steps: int, generator: torch.Generator,
+                   make_step: Callable[[torch.Generator], Callable], static: Tuple,
+                   ) -> Tuple[object, torch.Tensor]:
+    """n_steps decode steps of either engine as replays of its decode unit
+    (`decode_unit`); returns (slots, packed (B, 2n+1) int32, see
+    `pack_step_result`)."""
+    unit = decode_unit(kind, params, slots, n_steps, make_step, static)
     with unit.bound(slots, generator):
         toks, valid = unit.run(n_steps)
     return slots, pack_step_result(toks, valid, slots.done)
@@ -419,13 +619,15 @@ def decode_steps(
     vocab_slice: Optional[Tuple[int, int]] = None,
     extra_ids: Tuple[int, ...] = (),
     allowed: Optional[torch.Tensor] = None,
-) -> Tuple[SlotState, torch.Tensor]:
+    capture_only: bool = False,
+) -> Tuple[SlotState, Optional[torch.Tensor]]:
     """Advance every active slot by up to n_steps tokens; returns (slots,
     packed (B, 2n+1) int32, see `pack_step_result`).  The validity half of
     the pack is the explicit liveness mask: pad_id may be a legitimately
     sampled id.  A slot whose write_pos reaches its limit stops on the
     device.  `allowed` narrows clone slots (`packed_allowed_mask`).  The
-    slots are updated in place (`dispatch_steps`)."""
+    slots are updated in place (`dispatch_steps`).  `capture_only`: capture
+    the dispatch's decode unit and run nothing; returns (slots, None)."""
 
     def make_step(gen: torch.Generator):
         def step(s: SlotState):
@@ -443,6 +645,9 @@ def decode_steps(
     static = (cfg, top_k, eos_ids, pad_id, greedy, vocab_slice, extra_ids,
               None if allowed is None else allowed.data_ptr())
     kind = "dense engine, greedy" if greedy else "dense engine"
+    if capture_only:
+        decode_unit(kind, params, slots, n_steps, make_step, static)
+        return slots, None
     return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
 
 
@@ -504,6 +709,8 @@ class StepProtocolMixin:
         self.vocab_slice = vocab_slice
         self.extra_ids = tuple(extra_ids)
         self.max_dispatch = max_dispatch
+        self.clone_slice = clone_slice
+        self.clone_extras = tuple(clone_extras)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.inference_mode():
             self.clone_allowed = (
@@ -519,6 +726,20 @@ class StepProtocolMixin:
 
     def free_slots(self) -> int:
         return sum(1 for o in self.owner if o is None)
+
+    @torch.inference_mode()
+    def warm_units(self) -> None:
+        """Capture now the decode unit of every dispatch size the ladder can
+        give (on a card; the CPU caches nothing), so that no live dispatch
+        waits on a capture.  Runs no step."""
+        rungs = {r for r in DISPATCH_LADDER if r <= self.max_dispatch} | {self.max_dispatch}
+        for steps in sorted({math.gcd(r, ENGINE_UNIT) for r in rungs}):
+            self._decode(steps, capture_only=True)
+
+    def _decode(self, n_steps: int, capture_only: bool = False) -> Optional[torch.Tensor]:
+        """Engine hook: dispatch n_steps decode steps over the engine's
+        state; returns the packed step result (None with capture_only)."""
+        raise NotImplementedError
 
     def _free_slot(self) -> int:
         slot = next((i for i, o in enumerate(self.owner) if o is None), None)
@@ -636,7 +857,17 @@ class StepProtocolMixin:
 class ContinuousBatchingEngine(StepProtocolMixin):
     """Host-side slot manager around admission and decode dispatches (unit
     replays) over the dense slot cache.  Runs on the card unless
-    `device="cpu"`."""
+    `device="cpu"`.
+
+    Besides `submit` (a host id list or an assembled device prompt), clone
+    requests admit in one chain of device work with no host read: from a
+    prompt wav (`submit_fused`: tokenize, assembly, prefill) or from the
+    voice cache's device ids (`submit_assembled`), one request or a burst
+    of one shape signature (`submit_*_batch`, padded up
+    ADMIT_BATCH_LADDER).  JAX compiles each signature ahead of time; here a
+    signature is *ready* once `warm_*` has run it on scratch slot state (the
+    first run builds the kernels and the library plans), and the registry
+    of ready signatures is shared by the engines of one process."""
 
     def __init__(
         self,
@@ -666,6 +897,18 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         self.cache_len = cache_len
         with torch.inference_mode():
             self.slots = init_slots(cfg, max_slots, cache_len, cache_dtype, self.device)
+        self._admit_ready: set = set()  # signatures of this engine that have run once
+        self._admit_lock = threading.Lock()
+        self._aval_key: Optional[tuple] = None
+        self.warm_runs = 0  # warm-ups this engine ran itself (not adopted)
+
+    def _take_slot(self, t_pad: int, max_new_tokens: int) -> int:
+        slot = self._free_slot()
+        if t_pad + max_new_tokens > self.cache_len:
+            raise RequestTooLong(
+                f"prompt bucket {t_pad} + {max_new_tokens} new tokens > cache {self.cache_len}"
+            )
+        return slot
 
     @torch.inference_mode()
     def submit(
@@ -686,12 +929,8 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         `prompt_len` its true length."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        slot = self._free_slot()
         n, t_pad = self._prompt_shape(prompt_ids, prompt_len, self.prompt_pad)
-        if t_pad + max_new_tokens > self.cache_len:
-            raise RequestTooLong(
-                f"prompt bucket {t_pad} + {max_new_tokens} new tokens > cache {self.cache_len}"
-            )
+        slot = self._take_slot(t_pad, max_new_tokens)
         temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
         self.slots = admit_prefill(
             self.params, self.slots, self.cfg, slot, self._prompt_tensor(prompt_ids, n, t_pad),
@@ -701,6 +940,309 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         )
         return self._register_request(slot, max_new_tokens)
 
+    # -- the registry of ready admission signatures ------------------------
+
+    def _global_key(self, key: tuple, tokenize_fn, assemble_fn) -> tuple:
+        """`key` extended with everything else that shapes an admission's
+        work, so engines over the same pipeline share the registry: the
+        pipeline's per-shape tokenize/assemble functions (stable identities),
+        the settings, and the params' and state's shapes, dtypes and device."""
+        if self._aval_key is None:
+            self._aval_key = tuple(
+                (tuple(t.shape), str(t.dtype), str(t.device))
+                for t in [*_leaves(self.params), *graphs.tensors(self.slots)]
+            )
+        return (key, tokenize_fn, assemble_fn, self.cfg, self.cache_len, self.sampling[1],
+                self.greedy, self.vocab_slice, self.extra_ids, self.clone_slice,
+                self.clone_extras, self._aval_key)
+
+    def _ready(self, key: tuple) -> bool:
+        with self._admit_lock:
+            return key in self._admit_ready
+
+    def _warm(self, key: tuple, tokenize_fn, assemble_fn, run: Callable) -> None:
+        """Mark `key` ready, after running `run(scratch slots, generator)`
+        once unless another engine of the process already ran its global
+        signature.  Thread-safe and idempotent; runs under inference mode
+        in any thread."""
+        if self._ready(key):
+            return
+        gkey = self._global_key(key, tokenize_fn, assemble_fn)
+        with _ADMIT_WARM_LOCK:
+            seen = gkey in _ADMIT_WARM
+        if not seen:
+            with torch.inference_mode():
+                scratch = init_slots(self.cfg, self.max_slots, self.cache_len,
+                                     self.slots.cache.k.dtype, self.device)
+                run(scratch, torch.Generator(device=self.device).manual_seed(0))
+            with _ADMIT_WARM_LOCK:
+                _ADMIT_WARM.add(gkey)
+            self.warm_runs += 1
+        with self._admit_lock:
+            self._admit_ready.add(key)
+
+    def _settings(self) -> dict:
+        return dict(greedy=self.greedy, vocab_slice=self.vocab_slice, extra_ids=self.extra_ids,
+                    allowed=self.clone_allowed)
+
+    # -- fused admission (tokenize + assembly + prefill) -------------------
+
+    def fused_key(self, tok_args: tuple, t_pad: int) -> tuple:
+        """Shape signature of a fused admission: the wav bucket, wav2vec2
+        frames, reference clip and prompt bucket."""
+        _, _, wav, feature_mask, ref_wav = tok_args
+        return (tuple(wav.shape), tuple(feature_mask.shape), tuple(ref_wav.shape), t_pad)
+
+    def fused_ready(self, tok_args: tuple, t_pad: int) -> bool:
+        return self._ready(self.fused_key(tok_args, t_pad))
+
+    def warm_fused(self, tokenize_fn, assemble_fn, tok_args: tuple, t_pad: int) -> None:
+        """Run the fused admission of this signature once on scratch slots,
+        so a live one builds nothing.  Thread-safe and idempotent: the
+        server calls it from a background thread."""
+        temperature, top_k, top_p = self._resolve_sampling(None, None)
+
+        def run(scratch, gen):
+            admit_prefill_fused(self.params, scratch, self.cfg, 0, tokenize_fn, tok_args,
+                                assemble_fn, np.zeros((1, t_pad), np.int32), 0, 0, 0, 1, gen,
+                                temperature, top_k, top_p, limit=1, **self._settings())
+
+        self._warm(self.fused_key(tok_args, t_pad), tokenize_fn, assemble_fn, run)
+
+    @torch.inference_mode()
+    def submit_fused(
+        self,
+        tokenize_fn,
+        assemble_fn,
+        tok_args: tuple,        # pipeline.tokenize_host_prep's device args
+        scaffold: np.ndarray,   # (t_pad,) int32, t_pad % prompt_pad == 0
+        g_off: int,
+        s_off: int,
+        n_sem: int,
+        prompt_len: int,
+        max_new_tokens: int = 512,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+    ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+        """Clone-mode admission from a prompt wav with no host read (audio
+        tokenize, prompt assembly and prefill, `admit_prefill_fused`),
+        warming the signature first if it is cold.  Returns (req_id, global
+        ids (1, N), semantic ids (1, S_pad)), the ids on the device."""
+        t_pad = len(scaffold)
+        if not 0 < prompt_len <= t_pad:
+            raise ValueError(f"prompt length {prompt_len} outside [1, {t_pad}]")
+        slot = self._take_slot(t_pad, max_new_tokens)
+        temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
+        self.warm_fused(tokenize_fn, assemble_fn, tok_args, t_pad)
+        self.slots, global_t, semantic = admit_prefill_fused(
+            self.params, self.slots, self.cfg, slot, tokenize_fn, tok_args, assemble_fn,
+            np.asarray(scaffold, np.int32)[None, :], g_off, s_off, n_sem, prompt_len,
+            self.generator, temperature, top_k, top_p, limit=prompt_len + max_new_tokens,
+            **self._settings(),
+        )
+        return self._register_request(slot, max_new_tokens), global_t, semantic
+
+    # -- assembled admission (a voice-cache hit: ids already on the device) --
+
+    def assembled_key(self, global_t, semantic, t_pad: int) -> tuple:
+        return ("asm", tuple(global_t.shape), tuple(semantic.shape), t_pad)
+
+    def assembled_ready(self, global_t, semantic, t_pad: int) -> bool:
+        return self._ready(self.assembled_key(global_t, semantic, t_pad))
+
+    def warm_assembled(self, assemble_fn, global_t, semantic, t_pad: int) -> None:
+        """`warm_fused` for the assembled admission of this signature."""
+        temperature, top_k, top_p = self._resolve_sampling(None, None)
+
+        def run(scratch, gen):
+            admit_prefill_assembled(self.params, scratch, self.cfg, 0, global_t, semantic,
+                                    assemble_fn, np.zeros((1, t_pad), np.int32), 0, 0, 0, 1,
+                                    gen, temperature, top_k, top_p, limit=1, **self._settings())
+
+        self._warm(self.assembled_key(global_t, semantic, t_pad), None, assemble_fn, run)
+
+    @torch.inference_mode()
+    def submit_assembled(
+        self,
+        assemble_fn,
+        global_t: torch.Tensor,  # (1, N) cached voice ids, on the device
+        semantic: torch.Tensor,  # (1, S_pad)
+        scaffold: np.ndarray,
+        g_off: int,
+        s_off: int,
+        n_sem: int,
+        prompt_len: int,
+        max_new_tokens: int = 512,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+    ) -> int:
+        """Clone-mode admission from cached voice ids (assembly + prefill,
+        no audio tokenize).  Returns the request id."""
+        t_pad = len(scaffold)
+        if not 0 < prompt_len <= t_pad:
+            raise ValueError(f"prompt length {prompt_len} outside [1, {t_pad}]")
+        slot = self._take_slot(t_pad, max_new_tokens)
+        temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
+        self.warm_assembled(assemble_fn, global_t, semantic, t_pad)
+        self.slots = admit_prefill_assembled(
+            self.params, self.slots, self.cfg, slot, global_t, semantic, assemble_fn,
+            np.asarray(scaffold, np.int32)[None, :], g_off, s_off, n_sem, prompt_len,
+            self.generator, temperature, top_k, top_p, limit=prompt_len + max_new_tokens,
+            **self._settings(),
+        )
+        return self._register_request(slot, max_new_tokens)
+
+    # -- batched admissions (a burst of one shape signature) ---------------
+
+    def _take_slots(self, requests) -> List[dict]:
+        """Each request row with its sampling resolved and a slot taken (the
+        slots stay reserved until `_register_rows`); all or none."""
+        rows = []
+        try:
+            for r in requests:
+                r = dict(r)
+                r["temperature"], _, r["top_p"] = self._resolve_sampling(
+                    r.get("temperature"), r.get("top_p"))
+                r["slot"] = self._take_slot(len(r["scaffold"]), r["max_new_tokens"])
+                self.owner[r["slot"]] = -1  # reserved before the next row picks
+                rows.append(r)
+        except Exception:
+            for r in rows:
+                self.owner[r["slot"]] = None
+            raise
+        return rows
+
+    def _register_rows(self, rows) -> List[int]:
+        req_ids = []
+        for r in rows:
+            self.owner[r["slot"]] = None
+            req_ids.append(self._register_request(r["slot"], r["max_new_tokens"]))
+        return req_ids
+
+    @staticmethod
+    def _batch_args(rows, b: int) -> dict:
+        """The per-row host arguments of a batched admission, `rows` padded
+        to `b` by repeating row 0."""
+        rows = list(rows) + [rows[0]] * (b - len(rows))
+        return dict(
+            scaffolds=np.stack([np.asarray(r["scaffold"], np.int32) for r in rows]),
+            g_offs=[r["g_off"] for r in rows], s_offs=[r["s_off"] for r in rows],
+            n_sems=[r["n_sem"] for r in rows], prompt_lens=[r["prompt_len"] for r in rows],
+            temperature=[r["temperature"] for r in rows], top_p=[r["top_p"] for r in rows],
+            limits=[r["prompt_len"] + r["max_new_tokens"] for r in rows],
+        )
+
+    def assembled_batch_key(self, b: int, n_glob: int, s_pad: int, t_pad: int) -> tuple:
+        return ("asmb", b, n_glob, s_pad, t_pad)
+
+    def assembled_batch_ready(self, b: int, n_glob: int, s_pad: int, t_pad: int) -> bool:
+        return self._ready(self.assembled_batch_key(b, n_glob, s_pad, t_pad))
+
+    def warm_assembled_batch(self, assemble_fn, b: int, n_glob: int, s_pad: int,
+                             t_pad: int) -> None:
+        """`warm_fused` for the batched assembled admission of this (batch,
+        shape) signature."""
+        temperature, top_k, top_p = self._resolve_sampling(None, None)
+        row = dict(scaffold=np.zeros(t_pad, np.int32), g_off=0, s_off=0, n_sem=0, prompt_len=1,
+                   max_new_tokens=0, temperature=temperature, top_p=top_p)
+
+        def run(scratch, gen):
+            zeros = torch.zeros((b, n_glob + s_pad), dtype=torch.int32, device=self.device)
+            admit_prefill_assembled_batch(
+                self.params, scratch, self.cfg, [0], zeros[:, :n_glob], zeros[:, n_glob:],
+                assemble_fn, generator=gen, top_k=top_k, **self._batch_args([row], b),
+                **self._settings())
+
+        self._warm(self.assembled_batch_key(b, n_glob, s_pad, t_pad), None, assemble_fn, run)
+
+    @torch.inference_mode()
+    def submit_assembled_batch(self, assemble_fn, requests) -> List[int]:
+        """Admit a burst of voice-cache-hit clone requests as one batched
+        admission.  `requests`: dicts with global_t, semantic (device ids),
+        scaffold, g_off, s_off, n_sem, prompt_len, max_new_tokens,
+        temperature, top_p (None: the engine's).  The batch pads up
+        ADMIT_BATCH_LADDER by repeating row 0.  Returns the request ids in
+        order."""
+        n = len(requests)
+        b = next((x for x in ADMIT_BATCH_LADDER if x >= n), None)
+        if n < 1 or b is None:
+            raise ValueError(f"a batched admission takes 1..{ADMIT_BATCH_LADDER[-1]} rows, got {n}")
+        sigs = {(r["global_t"].shape[-1], r["semantic"].shape[-1], len(r["scaffold"]))
+                for r in requests}
+        if len(sigs) != 1:
+            raise ValueError(f"a batched admission needs one shape signature, got {sigs}")
+        (n_glob, s_pad, t_pad), = sigs
+        rows = self._take_slots(requests)
+        self.warm_assembled_batch(assemble_fn, b, n_glob, s_pad, t_pad)
+        padded = rows + [rows[0]] * (b - n)
+        g = torch.cat([r["global_t"].reshape(1, -1) for r in padded]).to(self.device, torch.int32)
+        s = torch.cat([r["semantic"].reshape(1, -1) for r in padded]).to(self.device, torch.int32)
+        _, top_k, _ = self.sampling
+        self.slots = admit_prefill_assembled_batch(
+            self.params, self.slots, self.cfg, [r["slot"] for r in rows], g, s, assemble_fn,
+            generator=self.generator, top_k=top_k, **self._batch_args(rows, b),
+            **self._settings())
+        return self._register_rows(rows)
+
+    def fused_batch_key(self, b: int, tok_args: tuple, t_pad: int) -> tuple:
+        _, _, wav, feature_mask, ref_wav = tok_args
+        return ("fusb", b, wav.shape[-1], feature_mask.shape[-1], ref_wav.shape[-1], t_pad)
+
+    def fused_batch_ready(self, b: int, tok_args: tuple, t_pad: int) -> bool:
+        return self._ready(self.fused_batch_key(b, tok_args, t_pad))
+
+    @staticmethod
+    def _stack_tok_args(rows, b: int) -> tuple:
+        """The rows' tokenize arguments stacked into one batch of `b` (row 0
+        repeated), on the device."""
+        rows = list(rows) + [rows[0]] * (b - len(rows))
+        w2v, bc = rows[0]["tok_args"][:2]
+        return (w2v, bc, *(torch.cat([r["tok_args"][i] for r in rows]) for i in (2, 3, 4)))
+
+    def warm_fused_batch(self, tokenize_fn, assemble_fn, b: int, tok_args: tuple,
+                         t_pad: int) -> None:
+        """`warm_fused` for the batched fused admission of this (batch,
+        wav/ref/prompt shape) signature."""
+        temperature, top_k, top_p = self._resolve_sampling(None, None)
+        row = dict(tok_args=tok_args, scaffold=np.zeros(t_pad, np.int32), g_off=0, s_off=0,
+                   n_sem=0, prompt_len=1, max_new_tokens=0, temperature=temperature,
+                   top_p=top_p)
+
+        def run(scratch, gen):
+            admit_prefill_fused_batch(
+                self.params, scratch, self.cfg, [0], tokenize_fn,
+                self._stack_tok_args([row], b), assemble_fn, generator=gen, top_k=top_k,
+                **self._batch_args([row], b), **self._settings())
+
+        self._warm(self.fused_batch_key(b, tok_args, t_pad), tokenize_fn, assemble_fn, run)
+
+    @torch.inference_mode()
+    def submit_fused_batch(self, tokenize_fn, assemble_fn, requests):
+        """Admit a burst of first-time clone requests as one batched fused
+        admission (batched audio tokenize, assembly, one prefill).  Rows
+        carry tok_args (each request's `tokenize_host_prep` device args) and
+        the keys of `submit_assembled_batch` but the ids.  Returns (req_ids,
+        global ids (B, N), semantic ids (B, S_pad)) on the device, B the
+        padded batch (row i is request i's)."""
+        n = len(requests)
+        b = next((x for x in ADMIT_BATCH_LADDER if x >= n), None)
+        if n < 1 or b is None:
+            raise ValueError(f"a batched admission takes 1..{ADMIT_BATCH_LADDER[-1]} rows, got {n}")
+        sigs = {self.fused_batch_key(b, r["tok_args"], len(r["scaffold"])) for r in requests}
+        if len(sigs) != 1:
+            raise ValueError(f"a batched admission needs one shape signature, got {sigs}")
+        rows = self._take_slots(requests)
+        t_pad = len(rows[0]["scaffold"])
+        self.warm_fused_batch(tokenize_fn, assemble_fn, b, rows[0]["tok_args"], t_pad)
+        _, top_k, _ = self.sampling
+        self.slots, global_t, semantic = admit_prefill_fused_batch(
+            self.params, self.slots, self.cfg, [r["slot"] for r in rows], tokenize_fn,
+            self._stack_tok_args(rows, b), assemble_fn, generator=self.generator, top_k=top_k,
+            **self._batch_args(rows, b), **self._settings())
+        return self._register_rows(rows), global_t, semantic
+
+    # -- the step protocol --------------------------------------------------
+
     @torch.inference_mode()
     def step_begin(self, n_steps: int, chain_fn=None):
         """Enqueue one decode dispatch of n_steps snapped to the ladder;
@@ -709,12 +1251,17 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         if all(o is None for o in self.owner):
             return None
         n_steps = snap_to_ladder(n_steps, self.max_dispatch)
+        packed = self._decode(n_steps)
+        return (chain_step_result(packed, chain_fn), chain_fn, n_steps, list(self.owner))
+
+    def _decode(self, n_steps: int, capture_only: bool = False) -> Optional[torch.Tensor]:
         _, top_k, _ = self.sampling
         self.slots, packed = decode_steps(
             self.params, self.slots, self.cfg, n_steps, self.generator, top_k, self.eos_ids,
             self.pad_id, self.greedy, self.vocab_slice, self.extra_ids, self.clone_allowed,
+            capture_only,
         )
-        return (chain_step_result(packed, chain_fn), chain_fn, n_steps, list(self.owner))
+        return packed
 
     @torch.inference_mode()
     def _commit_slot_done(self, slot: int) -> None:

@@ -19,11 +19,14 @@ replay starts from where the previous one ended.  Around the capture:
   * the warm-up that must precede it (it builds the kernels, cuBLAS plans
     and the RoPE table) runs on a scratch copy of the buffers, so it never
     advances a live request's state;
-  * it is captured on a stream of its own, whose arrival counters
-    (`kernels/arrivals.py`) are made first; a graph keeps its capture
-    stream's counters wherever it replays, so units that share a capture
-    stream (PyTorch hands out pooled streams) share one lock, and never
-    replay at the same time;
+  * it is captured on a stream of its own and counts its merges on arrival
+    counters of its own (`arrivals.private`), which the graph keeps
+    wherever it replays: no other unit, and no other thread's warm-up on the
+    same pooled stream, shares them; the capture touches no other stream
+    (no device-wide synchronize), and errors only in its own thread
+    (`thread_local`), so other threads dispatch while it runs; everything
+    it writes on its stream was allocated before that stream waited for
+    the caller's (the generators' seed and offset included);
   * the unit owns a generator registered with the graph, or one per batch
     row (`n_generators`, for per-row seeds: each registered with the same
     graph); `bound` copies the caller's generator states into them before
@@ -34,9 +37,9 @@ replay starts from where the previous one ended.  Around the capture:
     per request, because JAX traces them;
   * the warm-up and the capture are set-up, not the caller's work (the
     capture records launches without running them): the wrappers'
-    `launches` ticks of both are taken back (the warm-up's are kept in
-    `setup_launches`), and every replay adds the unit's launches to
-    `REPLAYED` instead.
+    `launches` ticks of both, this thread's alone (`build.launch_tally`),
+    are taken back (the warm-up's are kept in `setup_launches`), and every
+    replay adds the unit's launches to `REPLAYED` instead.
 
 A capture or replay error raises: there is no eager fallback on the card.
 On the CPU the same unit runs its scan eagerly at each replay; nothing is
@@ -54,6 +57,7 @@ import torch
 
 from sparktts_tpu_torch.kernels import (
     arrivals,
+    build,
     decode_attention,
     flash_attention,
     int4_matmul,
@@ -108,9 +112,6 @@ def reset_launches() -> None:
             REPLAYED[name] = 0
 
 
-_stream_locks: Dict[Tuple[int, int], threading.RLock] = {}
-
-
 class DecodeUnit:
     """U decode steps over fixed state buffers: one CUDA graph on the card,
     the eager scan on the CPU."""
@@ -145,35 +146,47 @@ class DecodeUnit:
         out.copy_(torch.cat([toks.int(), valid.int()], dim=1))
 
     def _capture(self) -> None:
-        stream = torch.cuda.Stream(self.device)
-        arrivals.prepare(stream)
-        with _replayed_lock:
-            self.lock = _stream_locks.setdefault(arrivals.stream_key(stream), threading.RLock())
-        before = {name: m.launches for name, m in KERNELS.items()}
+        with arrivals.private(self.device) as counters:
+            self._counters = counters  # bound by the graph: kept as long as the unit
+            self._capture_on(torch.cuda.Stream(self.device))
+
+    def _capture_on(self, stream: torch.cuda.Stream) -> None:
+        graph = torch.cuda.CUDAGraph()
+        # registering a generator allocates its seed and offset on the
+        # caller's stream, and capture_begin writes them on `stream`: so
+        # register before `stream` waits for the caller's stream.  The block
+        # may have been freed by another thread a moment before, with work
+        # still queued that reads it (unordered, the writes landed in a live
+        # dispatch's step result)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         scratch = _clone(self.state)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
+        with build.launch_tally() as warm, torch.cuda.stream(stream):
             self._body(scratch, torch.empty_like(self.out))
         stream.synchronize()
         del scratch
-        warm = {name: m.launches - before[name] for name, m in KERNELS.items()}
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        for generator in self.generators:
-            graph.register_generator_state(generator)
+        reserved = torch.cuda.memory_reserved(self.device)  # the graph's pool is new segments
         caller = torch.cuda.current_stream(self.device)
         t0 = time.perf_counter()
+        # capture_begin/end, not `torch.cuda.graph`: that context synchronizes
+        # the whole card, runs the garbage collector and empties the cache
+        # first, which would stall every other thread's dispatches (a server
+        # captures in background threads while it serves)
         try:
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                self._body(self.state, self.out)
+            with build.launch_tally() as captured, torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._body(self.state, self.out)
+                finally:
+                    graph.capture_end()
         finally:
             torch.cuda.set_stream(caller)  # a failed capture leaves its stream current
+            # set-up, this thread's launches only: replays count the unit's
             for name, m in KERNELS.items():
-                n = m.launches - before[name]
-                m.launches -= n  # set-up: replays count the unit's launches
-                self.setup_launches[name] = warm[name]
-                self.unit_launches[name] = n - warm[name]
+                m.launches -= warm.get(name, 0) + captured.get(name, 0)
+                self.setup_launches[name] = warm.get(name, 0)
+                self.unit_launches[name] = captured.get(name, 0)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
@@ -235,19 +248,31 @@ def unpack(outs: List[torch.Tensor], steps: int) -> Tuple[torch.Tensor, torch.Te
 
 
 _units: Dict[Hashable, DecodeUnit] = {}
-_units_lock = threading.Lock()
+_units_lock = threading.Lock()  # guards the two dicts, never held during a build
+_building: Dict[Hashable, threading.Lock] = {}  # one lock per key being built
 
 
 def unit(key: Hashable, device: torch.device, build: Callable[[], DecodeUnit]) -> DecodeUnit:
     """The captured unit of `key` on a card, built (and captured) by `build`
-    on first use; on the CPU a fresh unit every call."""
+    on first use; on the CPU a fresh unit every call.  A build holds only
+    its key's lock: a lookup of a unit already built never waits for the
+    capture of another (35-1000 ms), and callers of one key wait for its
+    single build."""
     if device.type != "cuda":
         return build()
     with _units_lock:
         u = _units.get(key)
+        if u is not None:
+            return u
+        lock = _building.setdefault(key, threading.Lock())
+    with lock:
+        with _units_lock:
+            u = _units.get(key)
         if u is None:
             u = build()
-            _units[key] = u
+            with _units_lock:
+                _units[key] = u
+                _building.pop(key, None)
         return u
 
 

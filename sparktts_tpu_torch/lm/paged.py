@@ -42,6 +42,7 @@ from sparktts_tpu_torch.lm.continuous import (
     _mode_masked,
     advance_slots,
     chain_step_result,
+    decode_unit,
     dispatch_steps,
     install_slot,
     prefill_one,
@@ -162,7 +163,8 @@ def paged_decode_steps(
     vocab_slice: Optional[Tuple[int, int]] = None,
     extra_ids: Tuple[int, ...] = (),
     allowed: Optional[torch.Tensor] = None,
-) -> Tuple[PagedSlotState, torch.Tensor]:
+    capture_only: bool = False,
+) -> Tuple[PagedSlotState, Optional[torch.Tensor]]:
     """Advance every active slot up to n_steps tokens over the paged pools.
     Returns (slots, packed (B, 2n+1)): the dense engine's `decode_steps`
     contract (budget limit on the device, per-slot mode constraint, one
@@ -180,6 +182,9 @@ def paged_decode_steps(
     static = (cfg, top_k, eos_ids, pad_id, greedy, vocab_slice, extra_ids,
               None if allowed is None else allowed.data_ptr())
     kind = "paged engine, greedy" if greedy else "paged engine"
+    if capture_only:
+        decode_unit(kind, params, slots, n_steps, make_step, static)
+        return slots, None
     return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
 
 
@@ -403,12 +408,17 @@ class PagedContinuousEngine(StepProtocolMixin):
         for slot, req in enumerate(self.owner):
             if req is not None:
                 self.steps_inflight[slot] += n_steps
+        packed = self._decode(n_steps)
+        return (chain_step_result(packed, chain_fn), chain_fn, n_steps, list(self.owner))
+
+    def _decode(self, n_steps: int, capture_only: bool = False) -> Optional[torch.Tensor]:
         _, top_k, _ = self.sampling
         self.slots, packed = paged_decode_steps(
             self.params, self.slots, self.cfg, n_steps, self.generator, top_k, self.eos_ids,
             self.pad_id, self.greedy, self.vocab_slice, self.extra_ids, self.clone_allowed,
+            capture_only,
         )
-        return (chain_step_result(packed, chain_fn), chain_fn, n_steps, list(self.owner))
+        return packed
 
     def step_commit(self, handle, fetched):
         # release this dispatch's in-flight step bookings before the shared

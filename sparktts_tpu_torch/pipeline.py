@@ -26,6 +26,7 @@ JAX package's keys, or at random from `seed`.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
 import os
@@ -42,6 +43,7 @@ from sparktts_tpu_torch import checkpoint as ckpt
 from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
 from sparktts_tpu_torch.config import SparkTTSConfig, load_spark_config
 from sparktts_tpu_torch.io.audio import get_ref_clip, load_audio
+from sparktts_tpu_torch.lm.continuous import to_device
 from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.sample import Generators
 from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
@@ -55,6 +57,7 @@ from sparktts_tpu_torch.prompt import (
     extract_semantic_ids,
     padded_global_tokens,
 )
+from sparktts_tpu_torch.utils.profiling import stage
 from sparktts_tpu_torch.utils.textseg import pack_segments
 from sparktts_tpu_torch.weights import (
     bicodec_state,
@@ -98,6 +101,33 @@ def codec_tokenize(
     feat = wav2vec2_features(w2v_params, wav, cfg.wav2vec2, feature_mask)
     semantic, global_ids = bicodec_tokenize(bicodec_params, cfg.bicodec, feat, ref_wav)
     return global_ids, semantic
+
+
+def assemble_ids(global_base: int, semantic_base: int, scaffolds, global_ids: torch.Tensor,
+                 semantic: torch.Tensor, g_offs, s_offs, n_sems) -> torch.Tensor:
+    """Each row's codec ids gathered into its prompt scaffold on the
+    device (a masked gather, no host read): scaffolds (B, t_pad) int32 from
+    `clone_prompt_scaffold`, left- or right-padded; global_ids (B, N) and
+    semantic (B, S_pad) on the device; g_offs, s_offs, n_sems (B,): each
+    row's global and semantic offsets and how many semantic ids it takes
+    (0 = none).  Host arguments go up without blocking.  Returns (B, t_pad)
+    int32 ids, equal to `build_clone_prompt` at those positions."""
+    dev = global_ids.device
+
+    def up(a, dtype):
+        return a.to(dev) if isinstance(a, torch.Tensor) else to_device(np.asarray(a, dtype), dev)
+
+    scaffolds = up(scaffolds, np.int32)
+    g_off, s_off, n_sem = (up(a, np.int64)[:, None] for a in (g_offs, s_offs, n_sems))
+    g = global_ids.to(torch.int64)
+    s = semantic.to(torch.int64)
+    pos = torch.arange(scaffolds.shape[1], device=dev)[None, :]
+    n_g = g.shape[1]
+    from_g = torch.gather(g, 1, (pos - g_off).clamp(0, n_g - 1)) + global_base
+    from_s = torch.gather(s, 1, (pos - s_off).clamp(0, s.shape[1] - 1)) + semantic_base
+    in_g = (pos >= g_off) & (pos < g_off + n_g)
+    in_s = (pos >= s_off) & (pos < s_off + n_sem)
+    return torch.where(in_g, from_g, torch.where(in_s, from_s, scaffolds)).to(torch.int32)
 
 
 class SparkTTSPipeline:
@@ -179,6 +209,10 @@ class SparkTTSPipeline:
         self._voice_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
         self._voice_lock = threading.Lock()
         self.voice_cache_stats = {"hits": 0, "misses": 0}
+        # per-shape device functions with stable identities (the engines key
+        # their registry of ready admissions on them, as JAX keys its jit cache)
+        self._fn_cache: dict = {}
+        self._fn_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # weights
@@ -436,14 +470,49 @@ class SparkTTSPipeline:
         return get_ref_clip(wav, self.sample_rate, cfg.ref_segment_duration,
                             cfg.latent_hop_length).astype(np.float32)
 
-    def tokenize_host_prep(self, audio) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-        """Host half of audio tokenization: (wav (1, P) float32: the
-        normalised wav zero-padded to whole wav buckets; feature_mask (1, F)
-        bool: its true wav2vec2 frames; ref_wav (1, R) float32: the 6 s
-        reference clip; the true semantic id count)."""
+    def _cached_fn(self, key: tuple, make):
+        with self._fn_lock:
+            fn = self._fn_cache.get(key)
+            if fn is None:
+                fn = self._fn_cache[key] = make()
+            return fn
+
+    def _tokenize_fn(self, wav_len: int, ref_len: int):
+        """The device half of audio tokenization for one (wav bucket, ref
+        clip) shape: fn(w2v params, codec params, wav, feature_mask,
+        ref_wav) -> (global ids, semantic ids).  One object per shape."""
+        cfg = self.config
+
+        def make():
+            def fn(w2v_params, bc_params, wav, feature_mask, ref_wav):
+                return codec_tokenize(w2v_params, bc_params, cfg, wav, feature_mask, ref_wav)
+            return fn
+
+        return self._cached_fn(("tokenize", wav_len, ref_len), make)
+
+    def _assemble_fn_batch(self, t_pad: int, s_pad: int):
+        """`assemble_ids` with this tokenizer's bases, one object per (t_pad,
+        S_pad) prompt shape."""
+        tok = self.tokenizer
+        return self._cached_fn(("assemble_b", t_pad, s_pad), lambda: functools.partial(
+            assemble_ids, tok.global_base, tok.semantic_base))
+
+    def tokenize_host_prep(self, audio):
+        """Host half of audio tokenization: the wav loaded, normalised and
+        zero-padded to whole wav buckets, its wav2vec2 frame mask and its
+        reference clip, sent to the device without blocking.  Returns
+        (tokenize_fn, tok_args, true semantic count, S_pad): `tokenize_fn(
+        *tok_args)` is the device half (`tokenize_audio_device`), or a part
+        of a longer chain of device work (the engine's fused admission);
+        tok_args = (w2v params, codec params, wav (1, P), feature_mask (1,
+        F), ref_wav (1, R))."""
         wav = self._load_prompt_wav(audio)
         wav_in, feature_mask, (true_sem,) = self._pad_wavs([wav])
-        return wav_in, feature_mask, self._ref_clip(wav)[None, :], true_sem
+        ref = self._ref_clip(wav)[None, :]
+        fn = self._tokenize_fn(wav_in.shape[1], ref.shape[1])
+        tok_args = (self.w2v_params, self.bicodec_params,
+                    *(to_device(a, self.device) for a in (wav_in, feature_mask, ref)))
+        return fn, tok_args, true_sem, feature_mask.shape[1] // self._enc_ratio
 
     _KEY_UNSET = object()
 
@@ -460,11 +529,9 @@ class SparkTTSPipeline:
             hit = self.voice_cache_get(cache_key)
             if hit is not None:
                 return hit
-        *arrays, true_sem = self.tokenize_host_prep(audio)
-        global_ids, semantic = codec_tokenize(
-            self.w2v_params, self.bicodec_params, self.config,
-            *(torch.from_numpy(a).to(self.device) for a in arrays),
-        )
+        fn, tok_args, true_sem, _ = self.tokenize_host_prep(audio)
+        with stage("tokenize_audio"):
+            global_ids, semantic = fn(*tok_args)
         self.voice_cache_put(cache_key, (global_ids, semantic, true_sem))
         return global_ids, semantic, true_sem
 
@@ -483,10 +550,11 @@ class SparkTTSPipeline:
         wavs = [np.asarray(w, dtype=np.float64) for w in wavs]
         wav_in, feature_mask, counts = self._pad_wavs(wavs)
         refs = np.stack([self._ref_clip(w) for w in wavs])
-        global_ids, semantic = codec_tokenize(
-            self.w2v_params, self.bicodec_params, self.config,
-            *(torch.from_numpy(a).to(self.device) for a in (wav_in, feature_mask, refs)),
-        )
+        fn = self._tokenize_fn(wav_in.shape[1], refs.shape[1])
+        with stage("tokenize_audio_batch"):
+            global_ids, semantic = fn(self.w2v_params, self.bicodec_params,
+                                      *(to_device(a, self.device)
+                                        for a in (wav_in, feature_mask, refs)))
         return global_ids, semantic, counts
 
     def tokenize_audio_batch(self, wavs) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -504,26 +572,11 @@ class SparkTTSPipeline:
     def assemble_clone_ids_batch(self, scaffolds, global_ids, semantic, g_offs, s_offs,
                                  n_sems) -> torch.Tensor:
         """Each row's codec ids gathered into its scaffold on the device
-        (a masked gather: no host sync).  scaffolds (B, t_pad) int32 from
-        `clone_prompt_scaffold`, left- or right-padded; global_ids (B, N) and
-        semantic (B, S_pad) on the device; g_offs, s_offs, n_sems (B,): each
-        row's global and semantic offsets and how many semantic ids it takes
-        (0 = none).  Returns (B, t_pad) int32 ids, equal to
-        `build_clone_prompt` at those positions."""
-        dev = global_ids.device
-        scaffolds = torch.as_tensor(np.asarray(scaffolds, np.int32), device=dev)
-        g = global_ids.to(torch.int64)
-        s = semantic.to(torch.int64)
-        g_off, s_off, n_sem = (torch.as_tensor(np.asarray(a, np.int64), device=dev)[:, None]
-                               for a in (g_offs, s_offs, n_sems))
-        pos = torch.arange(scaffolds.shape[1], device=dev)[None, :]
-        n_g = g.shape[1]
-        from_g = torch.gather(g, 1, (pos - g_off).clamp(0, n_g - 1)) + self.tokenizer.global_base
-        from_s = torch.gather(s, 1, (pos - s_off).clamp(0, s.shape[1] - 1))
-        from_s = from_s + self.tokenizer.semantic_base
-        in_g = (pos >= g_off) & (pos < g_off + n_g)
-        in_s = (pos >= s_off) & (pos < s_off + n_sem)
-        return torch.where(in_g, from_g, torch.where(in_s, from_s, scaffolds)).to(torch.int32)
+        (`assemble_ids`): (B, t_pad) int32 ids equal to `build_clone_prompt`
+        at those positions."""
+        scaffolds = np.asarray(scaffolds, np.int32)
+        return self._assemble_fn_batch(scaffolds.shape[1], semantic.shape[1])(
+            scaffolds, global_ids, semantic, g_offs, s_offs, n_sems)
 
     def assemble_clone_ids(self, scaffold, global_ids, semantic, g_off: int, s_off: int,
                            n_sem: int) -> torch.Tensor:
@@ -633,10 +686,11 @@ class SparkTTSPipeline:
         `lm/graphs.py`), which takes the state of this request's generator,
         seeded with `seed`."""
         input_ids, mask = self.prompt_inputs(prompt_ids)
-        tokens, lengths = self._generate(
-            input_ids, mask, torch.Generator(device=self.device).manual_seed(seed),
-            max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
-        return tokens[0, : int(lengths[0])].cpu().numpy()
+        with stage("llm_generate"):
+            tokens, lengths = self._generate(
+                input_ids, mask, torch.Generator(device=self.device).manual_seed(seed),
+                max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
+            return tokens[0, : int(lengths[0])].cpu().numpy()
 
     def batch_inputs(self, prompts: Sequence[Sequence[int]]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Prompts -> (input_ids (B, T_pad) int64, mask (B, T_pad) bool) on
@@ -671,41 +725,128 @@ class SparkTTSPipeline:
         (`seed_generators`: a row's ids then depend on its own prompt and
         seed alone)."""
         input_ids, mask = self.batch_inputs(prompts)
-        tokens, lengths = self._generate(
-            input_ids, mask, seed_generators(seed, len(prompts), self.device),
-            max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
-        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        with stage("llm_generate_batch"):
+            tokens, lengths = self._generate(
+                input_ids, mask, seed_generators(seed, len(prompts), self.device),
+                max_new_tokens or self.max_new_tokens, temperature, top_k, top_p, greedy, mode)
+            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         return [tokens[i, : int(n)] for i, n in enumerate(lengths)]
 
     # ------------------------------------------------------------------
     # vocode
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def detokenize(self, global_tokens, semantic_tokens) -> np.ndarray:
-        """(global (1, N), semantic (1, T)) -> waveform float32 (T * hop,)."""
-        return self.detokenize_batch(np.asarray(global_tokens).reshape(1, -1),
-                                     [semantic_tokens])[0]
-
-    @torch.inference_mode()
-    def detokenize_batch(self, global_tokens, semantic_list) -> List[np.ndarray]:
-        """Global ids (B, N) and B semantic id arrays -> B waveforms: one
-        vocode of the batch, each row edge-replicated to the longest row's
-        vocode bucket (no spectral step at the crop point), then cropped to
-        its own length."""
+    def _vocode(self, global_tokens, semantic_list) -> List[np.ndarray]:
         semantic_list = [np.asarray(s, np.int64).reshape(-1) for s in semantic_list]
+        b = len(semantic_list)
         t_pad = _round_up(max(max(len(s) for s in semantic_list), 1), self.vocode_bucket)
-        padded = np.zeros((len(semantic_list), t_pad), np.int64)
+        padded = np.zeros((b, t_pad), np.int64)
         for i, s in enumerate(semantic_list):
             padded[i, : len(s)] = s
             if 0 < len(s) < t_pad:
                 padded[i, len(s) :] = s[-1]
-        global_t = torch.as_tensor(np.asarray(global_tokens, np.int64), device=self.device)
+        if isinstance(global_tokens, torch.Tensor):
+            # ids the device produced stay there: no host round trip
+            global_t = global_tokens.to(self.device, torch.int64).reshape(b, -1)
+        else:
+            global_t = to_device(np.asarray(global_tokens, np.int64).reshape(b, -1), self.device)
         wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec,
-                                 torch.from_numpy(padded).to(self.device),
-                                 global_t.reshape(len(semantic_list), -1))
+                                 to_device(padded, self.device), global_t)
         wav = wav.float().cpu().numpy()
         return [wav[i, : len(s) * self._wave_upsample] for i, s in enumerate(semantic_list)]
+
+    @torch.inference_mode()
+    def detokenize(self, global_tokens, semantic_tokens) -> np.ndarray:
+        """(global (1, N), semantic (1, T)) -> waveform float32 (T * hop,).
+        The global ids may be a device tensor (a device-chained admission's)."""
+        with stage("vocode"):
+            return self._vocode(global_tokens, [semantic_tokens])[0]
+
+    @torch.inference_mode()
+    def detokenize_batch(self, global_tokens, semantic_list) -> List[np.ndarray]:
+        """Global ids (B, N), a host array or a device tensor, and B semantic
+        id arrays -> B waveforms: one vocode of the batch, each row
+        edge-replicated to the longest row's vocode bucket (no spectral step
+        at the crop point), then cropped to its own length."""
+        with stage("vocode_batch"):
+            return self._vocode(global_tokens, semantic_list)
+
+    def _spec_chain_fn(self, batch: int, target: int):
+        """The speculative first-chunk chain for one (batch, target): gather
+        the listed rows of a dispatch's packed result, take each row's
+        `target` ids from its offset as semantic ids (edge-replicated to the
+        vocode bucket, as `detokenize` pads), take a controllable row's
+        speaker ids from its own emission, vocode the batch, and return the
+        flat int32 transfer: the packed result, then the chunks' float32
+        bits.  One object per signature."""
+        t_pad = _round_up(max(target, 1), self.vocode_bucket)
+        cfg, tok = self.config, self.tokenizer
+        tn = cfg.bicodec.speaker_encoder.token_num
+        up = self._wave_upsample
+
+        def make():
+            def fn(bc_params, packed, slot_ids, offs, ctrl, globs):
+                rows = packed[slot_ids].long()  # (B, W)
+                steps = torch.arange(target, device=packed.device)
+                ids = torch.gather(rows, 1, offs[:, None] + steps[None, :])
+                sem = (ids - tok.semantic_base).clamp(0, tok.n_semantic - 1)
+                pad = torch.arange(t_pad, device=packed.device).clamp(max=target - 1)
+                g_pack = (rows[:, 1 : 1 + tn] - tok.global_base).clamp(0, tok.n_global - 1)
+                g = torch.where(ctrl[:, None], g_pack, globs)
+                wav = bicodec_detokenize(bc_params, cfg.bicodec, sem[:, pad], g)
+                bits = wav[:, : target * up].float().contiguous().reshape(-1).view(torch.int32)
+                return torch.cat([packed.reshape(-1), bits])
+            return fn
+
+        return self._cached_fn(("spec_chain", batch, target, t_pad), make)
+
+    def spec_vocode_chain(self, slot: int, target: int, global_tokens):
+        """Single-slot `spec_vocode_chain_multi`."""
+        return self.spec_vocode_chain_multi([(slot, target, 0, global_tokens)], 1)
+
+    def spec_vocode_chain_multi(self, specs, batch: int):
+        """A `chain_fn` for the continuous engines' `step_begin`: vocode the
+        first streaming chunk of every listed slot behind the decode
+        dispatch, in the same stream and one batched vocode, and pack the
+        waveform bits behind the step result, so the host fetches tokens
+        and chunks in one transfer.
+
+        `specs`: (slot, target, sem_off, global ids or None).  A clone
+        stream passes its speaker ids (on the device or the host) and
+        sem_off 0: its first `target` emissions are taken as semantic ids.
+        A controllable stream passes None and sem_off token_num + 2: its
+        emission is taken to be the trained layout `<|start_global_token|>
+        g * token_num <|end_global_token|> semantic ...`, so the speaker ids
+        come from this dispatch's own tokens.  All targets must be equal;
+        `batch` pads the rows (repeating row 0) to a warm batch size.  The
+        caller validates each row against the fetched tokens and takes the
+        normal vocode path for a row that misses.  A validated chunk equals
+        `detokenize_batch` of the same rows padded the same way, bit for
+        bit."""
+        if not specs or batch < len(specs):
+            raise ValueError(f"{len(specs)} specs for a batch of {batch}")
+        target = specs[0][1]
+        if any(t != target for _, t, _, _ in specs):
+            raise ValueError("speculative chunks of one chain need one target")
+        dev = self.device
+        tn = self.config.bicodec.speaker_encoder.token_num
+        fn = self._spec_chain_fn(batch, target)
+        rows = list(specs) + [specs[0]] * (batch - len(specs))
+        slot_ids, offs = (to_device(np.asarray([r[i] for r in rows], np.int64), dev)
+                          for i in (0, 2))
+        ctrl = to_device(np.asarray([r[3] is None for r in rows]), dev)
+        globs = torch.cat([
+            torch.zeros((1, tn), dtype=torch.int64, device=dev) if g is None
+            else g.to(dev, torch.int64).reshape(1, -1) if isinstance(g, torch.Tensor)
+            else to_device(np.asarray(g, np.int64).reshape(1, -1), dev)
+            for *_, g in rows
+        ])
+        bc_params = self.bicodec_params
+
+        def chain(packed: torch.Tensor) -> torch.Tensor:
+            return fn(bc_params, packed, slot_ids, offs, ctrl, globs)
+
+        return chain
 
     @torch.inference_mode()
     def generate_and_vocode_batch(
@@ -735,10 +876,11 @@ class SparkTTSPipeline:
         tok = self.tokenizer
         max_new = max_new_tokens or self.max_new_tokens
         b = input_ids.shape[0]
-        tokens, lengths = self._generate(
-            input_ids.to(self.device, torch.int64), mask.to(self.device),
-            seed_generators(seed, b, self.device), max_new, temperature, top_k, top_p, greedy,
-            "clone")
+        with stage("llm_generate_vocode_fused"):
+            tokens, lengths = self._generate(
+                input_ids.to(self.device, torch.int64), mask.to(self.device),
+                seed_generators(seed, b, self.device), max_new, temperature, top_k, top_p,
+                greedy, "clone")
         last = torch.gather(tokens, 1, (lengths - 1).clamp_min(0)[:, None])[:, 0]
         is_eos = torch.zeros_like(lengths, dtype=torch.bool)
         for e in tok.eos_ids:

@@ -812,6 +812,41 @@ def test_failed_capture_raises_and_is_not_kept():
     assert float(torch.ones(1, device=dev).add_(1)) == 2.0
 
 
+@pytest.mark.cuda
+def test_capture_writes_nothing_queued_work_still_reads(monkeypatch):
+    """A unit's capture writes its generators' seed and offset on its own
+    stream, into blocks allocated on the caller's.  Here, just before the
+    first registration, work on the caller's stream (as another thread's
+    dispatch would) queues copies behind a long sleep and frees their
+    sources, so the allocator hands those blocks out again: the copies
+    must still read what their sources held."""
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.generate import GenState
+
+    dev = _cuda()
+    state = GenState(*(torch.zeros(2, dtype=torch.long, device=dev) for _ in range(6)))
+    copies = []
+
+    class Racing(torch.cuda.CUDAGraph):
+        def register_generator_state(self, generator):
+            if not copies:
+                src = [torch.full((2,), 5, dtype=torch.long, device=dev) for _ in range(16)]
+                torch.cuda._sleep(100_000_000)  # ~50 ms of the caller's stream
+                copies.extend(s.clone() for s in src)
+                del src
+            return super().register_generator_state(generator)
+
+    def make_scan(_generator):
+        return lambda s: (s, s.cur_token[:, None], s.done[:, None].bool())
+
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Racing)
+    graphs.DecodeUnit(make_scan, state, 1, n_generators=4)
+    torch.cuda.synchronize()
+    assert len(copies) == 16
+    assert all(c.tolist() == [5, 5] for c in copies)
+
+
 def _eager_dispatch(monkeypatch):
     """Both engines dispatch as their step functions in a Python loop."""
     from sparktts_tpu_torch.lm import continuous, graphs, paged
@@ -865,3 +900,72 @@ def test_engine_units_equal_the_eager_loop(monkeypatch, kind, greedy):
     _eager_dispatch(monkeypatch)
     want = serve()
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+# ------------------------------------------------- the continuous server's shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poss", [
+    # eight live slots of the dense server's cache (960): creation prompts of
+    # 44 tokens, clones of 419 and 153, mid-burst and near their budgets
+    [300, 250, 700, 610, 250, 900, 510, 800],
+    [543, 543, 918, 918, 653, 959, 44, 419],
+])
+def test_decode_kernel_at_the_dense_servers_state(poss):
+    """Kernel 2 as the dense server's dispatches call it: B = 8 slots of a
+    960-key cache, every window from 0; within the bf16 tolerance of plain
+    and of its split model, two calls bit-equal."""
+    dev = _cuda()
+    q, ck, cv, start, pos = _decode_case(dev, 8, 960, [0] * 8, poss, seed=11)
+    got = da.dense_decode_attention(q, ck, cv, 1, start, pos, sm_scale=0.125)
+    assert torch.equal(got, da.dense_decode_attention(q, ck, cv, 1, start, pos, sm_scale=0.125))
+    want = da.dense_decode_plain(q, ck, cv, 1, start, pos, sm_scale=0.125)
+    split = da.dense_decode_split_plain(q, ck, cv, 1, start, pos, sm_scale=0.125,
+                                        chunk=da.kernel_chunk())
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(got, split.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_at_the_paged_servers_state():
+    """Kernel 6 as the paged server calls it: 256-token pages, 4 a slot, 8
+    slots mid-burst and one finished (one past its table); within the bf16
+    tolerance of plain and of its split model, two calls bit-equal."""
+    dev = _cuda()
+    q, kp, vp, table, lens = _paged_case(dev, 256, [300, 520, 700, 780, 260, 1025, 600, 900],
+                                         layers=4, seed=12)
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, 2, sm_scale=0.125)
+    assert torch.equal(got, pa.paged_decode_attention(q, kp, vp, table, lens, 2, sm_scale=0.125))
+    want = pa.paged_decode_plain(q, kp, vp, table, lens, 2, sm_scale=0.125)
+    split = pa.paged_decode_split_plain(q, kp, vp, table, lens, 2, sm_scale=0.125,
+                                        chunk=pa.kernel_chunk())
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(got, split.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+# a batched window of 100 tokens (two vocode buckets): each decoder block's
+# unit at B = 2, 4 and 8 rows
+@pytest.mark.parametrize("b", (2, 4, 8))
+@pytest.mark.parametrize("c,t", [(768, 800), (96, 32000)])
+def test_vocoder_kernel_at_the_servers_batched_windows(b, c, t):
+    """Kernel 3 as the server's batched vocode calls it: within 1e-4
+    max|plain| of the plain unit and `_vocoder_model_tol(c)` of its model,
+    two calls bit-equal, and each row equal to the kernel on that row alone
+    within the same tolerance."""
+    dev = _cuda()
+    p = _residual_unit(c, dev, seed=b)
+    x = torch.randn((b, t, c), generator=torch.Generator().manual_seed(b + c)).to(dev)
+    got = vf.fused_residual_unit(p, x, 3)
+    assert torch.equal(got, vf.fused_residual_unit(p, x, 3))
+    with full_fp32():
+        want = vf.fused_residual_unit_plain(p, x, 3)
+        model = vf.residual_unit_3xtf32_plain(p, x, 3)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float((got - model).abs().max()) / float(model.abs().max()) <= _vocoder_model_tol(c)
+    row = vf.fused_residual_unit(p, x[1:2].contiguous(), 3)
+    assert float((got[1:2] - row).abs().max()) <= 1e-4 * scale
