@@ -159,12 +159,27 @@ and capture are set-up, counted apart).
 27. a decode unit captured by a background thread while the vocode worker
    renders: the live dispatches' unit lookups wait less than the capture,
    and the ids equal a run without it.
+28. the HTTP front door (`serve/server.serve_http`, dense, voice cache on,
+   warm-up with one wav bucket) over a full-width pipeline of its own,
+   driven over the socket by the port's client and raw HTTP, counts 0 after
+   warm-up and read after the routes: /health; /tts creation and clone (16
+   kHz, 320 samples a semantic id); four concurrent /tts creations in fewer
+   than four batches; /tts_stream NDJSON ending {"done": true};
+   /v1/audio/speech as wav, pcm and a stream (ms to its first audio byte);
+   a voice registered, used and deleted; a text over 600 characters through
+   longform; 400 for malformed JSON, the OpenAI 404 envelope for an unknown
+   voice; a greedy (top_k 1) /tts equal to generate_tokens_batch (greedy)
+   + detokenize_batch within WINDOW_REL_TOL of the peak; the front's cost
+   over the same request by a direct call; kernels 1, 2 and 3 launched.
+   Then the leak check: stopped and dropped, its pipeline and servers leave
+   memory_allocated within LEAK_MARGIN_MIB of its value before the phase,
+   and none of their decode units.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
-17, 19 to 23 and the server bursts of 24 to 27, its times those of the
-voice-creation shapes, for the int8
-MLP one call at one row, for the int4 matvec the four calls of one layer at
+17, 19 to 23, the server bursts of 24 to 27 and phase 28's routes, its
+times those of the voice-creation shapes, for the int8 MLP one call at one
+row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
 flash, decode, vocoder and paged entries list every timed shape in
 `by_shape`: both requests' and the B = 4 batch's and, for decode, the dense
@@ -1767,7 +1782,7 @@ def eager_dispatch():
     graph path): `dispatch_steps` replaced for the block, restored after."""
     from sparktts_tpu_torch.lm import continuous, graphs, paged
 
-    def dispatch(kind, params, slots, n_steps, generator, make_step, static):
+    def dispatch(kind, params, slots, n_steps, generator, make_step, static, units=None):
         new, toks, valid = continuous.scan_steps(n_steps, slots, make_step(generator))
         for mine, theirs in zip(graphs.tensors(slots), graphs.tensors(new)):
             if mine is not theirs:
@@ -1912,7 +1927,7 @@ def check_failed_capture(dev):
             return s, s.cur_token[:, None], s.done[:, None].bool()
         return scan
 
-    n = len(graphs.units())
+    n = graphs.builds()
     try:
         graphs.unit(("failing",), dev, lambda: graphs.DecodeUnit(make_scan, state, 1))
     except RuntimeError as e:
@@ -1920,7 +1935,7 @@ def check_failed_capture(dev):
               f"{str(e).splitlines()[0][:160]}")
     else:
         raise AssertionError("a capture with a host read inside did not raise")
-    if len(graphs.units()) != n:
+    if graphs.builds() != n or ("failing",) in graphs.SHARED:
         raise AssertionError("a failed capture was kept")
     torch.ones(1, device=dev).add_(1)
     _sync(dev)
@@ -2827,7 +2842,7 @@ def server_burst(label, server, requests, trace_path=None, before_sync=None):
     async def go():
         await server.start()
         _sync(pipe.device)
-        units = len(graphs.units())
+        units = graphs.builds()
         _reset_counts()
         t0 = time.perf_counter()
         tasks = [asyncio.create_task(one(lbl, kw, st)) for lbl, kw, st, w in requests if w == 1]
@@ -2843,7 +2858,7 @@ def server_burst(label, server, requests, trace_path=None, before_sync=None):
         _sync(pipe.device)
         wall = time.perf_counter() - t0
         launches = _counts()
-        new_units = len(graphs.units()) - units
+        new_units = graphs.builds() - units
         await server.stop()
         return wall, launches, new_units
 
@@ -3108,11 +3123,10 @@ def check_server_threads(pipe, requests):
     rendering, captured, waits = threading.Event(), {}, []
     real_unit, real_scalar, real_group = graphs.unit, server._vocode_scalar, server._vocode_group
 
-    def timed_unit(key, device, build):
-        with graphs._units_lock:
-            built = key in graphs._units  # a lookup, not the server's own capture at start
+    def timed_unit(key, device, build, cache=None):
+        built = key in cache  # a lookup, not the server's own capture at start
         t0 = time.perf_counter()
-        u = real_unit(key, device, build)
+        u = real_unit(key, device, build, cache)
         if built and threading.current_thread() is threading.main_thread():
             waits.append((time.perf_counter() - t0) * 1e3)
         return u
@@ -3129,11 +3143,10 @@ def check_server_threads(pipe, requests):
 
         rendering.wait(timeout=120)
         with torch.inference_mode():
-            before = {id(u) for u in graphs.units()}
             eng = ContinuousBatchingEngine(pipe.llm_params, pipe.config.llm, max_slots=3,
                                            cache_len=256, **_engine_kwargs(pipe, True))
             eng.warm_units()
-            new = [u for u in graphs.units() if id(u) not in before]
+            new = [u for u in graphs.units() if u.owner == eng.units.tag]
         captured["ms"] = max(u.capture_ms for u in new) if new else None
 
     graphs.unit = timed_unit
@@ -3274,6 +3287,335 @@ def run_servers(pipe, wav_path: Path, bare_tokens_per_s: float, int8_params):
     return launches, items, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the HTTP front door (`serve/server.py`) over a real socket
+# ---------------------------------------------------------------------------
+
+FRONT_TEXTS = ("The front door speaks over HTTP.", "Four voices at once.",
+               "A third one joins.", "And a fourth.")
+# more than OPENAI_LONGFORM_AUTO_CHARS (600): /v1/audio/speech takes longform
+FRONT_LONG_TEXT = " ".join(
+    f"Part {n} of a long text reads on in the same voice, one sentence after another."
+    for n in ("one", "two", "three", "four", "five", "six", "seven", "eight"))
+FRONT_SEGMENT_CHARS = 120  # a segment's prompt fits the streaming engine's prompt room
+# memory_allocated after the phase, its pipeline and servers dropped, against
+# before it (cuBLAS's per-stream workspaces cleared at both readings): a
+# leaked pipeline holds ~2.5 GiB, a leaked decode unit its 48-68 MiB pool
+LEAK_MARGIN_MIB = 64
+FRONT_PAIRS = 3  # requests a side for the front's cost, alternating which goes first
+
+
+def _http(port, path, payload=None, method="POST", raw=None, first_audio_byte=None):
+    """One request on a fresh connection: (status, headers, body, wall ms,
+    ms to the byte at offset `first_audio_byte` of the body, or None)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    body = raw if raw is not None else (b"" if payload is None else json.dumps(payload).encode())
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    first_ms = None
+    if first_audio_byte is not None:
+        head = resp.read(first_audio_byte + 1)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        data = head + resp.read()
+    else:
+        data = resp.read()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    headers = dict(resp.getheaders())
+    conn.close()
+    return resp.status, headers, data, wall_ms, first_ms
+
+
+def _wav_body(data: bytes):
+    """(sample rate, int16 samples) of a 16-bit PCM RIFF body."""
+    import struct
+
+    import numpy as np
+
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise AssertionError("front door: the body is not a RIFF/WAVE file")
+    return struct.unpack_from("<I", data, 24)[0], np.frombuffer(data[44:], dtype="<i2")
+
+
+def _check_audio(label, wav, sr, up=320):
+    import numpy as np
+
+    if sr != 16000 or not wav.size or not np.isfinite(wav).all() or wav.size % up:
+        raise AssertionError(f"front door: {label}: {wav.size} samples at {sr} Hz, "
+                             f"finite {bool(np.isfinite(wav).all())}")
+
+
+def run_front_door(wav_path: Path, smi: str):
+    """Phase 28: serve_http over a full-width dense pipeline (voice cache on,
+    one wav bucket so warm-up runs one clone signature), driven over the
+    socket by the port's client and raw http: every route, a greedy /tts
+    held to the direct path, the front's cost over direct server calls, and
+    the leak check after the servers and the pipeline are dropped.  Returns
+    the launches of the routes' requests (counts 0 after warm-up)."""
+    import asyncio
+    import base64
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+    from sparktts_tpu_torch.prompt import (
+        build_control_prompt,
+        extract_semantic_ids,
+        padded_global_tokens,
+    )
+    from sparktts_tpu_torch.serve import client as C
+    from sparktts_tpu_torch.serve.server import OPENAI_LONGFORM_AUTO_CHARS, TTSRequest, serve_http
+
+    def allocated() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+            torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    mem_before = allocated()
+    t0 = time.perf_counter()
+    pipe = SparkTTSPipeline(device="cuda", seed=SEED, max_new_tokens=MAX_NEW_TOKENS,
+                            wav_bucket_s=PROMPT_SECONDS, voice_cache_size=4)
+    prompt = pipe._load_prompt_wav(wav_path).astype(np.float32)
+    ctl: dict = {}
+    server_thread = threading.Thread(
+        target=serve_http, args=(pipe,), name="serve_http",
+        kwargs=dict(host="127.0.0.1", port=0, streaming=True, warmup=True, control=ctl))
+    server_thread.start()
+    while "stop" not in ctl:
+        if not server_thread.is_alive():
+            raise AssertionError("front door: serve_http ended before it listened")
+        time.sleep(0.05)
+    port = ctl["httpd"].server_address[1]
+    tags = {pipe.units.tag, ctl["cserver"].engine.units.tag}
+    print(f"front door: serve_http up on port {port} after {time.perf_counter() - t0:.1f} s "
+          f"(pipeline build and warm-up)")
+    walls, firsts = {}, {}
+    up = pipe._wave_upsample
+
+    def timed(route, fn):
+        t = time.perf_counter()
+        out = fn()
+        walls[route] = (time.perf_counter() - t) * 1e3
+        return out
+
+    _sync(pipe.device)
+    _reset_counts()
+    status, _, body, _, _ = _http(port, "/health", method="GET")
+    if status != 200 or json.loads(body) != {"healthy": True}:
+        raise AssertionError(f"front door: /health {status} {body!r}")
+    creation = dict(gender="female", pitch="moderate", speed="moderate")
+    wav, sr, _ = timed("/tts creation", lambda: C.synthesize(
+        "127.0.0.1", port, TEXT, timeout=600, **creation))
+    _check_audio("/tts creation", wav, sr, up)
+    wav, sr, _ = timed("/tts clone", lambda: C.synthesize(
+        "127.0.0.1", port, TEXT, prompt_wav=prompt, prompt_text=PROMPT_TEXT, timeout=600))
+    _check_audio("/tts clone", wav, sr, up)
+
+    before = C.get_stats("127.0.0.1", port)
+    out = [None] * len(FRONT_TEXTS)
+
+    def one(i):
+        out[i] = C.synthesize("127.0.0.1", port, FRONT_TEXTS[i], timeout=600,
+                              gender="male", pitch="low", speed="moderate")
+
+    burst = [threading.Thread(target=one, args=(i,)) for i in range(len(FRONT_TEXTS))]
+    timed("/tts x4 concurrent", lambda: ([t.start() for t in burst], [t.join() for t in burst]))
+    stats = C.get_stats("127.0.0.1", port)
+    n_batches = stats["batches"] - before["batches"]
+    for i, res in enumerate(out):
+        _check_audio(f"/tts concurrent {i}", res[0], res[1], up)
+    if not (n_batches < len(FRONT_TEXTS) and stats["avg_batch_occupancy"] > 1):
+        raise AssertionError(f"front door: four concurrent /tts in {n_batches} batches")
+    print(f"front door: four concurrent /tts creations in {n_batches} batches; /stats "
+          f"avg_batch_occupancy {stats['avg_batch_occupancy']:.4f}")
+
+    status, headers, body, wall, first = _http(
+        port, "/tts_stream", dict(text=TEXT, **creation), first_audio_byte=0)
+    lines = [json.loads(x) for x in body.decode().splitlines() if x.strip()]
+    chunks = [np.frombuffer(base64.b64decode(x["wav_b64"]), np.float32)
+              for x in lines if "wav_b64" in x]
+    if (status != 200 or headers.get("Content-Type") != "application/x-ndjson"
+            or lines[-1] != {"done": True} or not chunks):
+        raise AssertionError(f"front door: /tts_stream {status}, last line {lines[-1:]}")
+    _check_audio("/tts_stream", np.concatenate(chunks), 16000, 1)
+    walls["/tts_stream"], firsts["/tts_stream"] = wall, first
+
+    for fmt in ("wav", "pcm"):
+        status, headers, body, walls[f"/v1/audio/speech {fmt}"], _ = _http(
+            port, "/v1/audio/speech", {"input": TEXT, "voice": "female", "response_format": fmt})
+        if status != 200 or headers.get("Content-Type") != f"audio/{fmt}":
+            raise AssertionError(f"front door: /v1/audio/speech {fmt}: {status}")
+        pcm = _wav_body(body)[1] if fmt == "wav" else np.frombuffer(body, "<i2")
+        if fmt == "wav" and _wav_body(body)[0] != 16000:
+            raise AssertionError("front door: /v1/audio/speech wav: not 16 kHz")
+        _check_audio(f"/v1/audio/speech {fmt}", pcm.astype(np.float32), 16000, up)
+    status, headers, body, wall, first = _http(
+        port, "/v1/audio/speech", {"input": TEXT, "voice": "female", "stream": True},
+        first_audio_byte=44)  # past the read-to-EOF RIFF header
+    if status != 200 or headers.get("Transfer-Encoding") != "chunked" or body[:4] != b"RIFF":
+        raise AssertionError(f"front door: /v1/audio/speech stream: {status}")
+    _check_audio("/v1/audio/speech stream", np.frombuffer(body[44:], "<i2").astype(np.float32),
+                 16000, 1)
+    walls["/v1/audio/speech stream"], firsts["/v1/audio/speech stream"] = wall, first
+
+    status, _, body, walls["POST /v1/voices"], _ = _http(port, "/v1/voices", {
+        "name": "prompt", "wav_b64": base64.b64encode(prompt.tobytes()).decode()})
+    if status != 200 or json.loads(body)["name"] != "prompt":
+        raise AssertionError(f"front door: POST /v1/voices {status} {body!r}")
+    status, _, body, walls["/v1/audio/speech voice"], _ = _http(
+        port, "/v1/audio/speech", {"input": TEXT, "voice": "prompt"})
+    if status != 200:
+        raise AssertionError(f"front door: speech by a registered voice: {status}")
+    _check_audio("/v1/audio/speech voice", _wav_body(body)[1].astype(np.float32), 16000, up)
+    status, _, _, walls["DELETE /v1/voices"], _ = _http(port, "/v1/voices/prompt",
+                                                       method="DELETE")
+    gone, _, body, _, _ = _http(port, "/v1/audio/speech", {"input": TEXT, "voice": "prompt"})
+    if status != 200 or gone != 404 or json.loads(body)["error"]["type"] != \
+            "invalid_request_error":
+        raise AssertionError(f"front door: DELETE /v1/voices {status}, then {gone}")
+
+    assert len(FRONT_LONG_TEXT) > OPENAI_LONGFORM_AUTO_CHARS
+    segs = C.get_stats("127.0.0.1", port)["streaming"].get("longform_segments", 0)
+    status, _, body, walls["/v1/audio/speech longform"], _ = _http(
+        port, "/v1/audio/speech", {"input": FRONT_LONG_TEXT, "voice": "male",
+                                   "max_segment_chars": FRONT_SEGMENT_CHARS})
+    segs = C.get_stats("127.0.0.1", port)["streaming"]["longform_segments"] - segs
+    if status != 200 or segs < 2:
+        raise AssertionError(f"front door: longform {status}, {segs} segments")
+    long_pcm = _wav_body(body)[1]
+    if not long_pcm.size:
+        raise AssertionError("front door: longform gave no audio")
+
+    bad, headers, body, _, _ = _http(port, "/tts", raw=b"{not json")
+    if bad != 400 or headers.get("Content-Type") != "application/json" or \
+            "bad request" not in json.loads(body)["error"]:
+        raise AssertionError(f"front door: malformed JSON gave {bad}")
+    unknown, _, body, _, _ = _http(port, "/v1/audio/speech", {"input": TEXT, "voice": "nobody"})
+    err = json.loads(body)["error"]
+    if unknown != 404 or err["type"] != "invalid_request_error" or "nobody" not in err["message"]:
+        raise AssertionError(f"front door: unknown voice gave {unknown} {err}")
+
+    # a greedy (top_k 1) /tts creation, held to the direct path at batch 1
+    seed = 11
+    wav, sr = timed("/tts creation, top_k 1", lambda: _greedy_tts(port, seed, creation))
+    _sync(pipe.device)
+    launches = _counts()
+    tok = pipe.tokenizer
+    ids = pipe.generate_tokens_batch([build_control_prompt(tok, TEXT, **creation)], top_k=1,
+                                     greedy=True, seed=[seed], mode="control")[0]
+    sem = extract_semantic_ids(tok, ids)
+    glob = padded_global_tokens(tok, ids, pipe.config.bicodec.speaker_encoder.token_num)
+    direct = pipe.detokenize_batch(glob.reshape(1, -1),
+                                   [sem if sem.size else np.zeros(1, np.int32)])[0]
+    if wav.shape != direct.shape:
+        raise AssertionError(f"front door: greedy /tts {wav.shape} samples, direct path "
+                             f"{direct.shape}")
+    peak = float(np.abs(direct).max())
+    gap = float(np.abs(wav - direct).max())
+    if not gap <= WINDOW_REL_TOL * peak:
+        raise AssertionError(f"front door: greedy /tts differs from the direct path by {gap} "
+                             f"(peak {peak})")
+    print(f"front door: greedy /tts = generate_tokens_batch (greedy) + detokenize_batch: "
+          f"{wav.size} samples each, largest gap {gap:.3e} of a peak {peak:.4f} "
+          f"(tolerance {WINDOW_REL_TOL} of the peak)")
+
+    # the front's cost: the same request over the socket and by a direct
+    # call.  Offline, each side's wall less the queue and infer ms the
+    # server reports (so the generate's own spread drops out); streamed, the
+    # first audio byte against the direct first chunk, alternating sides
+    loop, server, cserver = ctl["loop"], ctl["server"], ctl["cserver"]
+
+    def direct_offline():
+        t = time.perf_counter()
+        res = asyncio.run_coroutine_threadsafe(
+            server.synthesize(TTSRequest(text=TEXT, seed=5, **creation)), loop).result(600)
+        return (time.perf_counter() - t) * 1e3 - res.queue_ms - res.infer_ms
+
+    def http_offline():
+        _, _, body, ms, _ = _http(port, "/tts", dict(text=TEXT, seed=5, **creation))
+        res = json.loads(body)
+        np.frombuffer(base64.b64decode(res["wav_b64"]), np.float32)  # the client's decode
+        return ms - res["queue_ms"] - res["infer_ms"]
+
+    def direct_first():
+        async def go():  # drained to its end, as the HTTP side reads its whole body
+            t, first = time.perf_counter(), None
+            async for _ in cserver.synthesize_streaming(TEXT, **creation):
+                first = first if first is not None else (time.perf_counter() - t) * 1e3
+            return first
+        return asyncio.run_coroutine_threadsafe(go(), loop).result(600)
+
+    def http_first():
+        return _http(port, "/v1/audio/speech", {"input": TEXT, "voice": "female", "stream": True},
+                     first_audio_byte=44)[4]
+
+    samples = {"offline": ([], []), "first": ([], [])}
+    for i in range(FRONT_PAIRS):
+        for kind, (h_fn, d_fn) in (("offline", (http_offline, direct_offline)),
+                                   ("first", (http_first, direct_first))):
+            order = ((0, h_fn), (1, d_fn)) if i % 2 else ((1, d_fn), (0, h_fn))
+            for side, fn in order:
+                samples[kind][side].append(fn())
+    pairs = {kind: (float(np.median(h)), float(np.median(d)))
+             for kind, (h, d) in samples.items()}
+    ctl["stop"]()
+    server_thread.join(60)
+    if server_thread.is_alive():
+        raise AssertionError("front door: serve_http did not return after stop")
+    del pipe, ctl, server, cserver, loop, prompt
+    mem_after = allocated()
+    left = [u for u in graphs.units() if u.owner in tags]
+    for route, ms in walls.items():
+        print(f"front door route {route}: {ms:.3f} ms wall | {smi}")
+    for route, ms in firsts.items():
+        print(f"front door first audio byte {route}: {ms:.3f} ms | {smi}")
+    h, d = pairs["offline"]
+    print(f"front door overhead, /tts creation (median of {FRONT_PAIRS}; wall less the "
+          f"server's queue and infer ms): {h:.3f} ms over the socket, {d:.3f} ms by a direct "
+          f"TTSServer call, {h - d:.3f} ms of HTTP, JSON and base64 | {smi}")
+    h, d = pairs["first"]
+    print(f"front door overhead, first audio (median of {FRONT_PAIRS}): /v1/audio/speech "
+          f"stream {h:.3f} ms to its first audio byte, {d:.3f} ms to the first chunk of a direct "
+          f"ContinuousTTSServer stream, {h - d:.3f} ms apart | {smi}")
+    path_kernels = ("flash_attention_prefill", "dense_decode_attention", "fused_residual_unit")
+    print("front door launches of the routes' requests: "
+          + json.dumps({k: launches[k] for k in path_kernels}))
+    print(f"front door leak check: memory_allocated {mem_before / 2**20:.1f} MiB before the "
+          f"phase, {mem_after / 2**20:.1f} MiB after it (its pipeline and servers dropped), "
+          f"{(mem_after - mem_before) / 2**20:+.1f} MiB (margin {LEAK_MARGIN_MIB} MiB); "
+          f"decode units of its pipeline and engine left: {len(left)}")
+    for name in path_kernels:
+        if launches[name] < 1:
+            raise AssertionError(f"front door: {name} was not launched by the routes")
+    if left or mem_after - mem_before > LEAK_MARGIN_MIB * 2**20:
+        raise AssertionError("front door: the dropped pipeline's memory or units stayed")
+    return launches
+
+
+def _greedy_tts(port, seed, creation):
+    """A /tts creation with top_k 1 (greedy), through raw urllib."""
+    import base64
+    import urllib.request
+
+    import numpy as np
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/tts",
+        data=json.dumps(dict(text=TEXT, top_k=1, seed=seed, **creation)).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = json.loads(resp.read())
+    return np.frombuffer(base64.b64decode(body["wav_b64"]), np.float32), body["sample_rate"]
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -3317,6 +3659,11 @@ def main() -> int:
 
     pipe = SparkTTSPipeline(device=dev, seed=SEED)
     n_layers = pipe.config.llm.num_hidden_layers
+    if "--front-only" in sys.argv[1:]:
+        # a shorter run for working on the front door: phase 28 alone, no
+        # kernels line and no result line
+        run_front_door(make_prompt_wav(OUT_DIR / "clone_prompt.wav"), smi)
+        return 0
     if "--servers-only" in sys.argv[1:]:
         # a shorter run for working on the server phases: no other phase, no
         # bare-engine yardstick, no kernels line and no result line
@@ -3382,6 +3729,8 @@ def main() -> int:
     # profiler sessions recorded device activity
     server_launches, server_items, server_errs = run_servers(pipe, wav_path, engine_tokens_per_s,
                                                              int8_params)
+    # the HTTP front door over a pipeline of its own, dropped after
+    front_launches = run_front_door(wav_path, smi)
     for _, prompt, _, _ in (creation, cloning):
         check_lm_prefill(pipe, prompt)
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
@@ -3404,7 +3753,7 @@ def main() -> int:
     check_failed_capture(dev)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
-             cache_launches, *server_launches]
+             cache_launches, *server_launches, front_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     print("launches of the server phases (24-27):",

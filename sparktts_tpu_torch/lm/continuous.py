@@ -48,7 +48,8 @@ Where the port differs from the JAX engine:
     cache, a signature is ready once it has run on scratch slot state
     (`warm_*`); the registry of ready signatures is shared by the engines
     of one process.  The decode units of every dispatch size are captured
-    by `warm_units`, so a server captures none while it serves.
+    by `warm_units`, so a server captures none while it serves; they are
+    the engine's own (`graphs.UnitCache`) and go with it, or at `close`.
 """
 
 from __future__ import annotations
@@ -574,11 +575,13 @@ def scan_steps(n_steps: int, slots, step_fn):
 
 
 def decode_unit(kind: str, params, slots, n_steps: int,
-                make_step: Callable[[torch.Generator], Callable], static: Tuple) -> graphs.DecodeUnit:
+                make_step: Callable[[torch.Generator], Callable], static: Tuple,
+                units: Optional[graphs.UnitCache] = None) -> graphs.DecodeUnit:
     """The decode unit a dispatch of n_steps replays: bound to the engine's
     own slot buffers (its key holds their addresses, the params' identity
-    and the `static` arguments), captured on the card at first use.
-    `make_step(generator)` gives the engine's one-step function."""
+    and the `static` arguments), captured on the card at first use and kept
+    in `units` (the engine's cache).  `make_step(generator)` gives the
+    engine's one-step function."""
     steps = math.gcd(n_steps, ENGINE_UNIT)
     bufs = graphs.tensors(slots)
     key = (kind, id(params), steps, static, tuple(t.data_ptr() for t in bufs))
@@ -591,16 +594,16 @@ def decode_unit(kind: str, params, slots, n_steps: int,
         return graphs.DecodeUnit(make_scan, slots, steps,
                                  name=f"{kind} B={slots.cur_token.shape[0]} U={steps}")
 
-    return graphs.unit(key, bufs[0].device, build)
+    return graphs.unit(key, bufs[0].device, build, units)
 
 
 def dispatch_steps(kind: str, params, slots, n_steps: int, generator: torch.Generator,
                    make_step: Callable[[torch.Generator], Callable], static: Tuple,
-                   ) -> Tuple[object, torch.Tensor]:
+                   units: Optional[graphs.UnitCache] = None) -> Tuple[object, torch.Tensor]:
     """n_steps decode steps of either engine as replays of its decode unit
     (`decode_unit`); returns (slots, packed (B, 2n+1) int32, see
     `pack_step_result`)."""
-    unit = decode_unit(kind, params, slots, n_steps, make_step, static)
+    unit = decode_unit(kind, params, slots, n_steps, make_step, static, units)
     with unit.bound(slots, generator):
         toks, valid = unit.run(n_steps)
     return slots, pack_step_result(toks, valid, slots.done)
@@ -620,6 +623,7 @@ def decode_steps(
     extra_ids: Tuple[int, ...] = (),
     allowed: Optional[torch.Tensor] = None,
     capture_only: bool = False,
+    units: Optional[graphs.UnitCache] = None,
 ) -> Tuple[SlotState, Optional[torch.Tensor]]:
     """Advance every active slot by up to n_steps tokens; returns (slots,
     packed (B, 2n+1) int32, see `pack_step_result`).  The validity half of
@@ -627,7 +631,8 @@ def decode_steps(
     sampled id.  A slot whose write_pos reaches its limit stops on the
     device.  `allowed` narrows clone slots (`packed_allowed_mask`).  The
     slots are updated in place (`dispatch_steps`).  `capture_only`: capture
-    the dispatch's decode unit and run nothing; returns (slots, None)."""
+    the dispatch's decode unit and run nothing; returns (slots, None).
+    `units`: the engine's cache of decode units."""
 
     def make_step(gen: torch.Generator):
         def step(s: SlotState):
@@ -646,9 +651,9 @@ def decode_steps(
               None if allowed is None else allowed.data_ptr())
     kind = "dense engine, greedy" if greedy else "dense engine"
     if capture_only:
-        decode_unit(kind, params, slots, n_steps, make_step, static)
+        decode_unit(kind, params, slots, n_steps, make_step, static, units)
         return slots, None
-    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
+    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static, units)
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:
@@ -712,6 +717,8 @@ class StepProtocolMixin:
         self.clone_slice = clone_slice
         self.clone_extras = tuple(clone_extras)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the engine's decode units: they go with the engine, or at `close`
+        self.units = graphs.UnitCache(type(self).__name__)
         with torch.inference_mode():
             self.clone_allowed = (
                 None if vocab_slice is None or clone_slice is None
@@ -735,6 +742,12 @@ class StepProtocolMixin:
         rungs = {r for r in DISPATCH_LADDER if r <= self.max_dispatch} | {self.max_dispatch}
         for steps in sorted({math.gcd(r, ENGINE_UNIT) for r in rungs}):
             self._decode(steps, capture_only=True)
+
+    def close(self) -> None:
+        """Evict the engine's decode units (with the graph pools they hold),
+        after their last replays have ended.  The engine stays usable: a
+        later dispatch captures its unit again."""
+        self.units.clear()
 
     def _decode(self, n_steps: int, capture_only: bool = False) -> Optional[torch.Tensor]:
         """Engine hook: dispatch n_steps decode steps over the engine's
@@ -1259,7 +1272,7 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         self.slots, packed = decode_steps(
             self.params, self.slots, self.cfg, n_steps, self.generator, top_k, self.eos_ids,
             self.pad_id, self.greedy, self.vocab_slice, self.extra_ids, self.clone_allowed,
-            capture_only,
+            capture_only, self.units,
         )
         return packed
 

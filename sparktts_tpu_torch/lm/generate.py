@@ -185,12 +185,14 @@ def decode_unit(
     eos_ids: Tuple[int, ...],
     pad_id: int,
     n_generators: int = 1,
+    units: Optional[graphs.UnitCache] = None,
 ) -> graphs.DecodeUnit:
     """The decode unit of `steps` steps for these static arguments (JAX's
     static argnames of `decode_chunk`, the params' identity, the cache's
     shape, one generator or one per row), over buffers of its own; shared
-    by `generate` and `decode_chunk`.  Its inputs `temperature` and `top_p`
-    are () fp32."""
+    by `generate` and `decode_chunk`, kept in `units` (the owner's cache:
+    a pipeline's; default `graphs.SHARED`).  Its inputs `temperature` and
+    `top_p` are () fp32."""
     key = ("decode", cfg, id(params), batch, cache_len, cache_dtype, device, t_pad, steps, top_k,
            greedy, vocab_slice, extra_ids, eos_ids, pad_id, n_generators)
 
@@ -219,7 +221,7 @@ def decode_unit(
                                  + (" per-row generators" if n_generators > 1 else ""),
                                  n_generators=n_generators)
 
-    return graphs.unit(key, device, build)
+    return graphs.unit(key, device, build, units)
 
 
 def n_generators(generator: Generators) -> int:
@@ -249,6 +251,7 @@ def decode_chunk(
     vocab_slice: Tuple[int, int] | None = None,
     extra_ids: Tuple[int, ...] = (),
     unit_steps: Optional[int] = None,
+    units: Optional[graphs.UnitCache] = None,
 ) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
     """Run `n_steps` decode steps and return (state, tokens (B, n_steps),
     valid (B, n_steps) bool), JAX's `decode_chunk` contract.  The state's
@@ -256,12 +259,13 @@ def decode_chunk(
     plays the part of JAX's donation: chained calls continue one stream.
     The steps run as replays of a decode unit of `unit_steps` steps (default
     n_steps; it must divide n_steps), which has buffers of its own: the state
-    is copied into them first and back after."""
+    is copied into them first and back after.  `units`: the cache that owns
+    the unit (`decode_unit`)."""
     unit_steps = unit_steps or n_steps
     b, s_len = state.cur_token.shape[0], state.cache.k.shape[2]
     unit = decode_unit(params, cfg, b, s_len, state.cache.k.dtype, state.cur_token.device, t_pad,
                        unit_steps, top_k, greedy, vocab_slice, tuple(extra_ids), tuple(eos_ids),
-                       pad_id, n_generators(generator))
+                       pad_id, n_generators(generator), units)
     with unit.bound(state, generator):
         _fill_sampling(unit, temperature, top_p)
         tokens, valid = unit.run(n_steps)
@@ -286,6 +290,7 @@ def generate(
     cache_dtype=torch.bfloat16,
     vocab_slice: Tuple[int, int] | None = None,
     extra_ids: Tuple[int, ...] = (),
+    units: Optional[graphs.UnitCache] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B, max_new_tokens) int64 padded with pad_id after
     EOS, lengths (B,) including the EOS token).  Emission validity is the
@@ -295,13 +300,14 @@ def generate(
     own generator alone).  The prompt is prefilled into the cache of the
     decode unit of `DONE_CHECK_EVERY` steps, which then replays until every
     row is done or the budget is spent; the unit is held for the whole call,
-    so calls that share it from several threads run one after another."""
+    so calls that share it from several threads run one after another.
+    `units`: the cache that owns the unit (`decode_unit`)."""
     b, t_pad = input_ids.shape
     if cache_len < t_pad + max_new_tokens:
         raise ValueError(f"cache_len {cache_len} < {t_pad} + {max_new_tokens}")
     unit = decode_unit(params, cfg, b, aligned_cache_len(cache_len), cache_dtype,
                        input_ids.device, t_pad, DONE_CHECK_EVERY, top_k, greedy, vocab_slice,
-                       tuple(extra_ids), tuple(eos_ids), pad_id, n_generators(generator))
+                       tuple(extra_ids), tuple(eos_ids), pad_id, n_generators(generator), units)
     outs = []
     with unit.lock:
         state = prefill(

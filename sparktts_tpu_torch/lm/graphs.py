@@ -44,13 +44,19 @@ replay starts from where the previous one ended.  Around the capture:
 A capture or replay error raises: there is no eager fallback on the card.
 On the CPU the same unit runs its scan eagerly at each replay; nothing is
 captured and nothing is cached (`unit` builds a fresh one every call).
+
+Units have owners (`UnitCache`): a pipeline keeps the units of its
+`generate` and `decode_chunk` calls, an engine those of its dispatches, and
+each goes with its owner or when the owner evicts it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
@@ -134,6 +140,8 @@ class DecodeUnit:
         self.capture_ms = 0.0
         self.pool_bytes = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.owner = ""  # the tag of the cache that built it
+        self._replayed: Optional[torch.cuda.Event] = None  # after the last replay's work
         self.lock = threading.RLock()
         if self.device.type == "cuda":
             self._capture()
@@ -190,6 +198,7 @@ class DecodeUnit:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
+        self._replayed = torch.cuda.Event()
 
     @contextlib.contextmanager
     def bound(self, state, generator: Generators):
@@ -225,11 +234,17 @@ class DecodeUnit:
                 self._body(self.state, self.out)
             else:
                 self.graph.replay()
+                self._replayed.record()
                 with _replayed_lock:
                     for name, n in self.unit_launches.items():
                         REPLAYED[name] += n
             self.replays += 1
         return self.out
+
+    def wait(self) -> None:
+        """Block until the work of the last replay has ended on the card."""
+        if self._replayed is not None:
+            self._replayed.synchronize()
 
     def run(self, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """n_steps (a multiple of U) as n_steps / U replays; returns (tokens
@@ -247,36 +262,115 @@ def unpack(outs: List[torch.Tensor], steps: int) -> Tuple[torch.Tensor, torch.Te
     return toks, valid
 
 
-_units: Dict[Hashable, DecodeUnit] = {}
-_units_lock = threading.Lock()  # guards the two dicts, never held during a build
-_building: Dict[Hashable, threading.Lock] = {}  # one lock per key being built
+#: Device types whose units are cached.  On the CPU a unit is built fresh
+#: every call (nothing is captured, so nothing is worth keeping); a test adds
+#: "cpu" here to exercise the registry's ownership and eviction on the CPU.
+CACHED_DEVICE_TYPES = ("cuda",)
+
+_live: List["weakref.ref[DecodeUnit]"] = []  # every unit a cache built, in build order
+_live_lock = threading.Lock()
+_builds = 0  # units built by caches since import
 
 
-def unit(key: Hashable, device: torch.device, build: Callable[[], DecodeUnit]) -> DecodeUnit:
-    """The captured unit of `key` on a card, built (and captured) by `build`
-    on first use; on the CPU a fresh unit every call.  A build holds only
-    its key's lock: a lookup of a unit already built never waits for the
-    capture of another (35-1000 ms), and callers of one key wait for its
-    single build."""
-    if device.type != "cuda":
-        return build()
-    with _units_lock:
-        u = _units.get(key)
-        if u is not None:
-            return u
-        lock = _building.setdefault(key, threading.Lock())
-    with lock:
-        with _units_lock:
-            u = _units.get(key)
-        if u is None:
+class UnitCache:
+    """The decode units of one owner: a pipeline (the units of `generate`
+    and `decode_chunk` over its `llm_params`) or an engine (the units of its
+    dispatches over its slot buffers).  JAX keeps its program cache per
+    pipeline; here each owner holds a cache, so its units, with the params,
+    state buffers and graph pool each keeps alive, go when the owner goes,
+    or at `clear` (a pipeline whose `llm_params` is replaced, an engine's
+    `close`).  A unit still held by a caller (a replay in flight in another
+    thread) keeps what it reads alive until that caller drops it.
+
+    A build holds only its key's lock: a lookup of a unit already built
+    never waits for the capture of another (35-1000 ms), and callers of one
+    key wait for its single build.  A build that began before a `clear` is
+    returned to its caller but not kept."""
+
+    _serial = itertools.count()
+
+    def __init__(self, label: str):
+        self.tag = f"{label} #{next(UnitCache._serial)}"  # each unit's `owner`
+        self._units: Dict[Hashable, DecodeUnit] = {}
+        self._lock = threading.Lock()  # guards the dicts, never held during a build
+        self._building: Dict[Hashable, threading.Lock] = {}
+        self._epoch = 0  # bumped by clear
+
+    def __contains__(self, key: Hashable) -> bool:
+        with self._lock:
+            return key in self._units
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._units)
+
+    def get(self, key: Hashable, build: Callable[[], DecodeUnit]) -> DecodeUnit:
+        """The unit of `key`, built by `build` on first use."""
+        global _builds
+        with self._lock:
+            u = self._units.get(key)
+            if u is not None:
+                return u
+            lock = self._building.setdefault(key, threading.Lock())
+            epoch = self._epoch
+        with lock:
+            with self._lock:
+                u = self._units.get(key)
+            if u is not None:
+                return u
             u = build()
-            with _units_lock:
-                _units[key] = u
-                _building.pop(key, None)
-        return u
+            with _live_lock:
+                _builds += 1
+                if isinstance(u, DecodeUnit):  # (a test's stand-in is kept, not listed)
+                    u.owner = self.tag
+                    _live.append(weakref.ref(u))
+            with self._lock:
+                if epoch == self._epoch:
+                    self._units[key] = u
+                    self._building.pop(key, None)
+            return u
+
+    def pop(self, key: Hashable) -> Optional[DecodeUnit]:
+        with self._lock:
+            return self._units.pop(key, None)
+
+    def clear(self) -> None:
+        """Evict every unit, after the work its last replay queued on the
+        card has ended (its graph pool then returns to the allocator)."""
+        with self._lock:
+            evicted = list(self._units.values())
+            self._units.clear()
+            self._building.clear()
+            self._epoch += 1
+        for u in evicted:
+            u.wait()
+
+
+#: The cache of callers that name no owner (direct calls of `generate` or
+#: `decode_chunk` with a params tree): their units live as long as the process.
+SHARED = UnitCache("shared")
+
+
+def unit(key: Hashable, device: torch.device, build: Callable[[], DecodeUnit],
+         cache: Optional[UnitCache] = None) -> DecodeUnit:
+    """The captured unit of `key` in `cache` (default `SHARED`) on a card,
+    built (and captured) by `build` on first use; on a device type not in
+    CACHED_DEVICE_TYPES a fresh unit every call."""
+    if device.type not in CACHED_DEVICE_TYPES:
+        return build()
+    return (SHARED if cache is None else cache).get(key, build)
 
 
 def units() -> List[DecodeUnit]:
-    """The captured units, in capture order."""
-    with _units_lock:
-        return list(_units.values())
+    """The units of every cache still alive (held by their owner's cache or
+    by a caller), in build order."""
+    with _live_lock:
+        alive = [(r, r()) for r in _live]
+        _live[:] = [r for r, u in alive if u is not None]
+        return [u for _, u in alive if u is not None]
+
+
+def builds() -> int:
+    """Units built by caches since import (a capture each on a card)."""
+    with _live_lock:
+        return _builds

@@ -33,6 +33,7 @@ import torch
 
 from sparktts_tpu_torch.config import QwenConfig
 from sparktts_tpu_torch.kernels.paged_attention import paged_decode_attention
+from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.continuous import (
     DISPATCH_LADDER,
     MODES,
@@ -164,11 +165,13 @@ def paged_decode_steps(
     extra_ids: Tuple[int, ...] = (),
     allowed: Optional[torch.Tensor] = None,
     capture_only: bool = False,
+    units: Optional[graphs.UnitCache] = None,
 ) -> Tuple[PagedSlotState, Optional[torch.Tensor]]:
     """Advance every active slot up to n_steps tokens over the paged pools.
     Returns (slots, packed (B, 2n+1)): the dense engine's `decode_steps`
     contract (budget limit on the device, per-slot mode constraint, one
-    packed host transfer, the slots updated in place)."""
+    packed host transfer, the slots updated in place; `units` the engine's
+    cache of decode units)."""
 
     def make_step(gen: torch.Generator):
         def step(s: PagedSlotState):
@@ -183,9 +186,9 @@ def paged_decode_steps(
               None if allowed is None else allowed.data_ptr())
     kind = "paged engine, greedy" if greedy else "paged engine"
     if capture_only:
-        decode_unit(kind, params, slots, n_steps, make_step, static)
+        decode_unit(kind, params, slots, n_steps, make_step, static, units)
         return slots, None
-    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static)
+    return dispatch_steps(kind, params, slots, n_steps, generator, make_step, static, units)
 
 
 def paged_admit_prefill(
@@ -416,7 +419,7 @@ class PagedContinuousEngine(StepProtocolMixin):
         self.slots, packed = paged_decode_steps(
             self.params, self.slots, self.cfg, n_steps, self.generator, top_k, self.eos_ids,
             self.pad_id, self.greedy, self.vocab_slice, self.extra_ids, self.clone_allowed,
-            capture_only,
+            capture_only, self.units,
         )
         return packed
 

@@ -43,6 +43,7 @@ from sparktts_tpu_torch import checkpoint as ckpt
 from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
 from sparktts_tpu_torch.config import SparkTTSConfig, load_spark_config
 from sparktts_tpu_torch.io.audio import get_ref_clip, load_audio
+from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.continuous import to_device
 from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.sample import Generators
@@ -162,6 +163,10 @@ class SparkTTSPipeline:
             raise RuntimeError(
                 "SparkTTSPipeline: no CUDA device is available; pass device='cpu' to run on the CPU"
             )
+        # the decode units of `generate` and `decode_chunk` over this
+        # pipeline's LM: they go with the pipeline, or when `llm_params` is
+        # replaced (as JAX keeps its program cache per pipeline)
+        self.units = graphs.UnitCache("SparkTTSPipeline")
         self.lm_dtype = lm_dtype
         self.load_seconds: dict = {}
         if model_dir is not None:
@@ -217,6 +222,17 @@ class SparkTTSPipeline:
     # ------------------------------------------------------------------
     # weights
     # ------------------------------------------------------------------
+
+    @property
+    def llm_params(self):
+        return self._llm_params
+
+    @llm_params.setter
+    def llm_params(self, tree) -> None:
+        """A new LM tree (quantized, reloaded) evicts the decode units that
+        close over the old one, and with them the old tree's last holder."""
+        self._llm_params = tree
+        self.units.clear()
 
     def _load_params(self, model_dir: Path) -> None:
         """Read the three checkpoints (`BiCodec/`, `wav2vec2-large-xlsr-53/`,
@@ -667,6 +683,7 @@ class SparkTTSPipeline:
             cache_dtype=self.lm_dtype,
             vocab_slice=vocab_slice,
             extra_ids=extra_ids,
+            units=self.units,
         )
 
     def generate_tokens(

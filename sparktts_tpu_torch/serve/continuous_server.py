@@ -529,6 +529,10 @@ class ContinuousTTSServer:
                 setattr(self, attr, None)
         self._vocode_pool.shutdown(wait=False)
         self._fetch_pool.shutdown(wait=False)
+        # the engine's decode units and their graph pools go now, not when
+        # the server is dropped; a restart captures them again
+        self.engine.close()
+        self._units_warm = False
 
     # -- request entry points ----------------------------------------------
 

@@ -165,7 +165,7 @@ class StreamingSynthesizer:
             state, toks, valid = decode_chunk(
                 pipe.llm_params, cfg.llm, state, t_pad, n, generator, temperature, top_k, top_p,
                 eos_ids, tok.pad_id, vocab_slice=vocab_slice, extra_ids=extra_ids,
-                unit_steps=unit_steps,
+                unit_steps=unit_steps, units=pipe.units,
             )
             # one host transfer for both
             host = torch.stack([toks[0], valid[0].long()]).cpu().numpy()

@@ -804,10 +804,10 @@ def test_failed_capture_raises_and_is_not_kept():
         return scan
 
     stream = torch.cuda.current_stream(dev)
-    n = len(graphs.units())
+    n = graphs.builds()
     with pytest.raises(RuntimeError):
         graphs.unit(("failing",), dev, lambda: graphs.DecodeUnit(make_scan, state, 1))
-    assert len(graphs.units()) == n
+    assert graphs.builds() == n and ("failing",) not in graphs.SHARED
     assert torch.cuda.current_stream(dev) == stream
     assert float(torch.ones(1, device=dev).add_(1)) == 2.0
 
@@ -851,7 +851,7 @@ def _eager_dispatch(monkeypatch):
     """Both engines dispatch as their step functions in a Python loop."""
     from sparktts_tpu_torch.lm import continuous, graphs, paged
 
-    def dispatch(kind, params, slots, n_steps, generator, make_step, static):
+    def dispatch(kind, params, slots, n_steps, generator, make_step, static, units=None):
         new, toks, valid = continuous.scan_steps(n_steps, slots, make_step(generator))
         for mine, theirs in zip(graphs.tensors(slots), graphs.tensors(new)):
             if mine is not theirs:

@@ -56,9 +56,35 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "lm.quant", "codec.quant", "io.audio", "dsp.mel", "nn.wav2vec2", "nn.ecapa",
                  "nn.perceiver", "codec.feat_encoder", "codec.fsq", "codec.fvq",
                  "codec.speaker_encoder", "codec.bicodec", "checkpoint", "utils.textseg",
-                 "config", "prompt"):
+                 "config", "prompt", "serve.server", "serve.voices", "serve.ui", "serve.client",
+                 "serve.grpc_server", "serve.protos.sparktts_pb2", "utils.platform",
+                 "utils.tokens", "cli", "webui"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
+
+
+_IMPORT_FRONT = """
+import importlib, json, sys
+for n in ("serve.server", "serve.voices", "serve.client", "serve.ui", "cli", "webui",
+          "utils.platform"):
+    importlib.import_module("sparktts_tpu_torch." + n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sparktts_tpu", "grpc")
+             or m == "google.protobuf" or m.startswith("google.protobuf."))
+print(json.dumps(bad))
+"""
+
+
+def test_front_doors_import_no_jax_grpc_or_protobuf():
+    """The HTTP front, its client and the CLI need neither grpc nor
+    google.protobuf (serve_http imports the gRPC front only for a gRPC
+    port), and nothing of JAX."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_FRONT], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 WRAPPERS = ("flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp", "int4_matmul",
@@ -100,6 +126,28 @@ def test_pipeline_without_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SparkTTSPipeline()
+
+
+def test_front_doors_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
+    """serve_http serves the pipeline's device (the card by default) and
+    raises before it binds a socket when that card is missing; the CLI and
+    the web UI take the card unless SPARKTTS_PLATFORM or --device asks for
+    the CPU."""
+    import types
+
+    from sparktts_tpu_torch.cli import parse_args, run_tts
+    from sparktts_tpu_torch.serve.server import serve_http
+    from sparktts_tpu_torch.webui import initialize_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SPARKTTS_PLATFORM", raising=False)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"), guided=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http(on_card, host="127.0.0.1", port=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts(parse_args(["--text", "hi", "--save_dir", str(tmp_path)]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_model(None, max_new_tokens=8)
 
 
 def _shapes(tree, prefix=""):

@@ -542,9 +542,8 @@ def test_unit_lookup_does_not_wait_for_another_keys_capture():
         assert got == {0: "slow unit", 1: "slow unit"} and len(builds) == 1
     finally:
         release.set()
-        with graphs._units_lock:
-            for k in keys:
-                graphs._units.pop(k, None)
+        for k in keys:
+            graphs.SHARED.pop(k)
 
 
 def test_detokenize_takes_device_global_ids_without_a_host_read(pipe, monkeypatch):
