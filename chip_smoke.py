@@ -174,10 +174,38 @@ and capture are set-up, counted apart).
    Then the leak check: stopped and dropped, its pipeline and servers leave
    memory_allocated within LEAK_MARGIN_MIB of its value before the phase,
    and none of their decode units.
+29. speculative decoding through `SparkTTSPipeline(speculative_k=4)`
+   (`lm/speculative.py`: captured units of rounds, each k draft decode
+   steps, one verify forward of k tokens, the acceptance on the card), 500
+   new tokens on the creation and clone prompts of phases 3 and 4: (a)
+   greedy with draft_layers=24 (draft = target): ids vanilla greedy's or
+   first apart at a near tie (phase 14's rule), k - 1 proposals accepted a
+   round but where the draft's decode path and the verify's dense attention
+   pick apart: every emission where a round stopped on a rejected proposal
+   is a near tie of the output's dense logits; (b) draft_layers=6, greedy
+   to the same rule, and sampled:
+   `inference` gives finite waveforms of 320 samples a semantic id; (c)
+   greedy, draft 6, on the int8 and the int4 LM to the same rule.  Each
+   speculative call with counts 0 just before and read after: one flash
+   prefill a layer of target and draft, kernel 2 in every draft step, kernel
+   4 in every int8 draft step, kernel 5 in every int4 draft step and verify.
+   Prints acceptance, ms a token beside vanilla decode's, each unit's
+   capture ms and graph MiB;
+30. the benchmark harness (`sparktts_tpu_torch/bench/`) over a full-width
+   pipeline of its own, 200-token budgets: run_offline_benchmark (three
+   requests, concurrency 3), run_streaming_benchmark,
+   run_continuous_benchmark dense and paged, offline and streaming,
+   run_longform_benchmark, run_grpc_streaming_benchmark (framed) and
+   run_network_streaming_benchmark over serve_http: each prints its stats,
+   with num_tasks its task count and rtf > 0; counts 0 before the first and
+   read after the last (kernels 1, 2, 3 and 6 launched); then
+   measure_dispatch_tax, the speaker similarity and semantic consistency of
+   one cloned request, and phase 28's leak check with the pipeline dropped.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
-17, 19 to 23, the server bursts of 24 to 27 and phase 28's routes, its
+17, 19 to 23, the server bursts of 24 to 27, phase 28's routes, phase
+29's speculative calls and phase 30's runners, its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
@@ -187,7 +215,9 @@ engine's state, for paged the engine's and the late state, and the
 servers' shapes); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
-result.
+result.  `--front-only`, `--servers-only`, `--spec-only` and `--bench-only`
+run phase 28, phases 24-27, phase 29 or phase 30 alone (after the build),
+with no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -3033,6 +3063,30 @@ def _near_tie_ok(pipe, params, prompt, mode, got, want):
     return gap <= LOGITS_REL_TOL * scale, step
 
 
+def _near_ties(pipe, params, prompt, mode, ids):
+    """(len(ids),) bool on the host: the emitted positions of a greedy stream
+    whose top two guided logits (prompt + the stream's prefix through the
+    dense path, one forward on the card) lie closer than LOGITS_REL_TOL of
+    the position's largest logit."""
+    import torch
+
+    from sparktts_tpu_torch.lm.qwen import init_kv_cache, qwen_forward
+
+    seq = torch.tensor([list(prompt) + [int(t) for t in ids[:-1]]], device=pipe.device)
+    vocab_slice, extra_ids = pipe.guided_constraint(mode)
+    t = seq.shape[1]
+    with torch.inference_mode():
+        idx = torch.arange(t, device=pipe.device)
+        bias = torch.where(idx[None, :] <= idx[:, None], 0.0, -1e9).float()[None]
+        cache = init_kv_cache(pipe.config.llm, 1, t, pipe.lm_dtype, pipe.device)
+        logits, _ = qwen_forward(params, pipe.config.llm, seq, idx[None], cache, 0, bias,
+                                 vocab_slice=vocab_slice, extra_ids=extra_ids)
+        emitted = logits[0, len(prompt) - 1:].float()
+        top = emitted.topk(2, dim=-1).values
+        near = (top[:, 0] - top[:, 1]) <= LOGITS_REL_TOL * emitted.abs().amax(dim=-1)
+    return near.cpu().numpy()
+
+
 def check_greedy_servers(pipe, requests, int8_params):
     """Phase (c): greedy servers, dense and paged, at dispatch depth 1 and 2,
     and a dense server on the int8 LM (kernel 4 on its path): every
@@ -3347,6 +3401,19 @@ def _check_audio(label, wav, sr, up=320):
                              f"finite {bool(np.isfinite(wav).all())}")
 
 
+def _allocated() -> int:
+    """memory_allocated after a collection, with cuBLAS's workspaces freed."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
 def run_front_door(wav_path: Path, smi: str):
     """Phase 28: serve_http over a full-width dense pipeline (voice cache on,
     one wav bucket so warm-up runs one clone signature), driven over the
@@ -3356,7 +3423,6 @@ def run_front_door(wav_path: Path, smi: str):
     the launches of the routes' requests (counts 0 after warm-up)."""
     import asyncio
     import base64
-    import gc
     import threading
 
     import numpy as np
@@ -3372,14 +3438,7 @@ def run_front_door(wav_path: Path, smi: str):
     from sparktts_tpu_torch.serve import client as C
     from sparktts_tpu_torch.serve.server import OPENAI_LONGFORM_AUTO_CHARS, TTSRequest, serve_http
 
-    def allocated() -> int:
-        gc.collect()
-        torch.cuda.synchronize()
-        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
-            torch._C._cuda_clearCublasWorkspaces()
-        return torch.cuda.memory_allocated()
-
-    mem_before = allocated()
+    mem_before = _allocated()
     t0 = time.perf_counter()
     pipe = SparkTTSPipeline(device="cuda", seed=SEED, max_new_tokens=MAX_NEW_TOKENS,
                             wav_bucket_s=PROMPT_SECONDS, voice_cache_size=4)
@@ -3571,7 +3630,7 @@ def run_front_door(wav_path: Path, smi: str):
     if server_thread.is_alive():
         raise AssertionError("front door: serve_http did not return after stop")
     del pipe, ctl, server, cserver, loop, prompt
-    mem_after = allocated()
+    mem_after = _allocated()
     left = [u for u in graphs.units() if u.owner in tags]
     for route, ms in walls.items():
         print(f"front door route {route}: {ms:.3f} ms wall | {smi}")
@@ -3614,6 +3673,310 @@ def _greedy_tts(port, seed, creation):
     with urllib.request.urlopen(req, timeout=600) as resp:
         body = json.loads(resp.read())
     return np.frombuffer(base64.b64decode(body["wav_b64"]), np.float32), body["sample_rate"]
+
+
+# ---------------------------------------------------------------------------
+# phase 29: speculative decoding through SparkTTSPipeline(speculative_k=k)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_DRAFTS = (24, 6)  # draft = target (every proposal accepted), the default early exit
+
+
+def _spec_call(pipe, prompt, mode, greedy, seed=SEED):
+    """One request through the pipeline's speculative branch after a warm
+    call of the same request (its unit's capture), counts 0 just before and
+    read after; returns (ids, accepted, rounds, the positions where a round
+    stopped on a rejected proposal, wall ms, launches)."""
+    import torch
+
+    ids_t, mask_t = pipe.prompt_inputs(prompt)
+    with torch.inference_mode():  # the warm call: the unit's capture
+        pipe._speculative(ids_t, mask_t, seed, MAX_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
+    _sync(pipe.device)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tokens, lengths, accepted, rounds, rejected = pipe._speculative(
+            ids_t, mask_t, seed, MAX_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
+        ids = tokens[0, : int(lengths[0])].cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    where = rejected[0].nonzero()[:, 0].cpu().numpy()
+    return ids, int(accepted), int(rounds), where, ms, _counts()
+
+
+def _vanilla_call(pipe, prompt, mode, greedy, seed=SEED):
+    """The same request through vanilla decode (warm first): (ids, wall ms)."""
+    k = pipe.speculative_k
+    pipe.speculative_k = 0
+    try:
+        pipe.generate_tokens(prompt, seed=seed, max_new_tokens=MAX_NEW_TOKENS, greedy=greedy,
+                             mode=mode)
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        ids = pipe.generate_tokens(prompt, seed=seed, max_new_tokens=MAX_NEW_TOKENS,
+                                   greedy=greedy, mode=mode)
+        return ids, (time.perf_counter() - t0) * 1e3
+    finally:
+        pipe.speculative_k = k
+
+
+def _check_spec_launches(label, launches, n_layers, draft, lm):
+    """One flash prefill a layer of target and draft; kernel 2 in every
+    draft step of the replayed rounds; on an int8 LM kernel 4 in every draft
+    step; on an int4 LM kernel 5 four times a layer in every draft step and
+    in every verify (B k = 4 rows); none otherwise."""
+    from sparktts_tpu_torch.lm.speculative import ROUNDS_PER_UNIT
+
+    per_replay = ROUNDS_PER_UNIT * SPEC_K * draft
+    dense = launches["dense_decode_attention"]
+    replays = dense // per_replay
+    want = {"flash_attention_prefill": n_layers + draft,
+            "int8_mlp_matvec": dense if lm == "int8" else 0,
+            "int4_matvec": (replays * ROUNDS_PER_UNIT * 4 * (SPEC_K * draft + n_layers)
+                            if lm == "int4" else 0),
+            "paged_decode_attention": 0}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if dense == 0 or dense % per_replay or bad:
+        raise AssertionError(f"{label}: launches {json.dumps(launches)}; kernel 2 {dense} "
+                             f"(want a multiple of {per_replay}), mismatched (got, want): {bad}")
+
+
+def run_speculative(pipe, prompts, wav_path: Path, int8_params, int4_params, smi):
+    """Phase 29: `SparkTTSPipeline(speculative_k=4)` at 500 new tokens on
+    the creation and clone prompts (`prompts`: [(ids, "control"), (ids,
+    "clone")], the clone's from `wav_path`).  (a) greedy with draft_layers=24 (the
+    draft is the target): ids vanilla greedy's under the near-tie rule, and
+    every emission where a round stopped on a rejected proposal a near tie
+    of the output's dense logits; (b) draft_layers=6, greedy to the same
+    rule, and sampled through `inference` to finite waveforms of 320 samples
+    a semantic id; (c) greedy, draft 6, on the int8 (kernel 4) and the int4
+    LM (kernel 5), to the same rule.  Prints acceptance, ms a token beside
+    vanilla's, the units' capture ms and graph MiB; returns the summed
+    launches of its speculative calls."""
+    import numpy as np
+
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.prompt import extract_semantic_ids
+
+    n_layers = pipe.config.llm.num_hidden_layers
+    bf16_params = pipe.llm_params
+    total = dict.fromkeys(graphs.KERNELS, 0)
+    results, units = [], {}
+
+    def record(launches):
+        for name, n in launches.items():
+            total[name] += n
+        # the units go when llm_params changes: report each while it lives
+        for u in graphs.units():
+            if u.name.startswith("speculative") and u.name not in units:
+                units[u.name] = (u.capture_ms, u.pool_bytes / 2**20)
+                print(f"speculative unit {u.name}: capture {u.capture_ms:.1f} ms, graph pool "
+                      f"{u.pool_bytes / 2**20:.1f} MiB | {smi}")
+
+    def greedy_case(label, params, lm, draft, prompt, mode):
+        pipe.llm_params, pipe.speculative_k, pipe.draft_layers = params, SPEC_K, draft
+        want, vanilla_ms = _vanilla_call(pipe, prompt, mode, greedy=True)
+        got, accepted, rounds, where, ms, launches = _spec_call(pipe, prompt, mode, greedy=True)
+        _check_spec_launches(label, launches, n_layers, draft, lm)
+        record(launches)
+        ok, step = _near_tie_ok(pipe, params, prompt, mode, got, want)
+        # rejected proposals: k - 1 a round less the accepted (an EOS in the
+        # last round caps it, which counts here as rejections); `where`: the
+        # emissions at which a round stopped on one
+        rejected = (SPEC_K - 1) * rounds - accepted
+        row = dict(label=label, tokens=len(got), accepted=accepted, rounds=rounds,
+                   acceptance=accepted / len(got), accepted_per_round=accepted / max(rounds, 1),
+                   rejected=rejected, rejecting_rounds=len(where), ms_per_token=ms / len(got),
+                   vanilla_ms_per_token=vanilla_ms / len(want), first_diff=step,
+                   launches={k: launches[k] for k in ("flash_attention_prefill",
+                                                      "dense_decode_attention",
+                                                      "int8_mlp_matvec", "int4_matvec")})
+        if draft == n_layers:
+            # draft = target: a proposal is rejected only where the draft's
+            # decode path and the verify's dense path pick apart, at a near
+            # tie of the output's own logits
+            near = _near_ties(pipe, params, prompt, mode, got)
+            row["near_ties"], row["rejected_at"] = int(near.sum()), where.tolist()
+            row["rejected_not_near_tie"] = [int(p) for p in where if not near[p]]
+        print(f"speculative {label}: {json.dumps(row)} | {smi}")
+        results.append(row)
+        if not ok:
+            raise AssertionError(f"{label}: speculative greedy ids first differ from vanilla "
+                                 f"greedy at step {step}, not at a near tie")
+        if draft == n_layers and row["rejected_not_near_tie"]:
+            raise AssertionError(f"{label}: draft = target rejected proposals at emissions "
+                                 f"{row['rejected_not_near_tie']}, not near ties")
+
+    try:
+        for draft in SPEC_DRAFTS:
+            for prompt, mode in prompts:
+                greedy_case(f"greedy, draft {draft}, {mode}", bf16_params, "bf16", draft, prompt,
+                            mode)
+        # sampled, the early-exit draft: the waveform of the ids a seed gives
+        short = SPEC_DRAFTS[-1]
+        pipe.llm_params, pipe.speculative_k, pipe.draft_layers = bf16_params, SPEC_K, short
+        up = pipe._wave_upsample
+        for (prompt, mode), request in zip(prompts, (dict(**VOICE), None)):
+            got, accepted, rounds, _, ms, launches = _spec_call(pipe, prompt, mode, greedy=False)
+            _check_spec_launches(f"sampled, draft {short}, {mode}", launches, n_layers, short,
+                                 "bf16")
+            record(launches)
+            _, vanilla_ms = _vanilla_call(pipe, prompt, mode, greedy=False)
+            if request is not None:
+                wav = pipe.inference(TEXT, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, **request)
+            else:
+                wav = pipe.inference(TEXT, prompt_speech_path=wav_path,
+                                     prompt_text=PROMPT_TEXT, seed=SEED,
+                                     max_new_tokens=MAX_NEW_TOKENS)
+            n_sem = extract_semantic_ids(pipe.tokenizer, got).size
+            row = dict(label=f"sampled, draft {short}, {mode}", tokens=len(got), accepted=accepted,
+                       rounds=rounds, acceptance=accepted / len(got), ms_per_token=ms / len(got),
+                       vanilla_ms_per_token=vanilla_ms / MAX_NEW_TOKENS,
+                       semantic_tokens=int(n_sem), wav_samples=int(wav.size))
+            print(f"speculative {row['label']}: {json.dumps(row)} | {smi}")
+            results.append(row)
+            if not (wav.size == n_sem * up and wav.size and np.isfinite(wav).all()):
+                raise AssertionError(f"{row['label']}: {wav.size} samples for {n_sem} semantic "
+                                     f"ids (want x{up}), finite {bool(np.isfinite(wav).all())}")
+        (c_prompt, c_mode), (k_prompt, k_mode) = prompts
+        greedy_case(f"greedy, draft {short}, int8 LM, clone", int8_params, "int8", short,
+                    k_prompt, k_mode)
+        greedy_case(f"greedy, draft {short}, int4 LM, control", int4_params, "int4", short,
+                    c_prompt, c_mode)
+    finally:
+        pipe.llm_params, pipe.speculative_k, pipe.draft_layers = bf16_params, 0, 6
+    print("speculative launches (phase 29): " + json.dumps(total))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the benchmark harness at full width
+# ---------------------------------------------------------------------------
+
+BENCH_NEW_TOKENS = 200
+
+
+def _wait_healthy(port, timeout_s=300.0):
+    """Poll serve_http's /health until 200: the socket opens while the
+    streaming server still captures its units, and answers 503 until then."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        status = _http(port, "/health", method="GET")[0]
+        if status == 200:
+            return
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"serve_http on port {port}: /health {status} after "
+                                 f"{timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def run_bench(wav_path: Path, smi: str):
+    """Phase 30: the runners of `sparktts_tpu_torch/bench/harness.py` over a
+    full-width pipeline of their own, few tasks of ~200 tokens each: offline
+    (TTSServer, a clone with the prompt's transcript among them), streaming (StreamingSynthesizer), continuous offline and
+    streaming on the dense and the paged engine, longform, gRPC (framed) and
+    the network streaming runner over serve_http.  Each returns num_tasks =
+    its task count and rtf > 0.  Then the dispatch probe, speaker similarity
+    and semantic consistency of one vocoded request, and the leak check of
+    phase 28 after the pipeline is dropped.  Returns the runners' launches
+    (counts 0 just before the first)."""
+    import threading
+
+    import numpy as np
+
+    from sparktts_tpu_torch.bench import harness as H
+    from sparktts_tpu_torch.bench.metrics import semantic_consistency, speaker_similarity
+    from sparktts_tpu_torch.bench.relay_probe import measure_dispatch_tax
+    from sparktts_tpu_torch.config import StreamingConfig
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+    from sparktts_tpu_torch.serve.server import serve_http
+
+    mem_before = _allocated()
+    units_before = {id(u) for u in graphs.units()}
+    t_phase = time.perf_counter()
+    pipe = SparkTTSPipeline(device="cuda", seed=SEED, max_new_tokens=BENCH_NEW_TOKENS,
+                            wav_bucket_s=PROMPT_SECONDS)
+    prompt = pipe._load_prompt_wav(wav_path).astype(np.float32)
+    clone = H.BenchTask(text=TEXT, prompt_wav=prompt, prompt_text=PROMPT_TEXT)
+    plain_clone = H.BenchTask(text="One card serves eight voices here.", prompt_wav=prompt)
+    creation = H.BenchTask(text=TEXT, gender="female")
+    mixed = [clone, plain_clone, creation]
+    # the continuous servers' slots (cache 4 prompt buckets + the budget) hold
+    # clone prompts without the 6 s prompt's transcript (419 ids)
+    served = [plain_clone, creation, H.BenchTask(text="A third voice.", prompt_wav=prompt)]
+    pairs = []
+
+    def check(name, stats, tasks):
+        print(f"bench {name}: {json.dumps(stats)} | {smi}")
+        if stats["num_tasks"] != len(tasks) or not (stats["rtf"] or 0) > 0:
+            raise AssertionError(f"bench {name}: num_tasks {stats['num_tasks']} (want "
+                                 f"{len(tasks)}), rtf {stats['rtf']}")
+        pairs.append((name, stats["rtf"]))
+
+    _sync(pipe.device)
+    _reset_counts()
+    check("offline", H.run_offline_benchmark(pipe, mixed, concurrency=3), mixed)
+    check("streaming", H.run_streaming_benchmark(pipe, [creation], StreamingConfig()), [creation])
+    for paged in (False, True):
+        for streaming in (False, True):
+            name = f"continuous {'paged' if paged else 'dense'} " + (
+                "streaming" if streaming else "offline")
+            check(name, H.run_continuous_benchmark(
+                pipe, served, concurrency=3, streaming=streaming, max_slots=4,
+                max_new_tokens=BENCH_NEW_TOKENS, paged=paged), served)
+    check("longform", H.run_longform_benchmark(
+        pipe, [plain_clone], n_requests=1, segments=2, max_slots=2,
+        segment_max_new_tokens=BENCH_NEW_TOKENS), [plain_clone])
+    grpc_tasks = [creation, plain_clone]
+    check("grpc framed", H.run_grpc_streaming_benchmark(
+        pipe, grpc_tasks, concurrency=2, max_new_tokens=BENCH_NEW_TOKENS, transport="framed",
+        max_slots=2), grpc_tasks)
+    ctl: dict = {}
+    server_thread = threading.Thread(target=serve_http, args=(pipe,), name="serve_http",
+                                     kwargs=dict(host="127.0.0.1", port=0, control=ctl))
+    server_thread.start()
+    while "stop" not in ctl:
+        if not server_thread.is_alive():
+            raise AssertionError("bench: serve_http ended before it listened")
+        time.sleep(0.05)
+    try:
+        port = ctl["httpd"].server_address[1]
+        _wait_healthy(port)
+        check("network streaming", H.run_network_streaming_benchmark(
+            "127.0.0.1", port, grpc_tasks, concurrency=2, max_new_tokens=BENCH_NEW_TOKENS),
+            grpc_tasks)
+    finally:
+        ctl["stop"]()
+        server_thread.join(60)
+    launches = _counts()
+    print("bench launches of the runners (phase 30): " + json.dumps(launches))
+    for name in ("flash_attention_prefill", "dense_decode_attention", "fused_residual_unit",
+                 "paged_decode_attention"):
+        if launches[name] < 1:
+            raise AssertionError(f"bench: {name} was not launched by the runners")
+    probe = measure_dispatch_tax()
+    print(f"bench dispatch probe: {json.dumps(probe)} | {smi}")
+    wav = pipe.inference(TEXT, prompt_speech_path=prompt, prompt_text=PROMPT_TEXT, seed=SEED)
+    sim = speaker_similarity(pipe, prompt, wav)
+    consistency = semantic_consistency(pipe, wav)
+    print(f"bench metrics of one cloned request: speaker_similarity to its prompt {sim:.6f}, "
+          f"semantic_consistency {consistency:.6f} | {smi}")
+    if not (-1.0 <= sim <= 1.0 and 0.0 <= consistency <= 1.0):
+        raise AssertionError(f"bench metrics out of range: {sim}, {consistency}")
+    if server_thread.is_alive():
+        raise AssertionError("bench: serve_http did not return after stop")
+    del pipe, ctl, prompt, clone, plain_clone, creation, mixed, served, grpc_tasks, wav
+    mem_after = _allocated()
+    left = [u for u in graphs.units() if id(u) not in units_before]
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s; leak check: memory_allocated "
+          f"{mem_before / 2**20:.1f} MiB before, {mem_after / 2**20:.1f} MiB after, "
+          f"{(mem_after - mem_before) / 2**20:+.1f} MiB (margin {LEAK_MARGIN_MIB} MiB); "
+          f"decode units left: {len(left)}")
+    if left or mem_after - mem_before > LEAK_MARGIN_MIB * 2**20:
+        raise AssertionError("bench: the dropped pipeline's memory or units stayed")
+    return launches
 
 
 def main() -> int:
@@ -3663,6 +4026,23 @@ def main() -> int:
         # a shorter run for working on the front door: phase 28 alone, no
         # kernels line and no result line
         run_front_door(make_prompt_wav(OUT_DIR / "clone_prompt.wav"), smi)
+        return 0
+    if "--spec-only" in sys.argv[1:]:
+        # phase 29 alone (its prompts built here), no kernels line and no
+        # result line
+        from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+        wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
+        glob, sem = pipe.tokenize_audio(wav_path)
+        prompts = [(build_control_prompt(pipe.tokenizer, TEXT, **VOICE), "control"),
+                   (build_clone_prompt(pipe.tokenizer, TEXT, glob, sem, PROMPT_TEXT), "clone")]
+        run_speculative(pipe, prompts, wav_path, quantize_qwen_int8(pipe.llm_params),
+                        quantize_qwen_int4(pipe.llm_params, group=INT4_GROUP), smi)
+        return 0
+    if "--bench-only" in sys.argv[1:]:
+        # phase 30 alone, no kernels line and no result line
+        del pipe
+        run_bench(make_prompt_wav(OUT_DIR / "clone_prompt.wav"), smi)
         return 0
     if "--servers-only" in sys.argv[1:]:
         # a shorter run for working on the server phases: no other phase, no
@@ -3731,6 +4111,11 @@ def main() -> int:
                                                              int8_params)
     # the HTTP front door over a pipeline of its own, dropped after
     front_launches = run_front_door(wav_path, smi)
+    # speculative decoding through the pipeline; the benchmark harness over a
+    # pipeline of its own, dropped after
+    spec_launches = run_speculative(pipe, [(creation[1], "control"), (cloning[1], "clone")],
+                                    wav_path, int8_params, int4_params, smi)
+    bench_launches = run_bench(wav_path, smi)
     for _, prompt, _, _ in (creation, cloning):
         check_lm_prefill(pipe, prompt)
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
@@ -3753,7 +4138,7 @@ def main() -> int:
     check_failed_capture(dev)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
-             cache_launches, *server_launches, front_launches]
+             cache_launches, *server_launches, front_launches, spec_launches, bench_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     print("launches of the server phases (24-27):",

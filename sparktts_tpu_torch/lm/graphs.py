@@ -14,7 +14,13 @@ A `DecodeUnit` is built from a scan function (`make_scan(generators)` gives
 generator, or a list of one per row) and the state
 buffers it is bound to.  The last step of the unit copies its state back
 into those buffers and the unit's tokens and validity into `out`, so every
-replay starts from where the previous one ended.  Around the capture:
+replay starts from where the previous one ended.  A unit whose steps emit a
+variable number of tokens (a speculative round emits 1 to k,
+`lm/speculative.py`) keeps its tokens in its state's own buffers at device
+offsets instead: its scan returns `(state, *columns)`, (B, n) int columns
+that fill an `out` of `out_width` columns (the speculative unit reports its
+step and done flags there), and `unpack` does not apply.  Around the
+capture:
 
   * the warm-up that must precede it (it builds the kernels, cuBLAS plans
     and the RoPE table) runs on a scratch copy of the buffers, so it never
@@ -124,7 +130,7 @@ class DecodeUnit:
 
     def __init__(self, make_scan: Callable[[Generators], Scan], state, steps: int,
                  inputs: Optional[Dict[str, torch.Tensor]] = None, name: str = "decode unit",
-                 n_generators: int = 1):
+                 n_generators: int = 1, out_width: Optional[int] = None):
         self.state = state            # the buffers every replay reads and updates
         self.steps = steps
         self.inputs = inputs or {}    # static inputs the caller fills before replaying
@@ -133,7 +139,7 @@ class DecodeUnit:
         self.generators = [torch.Generator(device=self.device) for _ in range(n_generators)]
         self._scan = make_scan(self.generators[0] if n_generators == 1 else self.generators)
         b = state.cur_token.shape[0]
-        self.out = torch.zeros((b, 2 * steps), dtype=torch.int32, device=self.device)
+        self.out = torch.zeros((b, out_width or 2 * steps), dtype=torch.int32, device=self.device)
         self.replays = 0
         self.unit_launches = dict.fromkeys(KERNELS, 0)   # launches a replay
         self.setup_launches = dict.fromkeys(KERNELS, 0)  # launches of the warm-up
@@ -147,11 +153,11 @@ class DecodeUnit:
             self._capture()
 
     def _body(self, state, out: torch.Tensor) -> None:
-        new, toks, valid = self._scan(state)
+        new, *columns = self._scan(state)
         for mine, theirs in zip(tensors(state), tensors(new)):
             if mine is not theirs:
                 mine.copy_(theirs)
-        out.copy_(torch.cat([toks.int(), valid.int()], dim=1))
+        out.copy_(torch.cat([c.int() for c in columns], dim=1))
 
     def _capture(self) -> None:
         with arrivals.private(self.device) as counters:
@@ -228,7 +234,8 @@ class DecodeUnit:
 
     def replay(self) -> torch.Tensor:
         """Run the unit's U steps once; returns `out` (B, 2U) int32: the U
-        emitted tokens, then their validity.  The next replay overwrites it."""
+        emitted tokens, then their validity (or the scan's own columns, for a
+        unit built with `out_width`).  The next replay overwrites it."""
         with self.lock:
             if self.graph is None:
                 self._body(self.state, self.out)

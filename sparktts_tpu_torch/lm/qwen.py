@@ -152,8 +152,10 @@ def _attention_block(
     """Attention for prefill (T >= 1) and decode (T == 1).
 
     New K/V are written into cache plane `layer_idx` at [write_pos,
-    write_pos + T), in place; a (B,) tensor write_pos (T == 1, a decode
-    step) writes row b at its own write_pos[b], which must lie in [0, S).
+    write_pos + T), in place; a (B,) tensor write_pos writes row b's T keys
+    at its own [write_pos[b], write_pos[b] + T), which must lie in [0, S)
+    (a decode step, T == 1, or a speculative verify window, T == k), with
+    no host read of the position.
     flash_start (B,) int32: prefill from slot 0 through the flash kernel
     module.  decode_window ((B,) start, (B,) pos)
     int32: T == 1 decode through the decode kernel module, keys valid in
@@ -163,9 +165,15 @@ def _attention_block(
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q, k, v = project_qkv(layer, x, rope, cfg)
     if isinstance(write_pos, torch.Tensor):
-        rows = (torch.arange(b, device=x.device), write_pos.long())
-        cache.k[layer_idx].index_put_(rows, k[:, 0].to(cache.k.dtype))
-        cache.v[layer_idx].index_put_(rows, v[:, 0].to(cache.v.dtype))
+        if t == 1:  # a decode step: no window offsets to add
+            rows, cols, new_k, new_v = (torch.arange(b, device=x.device), write_pos.long(),
+                                        k[:, 0], v[:, 0])
+        else:
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = write_pos.long()[:, None] + torch.arange(t, device=x.device)[None, :]
+            new_k, new_v = k, v
+        cache.k[layer_idx].index_put_((rows, cols), new_k.to(cache.k.dtype))
+        cache.v[layer_idx].index_put_((rows, cols), new_v.to(cache.v.dtype))
     else:
         cache.k[layer_idx, :, write_pos : write_pos + t] = k
         cache.v[layer_idx, :, write_pos : write_pos + t] = v

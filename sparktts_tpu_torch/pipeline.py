@@ -47,6 +47,7 @@ from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.continuous import to_device
 from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.sample import Generators
+from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers, speculative_decode
 from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
 from sparktts_tpu_torch.prompt import (
     HFSparkTokenizer,
@@ -139,8 +140,10 @@ class SparkTTSPipeline:
     three weight trees; `config` and the `*_params` arguments are then not
     read).  `prompt_bucket` / `wav_bucket_s` set the prompt and wav padding,
     `guided=False` samples the full vocabulary instead of the mode's token
-    ranges, and `voice_cache_size > 0` keeps that many tokenized prompt
-    voices (LRU)."""
+    ranges, `speculative_k > 0` decodes one request speculatively (k drafted
+    tokens a round from the first `draft_layers` layers, `lm/speculative.py`;
+    the batch and streaming surfaces ignore it), and `voice_cache_size > 0`
+    keeps that many tokenized prompt voices (LRU)."""
 
     def __init__(
         self,
@@ -153,6 +156,8 @@ class SparkTTSPipeline:
         prompt_bucket: int = PROMPT_BUCKET,
         wav_bucket_s: float = 1.0,
         guided: bool = True,
+        speculative_k: int = 0,
+        draft_layers: int = 6,
         voice_cache_size: int = 0,
         llm_params=None,
         bicodec_params=None,
@@ -167,6 +172,7 @@ class SparkTTSPipeline:
         # pipeline's LM: they go with the pipeline, or when `llm_params` is
         # replaced (as JAX keeps its program cache per pipeline)
         self.units = graphs.UnitCache("SparkTTSPipeline")
+        self._draft = None  # (key, the early-exit draft tree over llm_params)
         self.lm_dtype = lm_dtype
         self.load_seconds: dict = {}
         if model_dir is not None:
@@ -205,6 +211,12 @@ class SparkTTSPipeline:
         self.vocode_bucket = VOCODE_BUCKET
         self.max_new_tokens = max_new_tokens or self.config.sampling.max_new_tokens
         self.guided = guided
+        # speculative decoding: k > 0 drafts k tokens a round with the first
+        # `draft_layers` layers of the LM (views of its stacked layers) and
+        # verifies them in one forward; the output distribution is vanilla
+        # decode's (lm/speculative.py)
+        self.speculative_k = speculative_k
+        self.draft_layers = draft_layers
         self._enc_ratio = int(np.prod(bc.encoder.sample_ratios))  # wav2vec2 frames per semantic id
         self._wave_upsample = int(np.prod(bc.decoder.rates)) * int(np.prod(bc.prenet.sample_ratios))
 
@@ -232,7 +244,18 @@ class SparkTTSPipeline:
         """A new LM tree (quantized, reloaded) evicts the decode units that
         close over the old one, and with them the old tree's last holder."""
         self._llm_params = tree
+        self._draft = None
         self.units.clear()
+
+    @property
+    def draft_params(self):
+        """The early-exit draft of `speculative_k`: the first `draft_layers`
+        layers of `llm_params`, one tree while both stay (the speculative
+        units key on its identity)."""
+        key = (id(self._llm_params), self.draft_layers)
+        if self._draft is None or self._draft[0] != key:
+            self._draft = (key, draft_from_layers(self._llm_params, self.draft_layers))
+        return self._draft[1]
 
     def _load_params(self, model_dir: Path) -> None:
         """Read the three checkpoints (`BiCodec/`, `wav2vec2-large-xlsr-53/`,
@@ -686,6 +709,22 @@ class SparkTTSPipeline:
             units=self.units,
         )
 
+    def _speculative(self, input_ids, mask, seed: int, max_new: int, temperature, top_k, top_p,
+                     greedy, mode):
+        """`speculative_decode` over the early-exit draft, with the cache
+        `speculative_k` slots longer than vanilla decode's (JAX's
+        `generate_tokens`); returns (tokens, lengths, accepted, rounds,
+        rejected)."""
+        vocab_slice, extra_ids = self.guided_constraint(mode)
+        k = self.speculative_k
+        return speculative_decode(
+            self.llm_params, self.draft_params, self.config.llm,
+            draft_config(self.config.llm, self.draft_layers), input_ids, mask,
+            None if greedy else torch.Generator(device=self.device).manual_seed(seed),
+            max_new, input_ids.shape[1] + max_new + k, k, temperature, top_k, top_p, greedy,
+            tuple(self.tokenizer.eos_ids), self.tokenizer.pad_id, vocab_slice, extra_ids,
+            self.lm_dtype, self.units)
+
     def generate_tokens(
         self,
         prompt_ids,
@@ -701,8 +740,15 @@ class SparkTTSPipeline:
         the generated ids (new tokens only, up to and including EOS).  On
         the card the decode replays a captured decode unit (`generate`,
         `lm/graphs.py`), which takes the state of this request's generator,
-        seeded with `seed`."""
+        seeded with `seed`; with `speculative_k > 0` a speculative unit of
+        rounds (`lm/speculative.py`)."""
         input_ids, mask = self.prompt_inputs(prompt_ids)
+        if self.speculative_k > 0:
+            with stage("llm_generate"):
+                tokens, lengths, *_ = self._speculative(
+                    input_ids, mask, seed, max_new_tokens or self.max_new_tokens, temperature,
+                    top_k, top_p, greedy, mode)
+                return tokens[0, : int(lengths[0])].cpu().numpy()
         with stage("llm_generate"):
             tokens, lengths = self._generate(
                 input_ids, mask, torch.Generator(device=self.device).manual_seed(seed),

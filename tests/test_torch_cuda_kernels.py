@@ -969,3 +969,61 @@ def test_vocoder_kernel_at_the_servers_batched_windows(b, c, t):
     assert float((got - model).abs().max()) / float(model.abs().max()) <= _vocoder_model_tol(c)
     row = vf.fused_residual_unit(p, x[1:2].contiguous(), 3)
     assert float((got[1:2] - row).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+def test_speculative_unit_replays_equal_its_eager_rounds(greedy):
+    """`speculative_generate(_greedy)` on the card replays its captured unit
+    of ROUNDS_PER_UNIT rounds over the two-layer LM with a one-layer draft:
+    its ids equal the same rounds run eagerly (`speculative_round` in a
+    Python loop until the budget is spent) with the same seed, twice; one
+    flash prefill a layer of target and draft a call, kernel 2 in every
+    draft step of every replayed round."""
+    from sparktts_tpu_torch.lm import generate as tgen
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm import speculative as sp
+    from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
+
+    dev = _cuda()
+    cfg, params = _unit_lm(dev, "bf16")
+    draft, dcfg = sp.draft_from_layers(params, 1), sp.draft_config(cfg, 1)
+    ids, mask = _unit_prompt(dev)
+    max_new, k, t_pad = 37, 4, ids.shape[1]
+    cache_len = t_pad + max_new + k
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        s_len = aligned_cache_len(cache_len)
+        tc = init_kv_cache(cfg, 1, s_len, torch.bfloat16, dev)
+        dc = init_kv_cache(dcfg, 1, s_len, torch.bfloat16, dev)
+        first = tgen.prefill(params, cfg, ids, mask, tc, gen, 0.8, 50, 0.95, greedy, **GUIDED)
+        tgen.prefill(draft, dcfg, ids, mask, dc, gen, 0.8, 50, 0.95, True, **GUIDED)
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        state = sp.SpecState(tc, dc, first.cur_token, zero, torch.zeros(1, dtype=torch.bool,
+                                                                        device=dev),
+                             first.start, first.prompt_len, zero.clone(), zero.clone(),
+                             torch.zeros((1, max_new + k + 1), dtype=torch.long, device=dev),
+                             torch.zeros((1, max_new + k + 1), dtype=torch.bool, device=dev),
+                             torch.zeros((1, max_new + k + 1), dtype=torch.bool, device=dev))
+        temperature, top_p = (torch.full((), v, device=dev) for v in (0.8, 0.95))
+        while int(state.step) < max_new and not bool(state.done.all()):
+            state = sp.speculative_round(params, draft, cfg, dcfg, state, t_pad, k, max_new, gen,
+                                         temperature, 50, top_p, greedy, (), 0, **GUIDED)
+        want = state.tokens[:, :max_new]
+        graphs.reset_launches()
+        runs = []
+        for _ in range(2):
+            if greedy:
+                got = sp.speculative_generate_greedy(params, draft, cfg, dcfg, ids, mask, max_new,
+                                                     cache_len, k=k, **GUIDED)
+            else:
+                got = sp.speculative_generate(params, draft, cfg, dcfg, ids, mask,
+                                              torch.Generator(device=dev).manual_seed(5), max_new,
+                                              cache_len, k=k, **GUIDED)
+            runs.append(got[0])
+        counts = graphs.launches()
+    assert torch.equal(runs[0], want) and torch.equal(runs[1], want)
+    assert counts["flash_attention_prefill"] == 2 * (UNIT_LAYERS + 1)
+    per_replay = sp.ROUNDS_PER_UNIT * k  # one draft layer
+    assert counts["dense_decode_attention"] > 0
+    assert counts["dense_decode_attention"] % per_replay == 0

@@ -58,7 +58,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "codec.speaker_encoder", "codec.bicodec", "checkpoint", "utils.textseg",
                  "config", "prompt", "serve.server", "serve.voices", "serve.ui", "serve.client",
                  "serve.grpc_server", "serve.protos.sparktts_pb2", "utils.platform",
-                 "utils.tokens", "cli", "webui"):
+                 "utils.tokens", "cli", "webui", "bench", "bench.harness", "bench.metrics",
+                 "bench.relay_probe", "lm.speculative"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -73,6 +74,30 @@ bad = sorted(m for m in sys.modules
              or m == "google.protobuf" or m.startswith("google.protobuf."))
 print(json.dumps(bad))
 """
+
+
+_IMPORT_BENCH = """
+import importlib.util, json, sys
+for path in ("bench_torch.py", "scripts/benchmark_torch.py"):
+    spec = importlib.util.spec_from_file_location(path.replace("/", "_")[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import sparktts_tpu_torch.bench.harness, sparktts_tpu_torch.bench.metrics
+import sparktts_tpu_torch.bench.relay_probe, sparktts_tpu_torch.lm.speculative
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparktts_tpu"))
+print(json.dumps(bad))
+"""
+
+
+def test_bench_scripts_and_modules_import_no_jax():
+    """The port's bench entry scripts (imported as modules: their work runs
+    in `main`), the bench package and the speculative module import nothing
+    of JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_BENCH], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_front_doors_import_no_jax_grpc_or_protobuf():
@@ -126,6 +151,30 @@ def test_pipeline_without_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SparkTTSPipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparkTTSPipeline(speculative_k=4, draft_layers=6)
+
+
+def test_bench_runners_default_to_the_card_and_raise_without_one(monkeypatch):
+    """Every runner that takes a pipeline serves its device, the card by
+    default, and raises before it starts a server when that card is
+    missing; so do the metrics' `mel_distance` and the dispatch probe."""
+    import types
+
+    from sparktts_tpu_torch.bench import harness, metrics, relay_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"), guided=True)
+    task = [harness.BenchTask(text="hi", gender="female")]
+    for run in (harness.run_offline_benchmark, harness.run_streaming_benchmark,
+                harness.run_continuous_benchmark, harness.run_longform_benchmark,
+                harness.run_grpc_streaming_benchmark):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(on_card, task)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        metrics.mel_distance(np.zeros(2048), np.zeros(2048))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        relay_probe.measure_dispatch_tax()
 
 
 def test_front_doors_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):

@@ -11,7 +11,7 @@ OPENAI_LONGFORM_AUTO_CHARS), /v1/voices, /v1/models, the Triton v2 infer
 and health routes, /stats, /health, the UI page, every error status and
 envelope, gRPC and HTTP streams sharing one engine, and `control["stop"]`
 closing it all (the last test).  The network-streaming benchmark case of
-`tests/test_http_server.py` waits for the port of `bench/`.
+`tests/test_http_server.py` is in `tests/test_torch_bench.py`.
 """
 
 import base64
@@ -319,8 +319,14 @@ def test_speech_offline(front, response_format):
 
 @pytest.mark.parametrize("response_format", ["wav", "pcm"])
 def test_speech_streamed(front, response_format):
+    """A streamed creation request answers chunked audio.  The continuous
+    engine's generator is engine-wide, so a free draw depends on how many
+    dispatches earlier requests ran, and with random weights about 1 draw
+    in 15 ends before any semantic id (no audio).  A top_p near 0 keeps
+    only the most likely token, so this request's ids do not depend on the
+    generator: 12 semantic ids on the tiny model."""
     status, headers, data = _request(front["port"], "/v1/audio/speech", {
-        "input": "stream me", "voice": "male", "stream": True,
+        "input": "stream me", "voice": "male", "stream": True, "top_p": 1e-6,
         "response_format": response_format})
     assert status == 200 and headers["Content-Type"] == f"audio/{response_format}"
     assert headers.get("Transfer-Encoding") == "chunked"
