@@ -116,7 +116,10 @@ and capture are set-up, counted apart).
    keys, shapes and dtypes; one creation and one clone request with the
    launch counts of phases 3 and 4; prefill logits of the 64-token bucket
    card vs the same directory loaded on the CPU (5e-2 of the largest logit).
-   The directory is deleted after;
+   The same directory loaded a second time reads the converted trees from
+   its `_torch_cache/`, converts nothing, and gives every tree bit for bit
+   (each load's read/convert/cache/upload seconds printed).  The directory
+   is deleted after;
 20. the untied head: the creation request on the LM with
    tie_word_embeddings=False (a random bf16 lm_head), 100 greedy ids
    through the decode unit equal to the eager loop's; one decode step of
@@ -201,11 +204,32 @@ and capture are set-up, counted apart).
    read after the last (kernels 1, 2, 3 and 6 launched); then
    measure_dispatch_tax, the speaker similarity and semantic consistency of
    one cloned request, and phase 28's leak check with the pipeline dropped.
+31. fine-tuning (`lm/train.py`): the 24-layer LM in fp32 with AdamW, B = 2,
+   T = 512, a fixed batch of random ids, the loss over the semantic
+   region: the first loss and the gradients of `embed` and layer 0's `qkv`
+   at B = 1, T = 64 against the CPU; 5 steps (the curve must fall; ms a
+   step, tokens/s, peak memory), the state saved after 3, restored and run
+   for 2: within the stated tolerances of the uninterrupted run;
+32. draft distillation (`lm/distill.py`): the cycler teacher at the LM's
+   head layout in bf16, its distilled one-layer draft accepting > 0.5
+   where a random one accepts < 0.2; the full-width LM teaching a 4-layer
+   draft started from its first layers (20 steps over semantic ids), its
+   corpus_stats, losses and acceptance before and after printed; kernels 1
+   and 2 launched by the teachers;
+33. export (`export.py`): the five programs of the full-width pipeline (bf16
+   LM) and the int8 LM's lm_prefill + lm_decode, written under
+   chiprun_out/export/ (deleted after), reloaded: mel within 1e-5 and the
+   tokenize ids of the live path, the vocoder within WINDOW_REL_TOL of the
+   live detokenize, greedy ids of the LM programs the live generate's or
+   apart at a near tie, the `sparktts_torch::` ops in the vocoder and decode
+   programs, and kernels 2, 3 and 4 launched by the programs; export seconds
+   and artifact MiB printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
 17, 19 to 23, the server bursts of 24 to 27, phase 28's routes, phase
-29's speculative calls and phase 30's runners, its
+29's speculative calls, phase 30's runners, phase 32's teachers and phase
+33's programs, its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
@@ -215,9 +239,9 @@ engine's state, for paged the engine's and the late state, and the
 servers' shapes); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
-result.  `--front-only`, `--servers-only`, `--spec-only` and `--bench-only`
-run phase 28, phases 24-27, phase 29 or phase 30 alone (after the build),
-with no kernels line and no result line.
+result.  `--front-only`, `--servers-only`, `--spec-only`, `--bench-only` and
+`--train-only` run phase 28, phases 24-27, phase 29, phase 30 or phases
+31-33 alone (after the build), with no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -1976,32 +2000,11 @@ def check_failed_capture(dev):
 # ---------------------------------------------------------------------------
 
 def write_safetensors(path: Path, tensors: dict) -> None:
-    """A safetensors file of `tensors`: an 8-byte little-endian header
-    length, the JSON header (dtype, shape, byte offsets), then each tensor's
-    bytes in order."""
-    import struct
+    """A safetensors file of `tensors`, written by the port's own writer
+    (`checkpoint.save_safetensors`)."""
+    from sparktts_tpu_torch.checkpoint import save_safetensors
 
-    import torch
-
-    from sparktts_tpu_torch.checkpoint import SAFETENSORS_DTYPES
-
-    names = {dtype: name for name, dtype in SAFETENSORS_DTYPES.items()}
-    header, offset, blobs = {}, 0, []
-    for name, t in tensors.items():
-        t = t.detach().contiguous().cpu().reshape(-1)
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": names[t.dtype],
-                        "shape": list(tensors[name].shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        blobs.append(t)
-        offset += nbytes
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for t in blobs:
-            f.write(t.view(torch.uint8).numpy().data)
+    save_safetensors(path, tensors)
 
 
 SPARK_SPECIAL_TOKENS = (
@@ -2348,6 +2351,37 @@ def check_prefill_on_cpu(pipe, cpu_pipe, prompt, label):
         raise AssertionError(f"{label}: prefill logits on the card disagree with the CPU")
 
 
+def check_cached_load(cp, model_dir: Path):
+    """The checkpoint loaded a second time reads the converted trees from
+    `<model_dir>/_torch_cache/` (written by the first load), converts
+    nothing, and gives every tree bit for bit; prints each load's
+    read/convert/cache/upload seconds."""
+    import torch
+
+    from sparktts_tpu_torch.checkpoint import flatten_tree
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+
+    t0 = time.perf_counter()
+    cached = SparkTTSPipeline(model_dir=model_dir, device=cp.device)
+    load_s = time.perf_counter() - t0
+    for label, p, total in (("first", cp, None), ("cached", cached, load_s)):
+        row = {k: round(v, 3) for k, v in p.load_seconds.items()}
+        print(f"checkpoint {label} load seconds: {json.dumps(row)}"
+              + (f", {total:.2f} s in all" if total is not None else ""))
+    if cached.load_seconds["read"] or cached.load_seconds["convert"]:
+        raise AssertionError(f"checkpoint: the second load did not read the cache: "
+                             f"{cached.load_seconds}")
+    for name in ("llm_params", "bicodec_params", "w2v_params"):
+        want, got = flatten_tree(getattr(cp, name))[0], flatten_tree(getattr(cached, name))[0]
+        bad = [k for k, t in want.items() if got[k].dtype != t.dtype or not torch.equal(got[k], t)]
+        if set(got) != set(want) or bad:
+            raise AssertionError(f"checkpoint: the cached {name} differs from the first load's "
+                                 f"at {bad[:4]}")
+        print(f"checkpoint: the cached {name} equals the first load's bit for bit "
+              f"({len(want)} leaves)")
+    del cached
+
+
 def run_checkpoint(pipe, wav_path: Path):
     """Phase 19: a full-width checkpoint with torch names (`write_checkpoint`)
     loaded through `SparkTTSPipeline(model_dir=...)`: read, convert and
@@ -2385,6 +2419,7 @@ def run_checkpoint(pipe, wav_path: Path):
                        semantic_base=cp.tokenizer.semantic_base,
                        global_base=cp.tokenizer.global_base)
         print("checkpoint load:", json.dumps(summary))
+        check_cached_load(cp, model_dir)
         for name, got, want in (("LM", cp.llm_params, pipe.llm_params),
                                 ("BiCodec", cp.bicodec_params, pipe.bicodec_params),
                                 ("wav2vec2", cp.w2v_params, pipe.w2v_params)):
@@ -3036,8 +3071,8 @@ def _near_tie_ok(pipe, params, prompt, mode, got, want):
     """Phase 14's argmax rule for a greedy stream against a reference: equal,
     or the first difference at a step where the reference's top two guided
     logits (prompt + the common prefix through the dense path, on the card)
-    lie closer than LOGITS_REL_TOL of the largest logit.  Returns (ok, the
-    first differing step or None)."""
+    lie closer than LOGITS_REL_TOL of the largest logit (mode None: the full
+    vocabulary).  Returns (ok, the first differing step or None)."""
     import numpy as np
     import torch
 
@@ -3049,7 +3084,7 @@ def _near_tie_ok(pipe, params, prompt, mode, got, want):
         return True, None
     step = int(diff[0]) if diff.size else n
     ids = torch.tensor([list(prompt) + [int(t) for t in want[:step]]], device=pipe.device)
-    vocab_slice, extra_ids = pipe.guided_constraint(mode)
+    vocab_slice, extra_ids = pipe.guided_constraint(mode) if mode else (None, ())
     t = ids.shape[1]
     with torch.inference_mode():
         idx = torch.arange(t, device=pipe.device)
@@ -3979,6 +4014,364 @@ def run_bench(wav_path: Path, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 31-33: fine-tuning, draft distillation, export
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_LEN = 2, 512
+TRAIN_PROMPT = 64  # random ids of the whole vocabulary, then semantic ids, which the loss counts
+TRAIN_STEPS = 5
+TRAIN_RESUME_AT = 3  # the state saved after this many steps resumes for the rest
+TRAIN_LR = 1e-4
+TRAIN_CPU_LEN = 64  # the card-vs-CPU gradient check's (B = 1) length
+# Loss and gradients of the fp32 LM, card vs CPU (TF32 off): the two sum in
+# other orders through 24 layers.  Gradients relative to the leaf's largest
+# element.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# Resumed vs uninterrupted steps on the card: the embedding's backward adds
+# rows with atomics, so the steps are not bit-reproducible, and AdamW moves an
+# element whose gradient is rounding noise by about lr a step either way:
+# 2 lr a step over the resumed steps.
+TRAIN_RESUME_ATOL = 2 * TRAIN_LR * (TRAIN_STEPS - TRAIN_RESUME_AT)
+CYCLER_H = 32
+DISTILL_DRAFT_LAYERS = 4
+EXPORT_NEW_TOKENS = 48
+EXPORT_PROMPT_LEN = 128
+
+
+def run_training(pipe, smi):
+    """Phase 31: the 24-layer LM in fp32 with AdamW (`lm/train.py`) at
+    B = 2, T = 512, a fixed batch of random ids, the loss over the semantic
+    region: first the loss and the gradients of `embed` and layer 0's `qkv`
+    at B = 1, T = 64 against the CPU (same params); then TRAIN_STEPS steps
+    (the curve must fall; ms a step, tokens/s, peak memory), the state saved
+    after TRAIN_RESUME_AT of them, restored on the card and run for the rest:
+    losses and params within the stated tolerances of the uninterrupted
+    run.  Returns its summary."""
+    import shutil
+
+    import torch
+
+    from sparktts_tpu_torch.checkpoint import flatten_tree
+    from sparktts_tpu_torch.lm import train as T
+
+    dev, cfg, tok = pipe.device, pipe.config.llm, pipe.tokenizer
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN), generator=g, device=dev)
+    ids[:, TRAIN_PROMPT:] = torch.randint(tok.semantic_base, tok.semantic_base + tok.n_semantic,
+                                          (TRAIN_BATCH, TRAIN_LEN - TRAIN_PROMPT), generator=g,
+                                          device=dev)
+    mask = torch.zeros_like(ids, dtype=torch.bool)
+    mask[:, TRAIN_PROMPT:] = True
+    optimizer = T.make_optimizer(TRAIN_LR)
+    torch.cuda.empty_cache()
+    state = T.init_train_state(pipe.llm_params, optimizer, dev)
+
+    # the first loss and two gradient leaves, card vs CPU
+    names = ("embed", "layers/qkv/w")
+    leaves = flatten_tree(state.params)[0]
+    window = slice(TRAIN_PROMPT - TRAIN_CPU_LEN // 2, TRAIN_PROMPT + TRAIN_CPU_LEN // 2)
+    ids_s, mask_s = ids[:1, window], mask[:1, window]  # half prompt, half semantic ids
+    loss = T.lm_loss(state.params, cfg, ids_s, mask_s)
+    card = [loss.detach()] + list(torch.autograd.grad(loss, [leaves[n] for n in names]))
+    card = [card[0].item(), card[1].cpu(), card[2][0].cpu()]
+    del loss
+    t0 = time.perf_counter()
+    cpu_params = T.map_tree(state.params, lambda t: t.detach().cpu())
+    cpu_leaves = flatten_tree(cpu_params)[0]
+    for n in names:
+        cpu_leaves[n].requires_grad_(True)
+    loss = T.lm_loss(cpu_params, cfg, ids_s.cpu(), mask_s.cpu())
+    cpu = [loss.item()] + list(torch.autograd.grad(loss, [cpu_leaves[n] for n in names]))
+    cpu[2] = cpu[2][0]
+    cpu_s = time.perf_counter() - t0
+    del loss, cpu_params, cpu_leaves
+    row = {"loss_card": card[0], "loss_cpu": cpu[0], "cpu_s": round(cpu_s, 2)}
+    ok = abs(card[0] - cpu[0]) <= TRAIN_LOSS_RTOL * abs(cpu[0])
+    for n, a, b in zip(("embed", "layer 0 qkv"), card[1:], cpu[1:]):
+        scale = float(b.abs().max())
+        rel = float((a - b).abs().max()) / scale if scale else math.inf
+        row[f"grad_rel_err {n}"] = rel
+        ok = ok and rel <= TRAIN_GRAD_TOL
+    print(f"training: loss and gradients at B = 1, T = {TRAIN_CPU_LEN}, card vs CPU: "
+          f"{json.dumps(row)} (loss rtol {TRAIN_LOSS_RTOL}, grads {TRAIN_GRAD_TOL} of the leaf's "
+          f"largest)")
+    if not ok:
+        raise AssertionError("training: the card's loss or gradients disagree with the CPU's")
+
+    # the steps, with a save part way
+    ckpt_dir = OUT_DIR / "train_state"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_RESUME_AT:
+                t0 = time.perf_counter()
+                T.save_train_state(ckpt_dir, state)
+                save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            state, loss = T.train_step(state, cfg, ids, mask)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        summary = dict(losses=losses, step_ms=step_ms, steady_ms=steady,
+                       tokens_per_s=TRAIN_BATCH * TRAIN_LEN / steady * 1e3, peak_gib=peak,
+                       save_s=save_s, state_bytes=(ckpt_dir / "tree.safetensors").stat().st_size)
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"training: the loss curve does not fall: {losses}")
+        t0 = time.perf_counter()
+        restored = T.load_train_state(ckpt_dir, optimizer, dev)
+        summary["load_s"] = time.perf_counter() - t0
+        if restored is None or restored.step != TRAIN_RESUME_AT:
+            raise AssertionError("training: the saved state did not restore")
+        resumed = []
+        for _ in range(TRAIN_RESUME_AT, TRAIN_STEPS):
+            restored, loss = T.train_step(restored, cfg, ids, mask)
+            resumed.append(loss.item())
+        want, got = flatten_tree(state.params)[0], flatten_tree(restored.params)[0]
+        param_err = max(float((got[n] - t).detach().abs().max()) for n, t in want.items())
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[TRAIN_RESUME_AT:]))
+        summary.update(resumed_losses=resumed, resume_param_max_err=param_err,
+                       resume_loss_rel_err=loss_err)
+        print(f"training (B = {TRAIN_BATCH}, T = {TRAIN_LEN}, fp32, AdamW lr {TRAIN_LR}, TF32 "
+              f"off): {json.dumps(summary)} | {smi}")
+        if not (param_err <= TRAIN_RESUME_ATOL and loss_err <= TRAIN_LOSS_RTOL):
+            raise AssertionError(f"training: the resumed run is not the uninterrupted one "
+                                 f"(params {param_err:.3e}, tol {TRAIN_RESUME_ATOL:.1e}; losses "
+                                 f"{loss_err:.3e}, tol {TRAIN_LOSS_RTOL})")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del state, restored
+    torch.cuda.empty_cache()
+    return summary
+
+
+def run_distill(pipe, smi):
+    """Phase 32: draft distillation on the card (`lm/distill.py`).  (a) the
+    cycler teacher, its attention at the LM's head layout (the kernels'),
+    in bf16: a distilled one-layer draft must accept > 0.5 where a random
+    one accepts < 0.2; (b) the full-width LM as the teacher of a
+    DISTILL_DRAFT_LAYERS-layer draft started from its first layers, 20
+    steps over semantic ids: corpus_stats, the loss curve and the
+    acceptance before and after (a random LM's teacher collapses, so nothing
+    is gated on it).  Kernels 1 and 2 must launch (the teacher's prefill and
+    decode).  Returns the launches of the phase."""
+    import dataclasses
+
+    import torch
+
+    from sparktts_tpu_torch.lm import distill as D
+    from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers
+    from sparktts_tpu_torch.weights import init_qwen
+
+    dev, cfg, tok = pipe.device, pipe.config.llm, pipe.tokenizer
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    teacher, ccfg = D.make_cycler_teacher(CYCLER_H, num_attention_heads=cfg.num_attention_heads,
+                                          num_key_value_heads=cfg.num_key_value_heads,
+                                          head_dim=cfg.head_dim, dtype=torch.bfloat16, device=dev)
+    dcfg = dataclasses.replace(ccfg, num_hidden_layers=1)
+    random_draft = init_qwen(dcfg, torch.Generator(device=dev).manual_seed(3), torch.float32, dev)
+    base = D.measure_acceptance(teacher, random_draft, ccfg, dcfg, k=SPEC_K, seed=SEED, device=dev)
+    draft, losses = D.distill_draft(teacher, ccfg, dcfg, steps=150, batch=8, prompt_len=4,
+                                    gen_len=24, corpus_seqs=128, learning_rate=5e-3, seed=SEED,
+                                    device=dev)
+    rate = D.measure_acceptance(teacher, draft, ccfg, dcfg, k=SPEC_K, seed=SEED, device=dev)
+    cycler = dict(random_acceptance=base, distilled_acceptance=rate, first_loss=losses[0],
+                  last_loss=losses[-1], seconds=time.perf_counter() - t0)
+    print(f"distillation, cycler teacher (h {CYCLER_H}, heads {cfg.num_attention_heads}/"
+          f"{cfg.num_key_value_heads}x{cfg.head_dim}, bf16): {json.dumps(cycler)} | {smi}")
+    if not (rate > 0.5 and base < 0.2):
+        raise AssertionError(f"distillation: the cycler's distilled draft accepts {rate:.3f} "
+                             f"(want > 0.5), the random one {base:.3f} (want < 0.2)")
+
+    t0 = time.perf_counter()
+    vs = (tok.semantic_base, tok.semantic_base + tok.n_semantic)
+    dcfg = draft_config(cfg, DISTILL_DRAFT_LAYERS)
+    early = draft_from_layers(pipe.llm_params, DISTILL_DRAFT_LAYERS)
+    args = dict(prompt_len=16, vocab_slice=vs)
+    corpus = D.sample_target_corpus(pipe.llm_params, cfg, torch.Generator(device=dev)
+                                    .manual_seed(SEED), 64, gen_len=48, greedy=True, **args)
+    before = D.measure_acceptance(pipe.llm_params, early, cfg, dcfg, n_prompts=4, gen_len=64,
+                                  k=SPEC_K, seed=SEED, device=dev, **args)
+    draft, losses = D.distill_draft(pipe.llm_params, cfg, dcfg, steps=20, batch=8, gen_len=48,
+                                    corpus_seqs=64, learning_rate=TRAIN_LR, seed=SEED,
+                                    draft_params=early, device=dev, **args)
+    after = D.measure_acceptance(pipe.llm_params, draft, cfg, dcfg, n_prompts=4, gen_len=64,
+                                 k=SPEC_K, seed=SEED, device=dev, **args)
+    full = dict(corpus_stats=D.corpus_stats(corpus, 16), losses=[round(x, 4) for x in losses],
+                acceptance_before=before, acceptance_after=after,
+                seconds=time.perf_counter() - t0)
+    print(f"distillation, full-width teacher, {DISTILL_DRAFT_LAYERS}-layer draft from its first "
+          f"layers: {json.dumps(full)} | {smi}")
+    _sync(dev)
+    launches = _counts()
+    print("distillation launches (phase 32): " + json.dumps(launches))
+    if not (launches["flash_attention_prefill"] and launches["dense_decode_attention"]):
+        raise AssertionError(f"distillation: kernels 1 and 2 did not launch: {launches}")
+    del draft, early, corpus
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _artifact_greedy(prefill, decode, ids, mask, n):
+    """n greedy ids from the lm_prefill + lm_decode programs, and the ms of
+    a decode call."""
+    import torch
+
+    t = ids.shape[1]
+    start = (t - mask.sum(1)).to(torch.int32)
+    logits, k, v = prefill(ids, mask)
+    toks = [int(logits.argmax(-1)[0])]
+    position = int(mask.sum()) - 1
+    _sync(ids.device)
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        logits, k, v = decode(torch.tensor([toks[-1]], device=ids.device),
+                              torch.tensor([position + 1 + i], device=ids.device), start, k, v,
+                              torch.tensor(t + i, dtype=torch.int32, device=ids.device))
+        toks.append(int(logits.argmax(-1)[0]))
+    return toks, (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
+
+
+def run_export(pipe, prompt, int8_params, smi):
+    """Phase 33: `export_pipeline_artifacts` of the full-width pipeline (bf16
+    LM; the five programs at JAX's default shapes) and lm_prefill +
+    lm_decode of the int8 LM, written under chiprun_out/export/ (deleted
+    after) and reloaded.  The vocoder and decode programs must hold their
+    `sparktts_torch::` ops (kernel 3; kernel 2, and 4 on int8); mel within
+    1e-5 of the live mel, tokenize ids agreeing in TOKENIZE_AGREEMENT of
+    positions, the vocoder's waveform within WINDOW_REL_TOL of the live
+    `bicodec_detokenize`, and greedy ids of the LM programs (the creation
+    prompt left-padded to EXPORT_PROMPT_LEN) the live `generate`'s or first
+    apart at a near tie (phase 14's rule), bf16 and int8.  Kernels 2, 3 and
+    4 must launch while the programs run.  Returns the launches of the
+    programs' runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch import export as E
+    from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
+    from sparktts_tpu_torch.dsp.mel import make_mel_basis, mel_spectrogram
+    from sparktts_tpu_torch.io.audio import load_audio
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.lm.generate import generate
+    from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
+
+    dev, cfg = pipe.device, pipe.config
+    out = OUT_DIR / "export"
+    shutil.rmtree(out, ignore_errors=True)
+    bf16_params = pipe.llm_params
+    save, saving = torch.export.save, [0.0]
+
+    def timed_save(*args, **kwargs):  # the share of writing the files
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        saving[0] += time.perf_counter() - t0
+
+    try:
+        torch.export.save = timed_save
+        t0 = time.perf_counter()
+        manifest = E.export_pipeline_artifacts(pipe, out, prompt_len=EXPORT_PROMPT_LEN)
+        export_s = {"five programs": time.perf_counter() - t0, "of it saving": saving[0]}
+        t0, saving[0] = time.perf_counter(), 0.0
+        pipe.llm_params = int8_params
+        E.export_pipeline_artifacts(pipe, out / "int8", prompt_len=EXPORT_PROMPT_LEN,
+                                    graphs=("lm_prefill", "lm_decode"))
+        export_s.update({"int8 lm pair": time.perf_counter() - t0, "int8 of it saving": saving[0]})
+        torch.export.save = save
+        pipe.llm_params = bf16_params
+        files = sorted(out.rglob("*.pt2"))
+        sizes = {str(f.relative_to(out)): round(f.stat().st_size / 2**20, 1) for f in files}
+        meta = json.loads((out / "manifest.json").read_text())
+        print(f"export: {json.dumps({'seconds': export_s, 'artifact_mib': sizes})} | {smi}")
+
+        # live references, before the counted window
+        n_layers = cfg.llm.num_hidden_layers
+        pad = EXPORT_PROMPT_LEN - len(prompt)
+        ids = torch.tensor([[0] * pad + list(prompt)], device=dev)
+        mask = torch.tensor([[False] * pad + [True] * len(prompt)], device=dev)
+        wav = np.asarray(load_audio(OUT_DIR / "clone_prompt.wav", 16000), np.float32)
+        wav = torch.from_numpy(np.resize(wav, meta["wav_len"]))[None].to(dev)
+        ref = wav[:, :meta["ref_len"]].contiguous()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sem = torch.randint(0, cfg.bicodec.quantizer.codebook_size, (1, meta["vocoder_tokens"]),
+                            generator=g, device=dev)
+        glob = torch.randint(0, int(math.prod(cfg.bicodec.speaker_encoder.fsq_levels)),
+                             (1, cfg.bicodec.speaker_encoder.token_num), generator=g, device=dev)
+        live = {}
+        units = graphs.UnitCache("phase 33 references")
+        with torch.inference_mode():
+            live["mel"] = mel_spectrogram(ref, make_mel_basis(cfg.bicodec.mel_params))
+            feat = wav2vec2_features(pipe.w2v_params, wav, cfg.wav2vec2)
+            live["tokenize"] = bicodec_tokenize(pipe.bicodec_params, cfg.bicodec, feat, ref)
+            live["vocoder"] = bicodec_detokenize(pipe.bicodec_params, cfg.bicodec, sem, glob)
+            for lm, params in (("bf16", bf16_params), ("int8", int8_params)):
+                toks, _ = generate(params, cfg.llm, ids, mask, g, EXPORT_NEW_TOKENS,
+                                   EXPORT_PROMPT_LEN + EXPORT_NEW_TOKENS, eos_ids=(), pad_id=0,
+                                   greedy=True, cache_dtype=pipe.lm_dtype, units=units)
+                live[lm] = toks[0].cpu().numpy()
+        units.clear()
+        _sync(dev)
+
+        _reset_counts()
+        rows = {}
+        t0 = time.perf_counter()
+        mel = E.load_program(out / manifest["mel"])(ref)
+        rows["mel_rel_err"] = float((mel - live["mel"]).abs().max() / live["mel"].abs().max())
+        sem_t, glob_t = E.load_program(out / manifest["audio_tokenize"])(wav, ref)
+        agree = [float((a == b).float().mean()) for a, b in zip((sem_t, glob_t), live["tokenize"])]
+        rows["tokenize_agreement"] = agree
+        vocode = E.load_program(out / manifest["vocoder"])
+        wav_art = vocode(sem, glob)
+        peak = float(live["vocoder"].abs().max())
+        rows["vocoder_rel_err"] = float((wav_art - live["vocoder"]).abs().max()) / peak
+        ops = {"vocoder": vocode.ops}
+        for lm, sub, params in (("bf16", out, bf16_params), ("int8", out / "int8", int8_params)):
+            prefill = E.load_program(sub / "lm_prefill.pt2")
+            decode = E.load_program(sub / "lm_decode.pt2")
+            ops[f"lm_decode {lm}"], ops[f"lm_prefill {lm}"] = decode.ops, prefill.ops
+            got, ms = _artifact_greedy(prefill, decode, ids, mask, EXPORT_NEW_TOKENS)
+            ok, step = _near_tie_ok(pipe, params, prompt, None, np.asarray(got), live[lm])
+            rows[f"greedy {lm}"] = dict(equal=step is None, first_apart=step, near_tie_ok=ok,
+                                        decode_ms=ms)
+            if not ok:
+                raise AssertionError(f"export: the {lm} programs' greedy ids part from live "
+                                     f"generate at step {step}, not at a near tie")
+            del prefill, decode
+        _sync(dev)
+        rows["load_and_run_s"] = time.perf_counter() - t0
+        launches = _counts()
+        print(f"export: programs vs live: {json.dumps(rows)}; ops {json.dumps(ops)} | {smi}")
+        print("export launches (phase 33, the programs' runs): " + json.dumps(launches))
+        want_ops = {"vocoder": {"fused_residual_unit": VOCODER_UNITS},
+                    "lm_decode bf16": {"dense_decode_attention": n_layers},
+                    "lm_decode int8": {"dense_decode_attention": n_layers,
+                                       "int8_mlp_matvec": n_layers}}
+        for name, want in want_ops.items():
+            if ops[name] != want:
+                raise AssertionError(f"export: the {name} program holds {ops[name]}, want {want}")
+        if not (rows["mel_rel_err"] <= 1e-5 and min(agree) >= TOKENIZE_AGREEMENT
+                and rows["vocoder_rel_err"] <= WINDOW_REL_TOL):
+            raise AssertionError(f"export: a codec program disagrees with the live path: {rows}")
+        for name in ("dense_decode_attention", "fused_residual_unit", "int8_mlp_matvec"):
+            if not launches[name]:
+                raise AssertionError(f"export: {name} did not launch from the programs")
+    finally:
+        torch.export.save = save
+        pipe.llm_params = bf16_params
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -4038,6 +4431,16 @@ def main() -> int:
                    (build_clone_prompt(pipe.tokenizer, TEXT, glob, sem, PROMPT_TEXT), "clone")]
         run_speculative(pipe, prompts, wav_path, quantize_qwen_int8(pipe.llm_params),
                         quantize_qwen_int4(pipe.llm_params, group=INT4_GROUP), smi)
+        return 0
+    if "--train-only" in sys.argv[1:]:
+        # phases 31-33 alone, no kernels line and no result line
+        from sparktts_tpu_torch.prompt import build_control_prompt
+
+        make_prompt_wav(OUT_DIR / "clone_prompt.wav")
+        run_training(pipe, smi)
+        run_distill(pipe, smi)
+        run_export(pipe, build_control_prompt(pipe.tokenizer, TEXT, **VOICE),
+                   quantize_qwen_int8(pipe.llm_params), smi)
         return 0
     if "--bench-only" in sys.argv[1:]:
         # phase 30 alone, no kernels line and no result line
@@ -4116,6 +4519,10 @@ def main() -> int:
     spec_launches = run_speculative(pipe, [(creation[1], "control"), (cloning[1], "clone")],
                                     wav_path, int8_params, int4_params, smi)
     bench_launches = run_bench(wav_path, smi)
+    # fine-tuning, draft distillation and export over the same pipeline
+    run_training(pipe, smi)
+    distill_launches = run_distill(pipe, smi)
+    export_launches = run_export(pipe, creation[1], int8_params, smi)
     for _, prompt, _, _ in (creation, cloning):
         check_lm_prefill(pipe, prompt)
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
@@ -4138,7 +4545,8 @@ def main() -> int:
     check_failed_capture(dev)
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
-             cache_launches, *server_launches, front_launches, spec_launches, bench_launches]
+             cache_launches, *server_launches, front_launches, spec_launches, bench_launches,
+             distill_launches, export_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     print("launches of the server phases (24-27):",

@@ -19,17 +19,22 @@ length, a JSON header of names, dtypes, shapes and byte offsets, then the raw
 bytes, read here with `torch.frombuffer`.  BF16 (the published LLM's dtype)
 becomes torch.bfloat16 directly: numpy has no bfloat16 of its own, and the
 JAX package's `safetensors.numpy` reader reads one only once `ml_dtypes`
-(which jax imports) is loaded.  The JAX package's orbax cache of converted
-trees is not carried over: a conversion takes seconds.
+(which jax imports) is loaded.
+
+Converted trees can be cached (`save_param_cache` / `load_param_cache`, the
+JAX package's orbax cache): one safetensors file per tree, written by the
+port's own writer (`save_safetensors`), its leaves under their flattened tree
+paths and the tree's shape in the header's metadata.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -52,12 +57,17 @@ SAFETENSORS_DTYPES = {
 def load_safetensors(path: str | Path) -> State:
     """A safetensors file -> {name: CPU tensor} in the stored dtype.  The
     tensors are views of one buffer that holds the file's data."""
+    return read_safetensors(path)[0]
+
+
+def read_safetensors(path: str | Path) -> Tuple[State, Dict[str, str]]:
+    """(`load_safetensors`'s tensors, the header's string metadata)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
         data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
         f.readinto(data)
-    header.pop("__metadata__", None)
+    metadata = header.pop("__metadata__", None) or {}
     out: State = {}
     for name, info in header.items():
         dtype = SAFETENSORS_DTYPES.get(info["dtype"])
@@ -71,7 +81,32 @@ def load_safetensors(path: str | Path) -> State:
         t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) if count else (
             torch.empty(0, dtype=dtype))
         out[name] = t.reshape(shape)
-    return out
+    return out, metadata
+
+
+def save_safetensors(path: str | Path, tensors: State,
+                     metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write `tensors` as a safetensors file: the 8-byte little-endian header
+    length, the JSON header (dtype, shape, byte offsets; `metadata` as its
+    `__metadata__` strings), then each tensor's bytes in order.  Tensors on
+    a card are copied to the host first."""
+    names = {dtype: name for name, dtype in SAFETENSORS_DTYPES.items()}
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    offset, blobs = 0, []
+    for name, t in tensors.items():
+        flat = t.detach().contiguous().cpu().reshape(-1)
+        nbytes = flat.numel() * flat.element_size()
+        header[name] = {"dtype": names[flat.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        blobs.append(flat)
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for flat in blobs:
+            f.write(flat.view(torch.uint8).numpy().data)
 
 
 def load_hf_state(model_dir: str | Path) -> State:
@@ -434,6 +469,32 @@ def _t_ecapa(state: State, pre: str) -> dict:
     }
 
 
+def _t_mhastp(state: State, pre: str, layer_num: int = 2, head_num: int = 2) -> dict:
+    """MHASTP pooling (`nn/pooling.py`): each head's 1x1 conv attention
+    stack as linears."""
+    return {
+        "heads": [
+            [
+                _t_conv1x1_as_linear(state, f"{pre}.heads_att_trans.{h}.att_{i}")
+                for i in range(layer_num)
+            ]
+            for h in range(head_num)
+        ]
+    }
+
+
+def _t_mqmhastp(
+    state: State, pre: str, layer_num: int = 2, query_num: int = 2, head_num: int = 8
+) -> dict:
+    """MQMHASTP pooling (`nn/pooling.py`): one MHASTP per query."""
+    return {
+        "queries": [
+            _t_mhastp(state, f"{pre}.n_query.{q}", layer_num, head_num)
+            for q in range(query_num)
+        ]
+    }
+
+
 def _t_perceiver(state: State, pre: str, depth: int) -> dict:
     p = {
         "latents": state[f"{pre}.latents"].clone(),
@@ -497,3 +558,63 @@ def convert_bicodec(state: State, cfg) -> dict:
         "postnet": _t_feat_decoder(state, "postnet", cfg.postnet),
         "decoder": _t_wave_generator(state, "decoder", cfg.decoder),
     }
+
+
+# ---------------------------------------------------------------------------
+# converted-tree cache
+# ---------------------------------------------------------------------------
+
+CACHE_FILE = "tree.safetensors"
+
+
+def flatten_tree(tree, prefix: str = "") -> Tuple[State, object]:
+    """A tree of dicts and lists of tensors -> ({path: tensor}, its shape):
+    the shape is the tree with each leaf replaced by its path ('/'-joined
+    keys and list indices)."""
+    if isinstance(tree, dict):
+        flat, shape = {}, {}
+        for k, v in tree.items():
+            sub, shape[k] = flatten_tree(v, f"{prefix}{k}/")
+            flat.update(sub)
+        return flat, shape
+    if isinstance(tree, (list, tuple)):
+        flat, shape = {}, []
+        for i, v in enumerate(tree):
+            sub, s = flatten_tree(v, f"{prefix}{i}/")
+            flat.update(sub)
+            shape.append(s)
+        return flat, shape
+    name = prefix[:-1]
+    return {name: tree}, name
+
+
+def unflatten_tree(shape, flat: State):
+    """The inverse of `flatten_tree`."""
+    if isinstance(shape, dict):
+        return {k: unflatten_tree(v, flat) for k, v in shape.items()}
+    if isinstance(shape, list):
+        return [unflatten_tree(v, flat) for v in shape]
+    return flat[shape]
+
+
+def save_param_cache(cache_dir: str | Path, tree) -> None:
+    """Persist a converted param tree (leaves on any device, in their dtype)
+    so later loads skip the conversion.  An existing cache is replaced; the
+    file is renamed into place once written whole."""
+    path = Path(cache_dir).absolute()
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    flat, shape = flatten_tree(tree)
+    tmp = path / (CACHE_FILE + ".tmp")
+    save_safetensors(tmp, flat, {"tree": json.dumps(shape)})
+    os.replace(tmp, path / CACHE_FILE)
+
+
+def load_param_cache(cache_dir: str | Path):
+    """The tree `save_param_cache` wrote, as CPU tensors; None if absent."""
+    path = Path(cache_dir).absolute() / CACHE_FILE
+    if not path.exists():
+        return None
+    flat, metadata = read_safetensors(path)
+    return unflatten_tree(json.loads(metadata["tree"]), flat)

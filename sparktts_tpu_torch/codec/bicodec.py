@@ -1,24 +1,26 @@
 """BiCodec: (wav2vec2 features, reference wav) <-> (semantic, global) token
 ids <-> waveform.
 
-Port of `bicodec_tokenize`, `bicodec_detokenize` and
+Port of `bicodec_tokenize`, `bicodec_detokenize`, the eval forward
+`bicodec_forward` (reconstruction and codebook statistics) and
 `detokenize_receptive_field` of `sparktts_tpu/codec/bicodec.py`.  The first
-two run in fp32 under `full_fp32`, so their numbers do not depend on the
+three run in fp32 under `full_fp32`, so their numbers do not depend on the
 caller's TF32 settings.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from sparktts_tpu_torch.codec.feat_decoder import feat_decoder_apply
 from sparktts_tpu_torch.codec.feat_encoder import feat_encoder_apply
-from sparktts_tpu_torch.codec.fvq import fvq_detokenize, fvq_tokenize
+from sparktts_tpu_torch.codec.fvq import fvq_detokenize, fvq_forward, fvq_tokenize
 from sparktts_tpu_torch.codec.speaker_encoder import (
     speaker_encoder_detokenize,
+    speaker_encoder_forward,
     speaker_encoder_tokenize,
 )
 from sparktts_tpu_torch.codec.wave_generator import wave_generator_apply
@@ -48,6 +50,31 @@ def bicodec_detokenize(
     x = feat_decoder_apply(p["prenet"], z_q, cfg.prenet, cond=d_vector)
     x = x + d_vector[:, None, :]
     return wave_generator_apply(p["decoder"], x, cfg.decoder)[..., 0]
+
+
+@full_fp32()
+def bicodec_forward(
+    p, cfg: BiCodecConfig, feat: torch.Tensor, ref_wav: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """The torch model's eval forward: (feat (B, T50, 1024), ref_wav) ->
+    the reconstruction `recons` (B, T * hop), the postnet's `pred_feat`,
+    `x_vector`, `d_vector`, the semantic codebook's `perplexity` and
+    `cluster_size` (codes used), and the `semantic_indices`."""
+    mel = mel_spectrogram(ref_wav, make_mel_basis(cfg.mel_params))
+    vq = fvq_forward(p["quantizer"], feat_encoder_apply(p["encoder"], feat, cfg.encoder))
+    x_vector, d_vector = speaker_encoder_forward(p["speaker_encoder"], mel, cfg.speaker_encoder)
+    x = feat_decoder_apply(p["prenet"], vq["z_q"], cfg.prenet, cond=d_vector)
+    pred_feat = feat_decoder_apply(p["postnet"], x, cfg.postnet)
+    x = x + d_vector[:, None, :]
+    return {
+        "recons": wave_generator_apply(p["decoder"], x, cfg.decoder)[..., 0],
+        "pred_feat": pred_feat,
+        "x_vector": x_vector,
+        "d_vector": d_vector,
+        "perplexity": vq["perplexity"],
+        "cluster_size": vq["active_num"],
+        "semantic_indices": vq["indices"],
+    }
 
 
 def detokenize_receptive_field(cfg: BiCodecConfig) -> int:

@@ -1,9 +1,12 @@
 """Factorized VQ: the semantic token codebook.
 
-Port of `fvq_tokenize` and `fvq_detokenize` of `sparktts_tpu/codec/fvq.py`.
+Port of `fvq_tokenize`, `fvq_detokenize` and the eval forward `fvq_forward`
+(with its codebook usage statistics) of `sparktts_tpu/codec/fvq.py`.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -39,3 +42,21 @@ def fvq_detokenize(p, indices: torch.Tensor) -> torch.Tensor:
     if "out_project" in p:
         z_q = linear_apply(p["out_project"], z_q)
     return z_q
+
+
+def fvq_forward(p, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Eval forward: quantize and project out, plus the codebook's usage
+    over the batch: `perplexity` of the code histogram and `active_num`, the
+    count of codes used (fp32 scalars)."""
+    z_e = linear_apply(p["in_project"], z) if "in_project" in p else z
+    indices = fvq_nearest_indices(p, z_e)
+    z_q = fvq_detokenize(p, indices)
+    counts = torch.bincount(indices.reshape(-1), minlength=p["codebook"].shape[0]).float()
+    avg_probs = counts / indices.numel()
+    perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
+    return {
+        "z_q": z_q,
+        "indices": indices,
+        "perplexity": perplexity,
+        "active_num": (counts > 0).sum().float(),
+    }

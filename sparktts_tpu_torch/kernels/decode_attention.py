@@ -18,6 +18,10 @@ launches.  The kernel counts the arrivals of each (row, KV head)'s chunks on
 the current stream's int32 counters from `kernels/arrivals.py` (one zeroed
 array per stream, left at zero by every launch), so calls on two streams of
 one card never share a counter.
+
+While `torch.export` traces (`torch.compiler.is_exporting()`), the wrapper
+records its `sparktts_torch::` custom op (`kernels/ops.py`) instead, so that
+an exported program runs the kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.kernels import arrivals, build
+from sparktts_tpu_torch.kernels import arrivals, build, ops
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "sparktts_tpu/kernels/decode_attention.py:169"
@@ -142,6 +146,9 @@ def dense_decode_attention(
     sm_scale: float = 1.0,
 ) -> torch.Tensor:
     """Decode attention over the dense stacked cache; returns (B, Hq, D)."""
+    if torch.compiler.is_exporting():  # an export records the op (kernels/ops.py)
+        return ops.dense_decode_attention(q, cache_k, cache_v, int(layer), start, pos,
+                                          float(sm_scale))
     if q.device.type == "cpu":
         return dense_decode_plain(q, cache_k, cache_v, layer, start, pos, sm_scale)
     global launches

@@ -15,6 +15,10 @@ shapes).  `launches` counts calls that launched the kernel; each such call
 is one CUDA launch.  When a call's groups take more than one run of blocks,
 the kernel merges them through a workspace and the current stream's arrival
 counters from `kernels/arrivals.py`.
+
+While `torch.export` traces (`torch.compiler.is_exporting()`), the wrapper
+records its `sparktts_torch::` custom op (`kernels/ops.py`) instead, so that
+an exported program runs the kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import ctypes
 
 import torch
 
-from sparktts_tpu_torch.kernels import arrivals, build
+from sparktts_tpu_torch.kernels import arrivals, build, ops
 from sparktts_tpu_torch.lm.quant import unpack_int4
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/int4_matmul.cu"
@@ -68,6 +72,8 @@ def int4_matvec_plain(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tenso
 def int4_matvec(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
     """x (B, in) with B <= MAX_ROWS, packed (in/2, out) int8, gscale
     (G, out) fp32 -> (B, out) in x's dtype."""
+    if torch.compiler.is_exporting():  # an export records the op (kernels/ops.py)
+        return ops.int4_matvec(x, packed, gscale)
     if x.device.type == "cpu":
         return int4_matvec_plain(x, packed, gscale)
     global launches

@@ -15,6 +15,10 @@ rows).  `launches` counts calls that launched the kernel; each such call is
 one CUDA launch.  `int8_mlp_tiled_plain` is a CPU model of the kernel's
 summation order (per-tile down partials summed by clusters of tiles, then
 runs of clusters, then the runs in order), for the tests.
+
+While `torch.export` traces (`torch.compiler.is_exporting()`), the wrapper
+records its `sparktts_torch::` custom op (`kernels/ops.py`) instead, so that
+an exported program runs the kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.kernels import arrivals, build
+from sparktts_tpu_torch.kernels import arrivals, build, ops
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/int8_mlp.cu"
 REPLACES = "sparktts_tpu/kernels/int8_mlp.py:107"
@@ -111,6 +115,8 @@ def int8_mlp_matvec(
     down_scale: torch.Tensor,
 ) -> torch.Tensor:
     """x (R, K) with R <= MAX_ROWS -> (R, K) in x's dtype."""
+    if torch.compiler.is_exporting():  # an export records the op (kernels/ops.py)
+        return ops.int8_mlp_matvec(x, gu_q, gu_scale, down_q, down_scale)
     if x.device.type == "cpu":
         return int8_mlp_matvec_plain(x, gu_q, gu_scale, down_q, down_scale)
     global launches

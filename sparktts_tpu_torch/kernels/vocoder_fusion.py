@@ -14,6 +14,10 @@ launched the kernel; each such call is two CUDA launches (the dilated conv,
 then the 1x1), so a vocode's 12 unit calls are 24 launches on the device.
 The kernel multiplies in 3xTF32 on the tensor cores; `residual_unit_3xtf32_plain`
 is a CPU model of that arithmetic, for the tests.
+
+While `torch.export` traces (`torch.compiler.is_exporting()`), the wrapper
+records its `sparktts_torch::` custom op (`kernels/ops.py`) instead, so that
+an exported program runs the kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.kernels import build
+from sparktts_tpu_torch.kernels import build, ops
 from sparktts_tpu_torch.nn.layers import conv1d_apply, snake_apply
 
 SOURCE = "sparktts_tpu_torch/kernels/csrc/vocoder_fusion.cu"
@@ -82,6 +86,10 @@ def residual_unit_3xtf32_plain(p, x: torch.Tensor, dilation: int) -> torch.Tenso
 
 def fused_residual_unit(p, x: torch.Tensor, dilation: int) -> torch.Tensor:
     """One ResidualUnit on a (B, T, C) tensor; params in the JAX layout."""
+    if torch.compiler.is_exporting():  # an export records the op (kernels/ops.py)
+        return ops.fused_residual_unit(x, p["snake1"]["alpha"], p["conv1"]["w"],
+                                       p["conv1"]["b"], p["snake2"]["alpha"],
+                                       p["conv2"]["w"], p["conv2"]["b"], int(dilation))
     if x.device.type == "cpu":
         return fused_residual_unit_plain(p, x, dilation)
     global launches

@@ -66,6 +66,7 @@ from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.generate import expand_constrained, packed_allowed_mask
 from sparktts_tpu_torch.lm.qwen import KVCache, init_kv_cache, qwen_forward
 from sparktts_tpu_torch.lm.sample import NEG_INF, greedy_token, sample_token
+from sparktts_tpu_torch.utils.platform import require_device
 
 #: Fixed decode dispatch-size menu (the JAX engine compiles one program per
 #: rung; kept so both engines dispatch the same step counts).  Budget
@@ -670,12 +671,8 @@ def _leaves(tree) -> Iterator[torch.Tensor]:
 def engine_device(params, device) -> torch.device:
     """The engine's device: the card unless the caller asks for the CPU.
     Raises without a card, and if the params lie elsewhere."""
-    dev = torch.device(device)
+    dev = require_device(device, "continuous engine")
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "continuous engine: no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     for t in _leaves(params):

@@ -92,12 +92,14 @@ _INV_FREQ: Dict[Tuple[float, int, torch.device], torch.Tensor] = {}
 def rope_inv_freq(cfg: QwenConfig, device: torch.device) -> torch.Tensor:
     """The fp32 RoPE frequencies on `device`, uploaded once per (theta,
     head_dim, device): a host-to-card copy on every step could not be
-    captured in a CUDA graph."""
+    captured in a CUDA graph.  Nothing is kept while `torch.export` traces:
+    the tensor made then belongs to the trace."""
     key = (cfg.rope_theta, cfg.head_dim, device)
     inv_freq = _INV_FREQ.get(key)
     if inv_freq is None:
         inv_freq = torch.as_tensor(rope_frequencies(cfg), dtype=torch.float32, device=device)
-        _INV_FREQ[key] = inv_freq
+        if not torch.compiler.is_exporting():
+            _INV_FREQ[key] = inv_freq
     return inv_freq
 
 
@@ -189,14 +191,30 @@ def _attention_block(
             q.reshape(b, nh, hd), cache.k, cache.v, layer_idx, start, pos, sm_scale=hd**-0.5
         )
     else:
-        ck, cv = cache.k[layer_idx], cache.v[layer_idx]  # (B, S, nkv, hd)
-        qg = q.reshape(b, t, nkv, nh // nkv, hd)
-        scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), ck.float()) * hd**-0.5
-        scores = scores + key_mask_bias[:, None, None, :, :]
-        probs = torch.softmax(scores, dim=-1).to(cv.dtype)
-        out = torch.einsum("bkgts,bskh->btkgh", probs, cv)
+        out = dense_attention(q, cache.k[layer_idx], cache.v[layer_idx], key_mask_bias)
     out = out.reshape(b, t, nh * hd).to(x.dtype)
     return linear_apply(layer["o"], out)
+
+
+def dense_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                    key_mask_bias: torch.Tensor) -> torch.Tensor:
+    """GQA attention of q (B, T, nh, hd) over keys/values (B, S, nkv, hd)
+    with an additive fp32 bias (B, T, S): fp32 scores and softmax, the
+    probabilities in the values' dtype.  (B, T, nkv, nh / nkv, hd)."""
+    b, t, nh, hd = q.shape
+    nkv = ck.shape[2]
+    qg = q.reshape(b, t, nkv, nh // nkv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), ck.float()) * hd**-0.5
+    scores = scores + key_mask_bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bkgts,bskh->btkgh", probs, cv)
+
+
+def int8_mlp_fusable(layer) -> bool:
+    """Whether the fused int8 MLP kernel takes this layer's MLP (int8
+    gate/up and down without biases; stacked or one layer's tree)."""
+    gu_p, down_p = layer["gateup"], layer["down"]
+    return "w_q" in gu_p and "w_q" in down_p and "b" not in gu_p and "b" not in down_p
 
 
 def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False) -> torch.Tensor:
@@ -206,14 +224,7 @@ def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False) -> torch.Tenso
     to fp32 summation order); otherwise the unfused path below."""
     gu_p, down_p = layer["gateup"], layer["down"]
     b, t, h = x.shape
-    if (
-        decode_fused
-        and "w_q" in gu_p
-        and "w_q" in down_p
-        and "b" not in gu_p
-        and "b" not in down_p
-        and b * t <= MLP_MATVEC_ROWS
-    ):
+    if decode_fused and int8_mlp_fusable(layer) and b * t <= MLP_MATVEC_ROWS:
         y = int8_mlp_matvec(x.reshape(b * t, h).contiguous(), gu_p["w_q"], gu_p["scale"],
                             down_p["w_q"], down_p["scale"])
         return y.reshape(b, t, h)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import json
 import logging
 import os
 import threading
@@ -59,6 +60,7 @@ from sparktts_tpu_torch.prompt import (
     extract_semantic_ids,
     padded_global_tokens,
 )
+from sparktts_tpu_torch.utils.platform import require_device
 from sparktts_tpu_torch.utils.profiling import stage
 from sparktts_tpu_torch.utils.textseg import pack_segments
 from sparktts_tpu_torch.weights import (
@@ -71,6 +73,44 @@ from sparktts_tpu_torch.weights import (
 )
 
 logger = logging.getLogger(__name__)
+
+#: Where `SparkTTSPipeline(model_dir)` caches the converted trees.
+CACHE_DIR = "_torch_cache"
+CACHE_TREES = ("bicodec", "wav2vec2", "llm")
+_CHECKPOINT_DIRS = ("BiCodec", "wav2vec2-large-xlsr-53", "LLM")
+
+
+def _checkpoint_stamp(model_dir: Path) -> list:
+    """(path, size, mtime) of every weight file the load reads: a cache
+    written from other files is not used."""
+    files = sorted(f for d in _CHECKPOINT_DIRS for f in (model_dir / d).glob("*")
+                   if f.suffix in (".safetensors", ".bin"))
+    return [[str(f.relative_to(model_dir)), f.stat().st_size, f.stat().st_mtime_ns]
+            for f in files]
+
+
+def _read_tree_cache(cache_root: Path, stamp: list) -> Optional[dict]:
+    """The cached trees, or None when a tree is missing or the stamp that
+    was written with them is not `stamp`."""
+    try:
+        if json.loads((cache_root / "source.json").read_text()) != stamp:
+            return None
+    except (OSError, ValueError):
+        return None
+    trees = {name: ckpt.load_param_cache(cache_root / name) for name in CACHE_TREES}
+    return None if any(t is None for t in trees.values()) else trees
+
+
+def _write_tree_cache(cache_root: Path, trees: dict, stamp: list) -> None:
+    """Best-effort (a read-only model dir loads all the same): the trees,
+    then the stamp, so that an interrupted write leaves no cache that reads."""
+    try:
+        (cache_root / "source.json").unlink(missing_ok=True)
+        for name in CACHE_TREES:
+            ckpt.save_param_cache(cache_root / name, trees[name])
+        (cache_root / "source.json").write_text(json.dumps(stamp))
+    except OSError:
+        logger.warning("could not write the param cache under %s", cache_root, exc_info=True)
 
 PROMPT_BUCKET = 64  # default: prompts are left-padded to a multiple of this many tokens
 VOCODE_BUCKET = 50  # default: semantic tokens are edge-padded to a multiple of this
@@ -163,11 +203,7 @@ class SparkTTSPipeline:
         bicodec_params=None,
         wav2vec2_params=None,
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SparkTTSPipeline: no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
+        self.device = require_device(device, "SparkTTSPipeline")
         # the decode units of `generate` and `decode_chunk` over this
         # pipeline's LM: they go with the pipeline, or when `llm_params` is
         # replaced (as JAX keeps its program cache per pipeline)
@@ -260,26 +296,45 @@ class SparkTTSPipeline:
     def _load_params(self, model_dir: Path) -> None:
         """Read the three checkpoints (`BiCodec/`, `wav2vec2-large-xlsr-53/`,
         `LLM/`), convert them to the JAX trees on the CPU, and upload them
-        once: the LM in `lm_dtype`, the codec in fp32.  `load_seconds` keeps
-        the time of each stage."""
+        once: the LM in `lm_dtype`, the codec in fp32.  The converted trees
+        (in the checkpoint's dtypes) are cached under
+        `<model_dir>/_torch_cache/`, best-effort, as the JAX package caches
+        them under `_tpu_cache/`; a later load whose checkpoint files have
+        the same sizes and mtimes reads the cache and converts nothing.
+        `load_seconds` keeps the time of each stage: `read` and `convert`
+        (0 on a cached load), `cache` (reading the cache, or writing it)
+        and `upload`."""
         cfg = self.config
+        cache_root = model_dir / CACHE_DIR
+        stamp = _checkpoint_stamp(model_dir)
         t0 = time.perf_counter()
-        bc_state = ckpt.load_safetensors(model_dir / "BiCodec" / "model.safetensors")
-        w2v_state = ckpt.load_hf_state(model_dir / "wav2vec2-large-xlsr-53")
-        llm_state = ckpt.load_hf_state(model_dir / "LLM")
+        trees = _read_tree_cache(cache_root, stamp)
         t1 = time.perf_counter()
-        bc_tree = ckpt.convert_bicodec(bc_state, cfg.bicodec)
-        w2v_tree = ckpt.convert_wav2vec2(w2v_state, cfg.wav2vec2)
-        llm_tree = ckpt.convert_qwen(llm_state, cfg.llm)
-        del bc_state, w2v_state, llm_state
-        t2 = time.perf_counter()
-        self.bicodec_params = bicodec_state(bc_tree, self.device)
-        self.w2v_params = wav2vec2_state(w2v_tree, self.device)
-        self.llm_params = qwen_state(llm_tree, self.device, self.lm_dtype)
+        read = convert = 0.0
+        cache = t1 - t0
+        if trees is None:
+            bc_state = ckpt.load_safetensors(model_dir / "BiCodec" / "model.safetensors")
+            w2v_state = ckpt.load_hf_state(model_dir / "wav2vec2-large-xlsr-53")
+            llm_state = ckpt.load_hf_state(model_dir / "LLM")
+            t2 = time.perf_counter()
+            trees = {
+                "bicodec": ckpt.convert_bicodec(bc_state, cfg.bicodec),
+                "wav2vec2": ckpt.convert_wav2vec2(w2v_state, cfg.wav2vec2),
+                "llm": ckpt.convert_qwen(llm_state, cfg.llm),
+            }
+            del bc_state, w2v_state, llm_state
+            t3 = time.perf_counter()
+            read, convert = t2 - t1, t3 - t2
+            _write_tree_cache(cache_root, trees, stamp)
+            cache += time.perf_counter() - t3
+        t4 = time.perf_counter()
+        self.bicodec_params = bicodec_state(trees["bicodec"], self.device)
+        self.w2v_params = wav2vec2_state(trees["wav2vec2"], self.device)
+        self.llm_params = qwen_state(trees["llm"], self.device, self.lm_dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t3 = time.perf_counter()
-        self.load_seconds = {"read": t1 - t0, "convert": t2 - t1, "upload": t3 - t2}
+        upload = time.perf_counter() - t4
+        self.load_seconds = {"read": read, "convert": convert, "cache": cache, "upload": upload}
 
     # ------------------------------------------------------------------
     # voice cache

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 PLATFORMS = ("cpu", "cuda")
 
 
@@ -26,3 +28,13 @@ def apply_platform_env() -> str:
     if plat not in PLATFORMS:
         raise ValueError(f"SPARKTTS_PLATFORM must be one of {PLATFORMS}, got {plat!r}")
     return plat
+
+
+def require_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; raises when it is a card and there is none
+    (an entry point never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device is available; pass device='cpu' to run on "
+                           f"the CPU")
+    return device

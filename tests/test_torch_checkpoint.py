@@ -12,10 +12,14 @@ reader reads BF16 only once `ml_dtypes` (imported with jax) has given numpy
 a bfloat16, and raises in a process that imported only the JAX package's
 `checkpoint` module, which is pinned here.  A tiny checkpoint (F32 files)
 loads into one JAX and one port pipeline, whose trees, prompt ids and
-greedy ids must be equal.
+greedy ids must be equal.  The converted-tree cache (`save_param_cache` /
+`load_param_cache`, written by the port's safetensors writer) gives back
+its tree bit for bit, and a second pipeline over the same directory reads
+it, converts nothing, and holds the first one's trees bit for bit.
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -274,7 +278,7 @@ def test_model_dir_config_and_trees_equal_jax(pipelines, tiny_dir):
     assert_trees_equal(tpipe.llm_params, jpipe.llm_params)
     assert_trees_equal(tpipe.bicodec_params, jpipe.bicodec_params)
     assert_trees_equal(tpipe.w2v_params, jpipe.w2v_params)
-    assert set(tpipe.load_seconds) == {"read", "convert", "upload"}
+    assert set(tpipe.load_seconds) == {"read", "convert", "cache", "upload"}
 
 
 def test_model_dir_greedy_ids_equal_jax(pipelines, tmp_path):
@@ -305,3 +309,53 @@ def test_model_dir_pipeline_needs_a_card(tiny_dir, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SparkTTSPipeline(model_dir=tiny_dir)
+
+
+def test_param_cache_roundtrip(tmp_path):
+    g = torch.Generator().manual_seed(0)
+    tree = {
+        "a": torch.randn(3, 4, generator=g),
+        "b": [torch.randn(5, generator=g).to(torch.bfloat16),
+              {"q": torch.randint(-127, 127, (2, 6), dtype=torch.int8, generator=g)}],
+        "step": torch.tensor(7, dtype=torch.int64),
+        "flag": torch.tensor([True, False]),
+        "empty": {},
+    }
+    assert ckpt.load_param_cache(tmp_path / "c") is None
+    ckpt.save_param_cache(tmp_path / "c", {"old": torch.zeros(1)})
+    ckpt.save_param_cache(tmp_path / "c", tree)  # replaces the old cache
+    got = ckpt.load_param_cache(tmp_path / "c")
+    assert set(got) == set(tree) and got["empty"] == {} and isinstance(got["b"], list)
+    want = ckpt.flatten_tree(tree)[0]
+    flat = ckpt.flatten_tree(got)[0]
+    assert set(flat) == set(want) == {"a", "b/0", "b/1/q", "step", "flag"}
+    for name, t in want.items():
+        assert flat[name].dtype == t.dtype and flat[name].shape == t.shape
+        assert torch.equal(flat[name], t), name
+    # the file is a plain safetensors file (tree paths as names)
+    assert set(st_load_file(str(tmp_path / "c" / ckpt.CACHE_FILE))) == set(want)
+
+
+def test_cached_model_dir_pipeline_equals_the_uncached(pipelines, tiny_dir):
+    """The module's first load wrote `_torch_cache/`; a second load reads
+    it, converts nothing, and holds the same trees bit for bit.  A
+    checkpoint file with another mtime is converted again."""
+    _, first = pipelines
+    assert (tiny_dir / "_torch_cache" / "source.json").exists()
+    again = SparkTTSPipeline(model_dir=tiny_dir, device="cpu", lm_dtype=torch.float32)
+    assert again.load_seconds["read"] == again.load_seconds["convert"] == 0.0
+    assert again.load_seconds["cache"] > 0
+    for name in ("llm_params", "bicodec_params", "w2v_params"):
+        want = ckpt.flatten_tree(getattr(first, name))[0]
+        got = ckpt.flatten_tree(getattr(again, name))[0]
+        assert set(got) == set(want)
+        for k, t in want.items():
+            assert got[k].dtype == t.dtype and torch.equal(got[k], t), (name, k)
+    llm_file = tiny_dir / "LLM" / "model.safetensors"
+    st = llm_file.stat()
+    try:
+        os.utime(llm_file, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000))
+        reloaded = SparkTTSPipeline(model_dir=tiny_dir, device="cpu", lm_dtype=torch.float32)
+        assert reloaded.load_seconds["convert"] > 0
+    finally:
+        os.utime(llm_file, ns=(st.st_atime_ns, st.st_mtime_ns))

@@ -1027,3 +1027,78 @@ def test_speculative_unit_replays_equal_its_eager_rounds(greedy):
     per_replay = sp.ROUNDS_PER_UNIT * k  # one draft layer
     assert counts["dense_decode_attention"] > 0
     assert counts["dense_decode_attention"] % per_replay == 0
+
+
+def _op_case(name, dev):
+    """(wrapper module, op args, plain version) of one custom op at a shape
+    of the main path."""
+    from sparktts_tpu_torch.kernels import int4_matmul, int8_mlp
+
+    if name == "dense_decode_attention":
+        q, ck, cv, start, pos = _decode_case(dev, 2, 704, [0, 5], [300, 640])
+        args = (q, ck, cv, 1, start, pos, 0.125)
+        return da, args, lambda: da.dense_decode_plain(*args)
+    if name == "fused_residual_unit":
+        p = _residual_unit(768, dev)
+        x = torch.randn((1, 333, 768), generator=torch.Generator().manual_seed(1)).to(dev)
+        args = (x, p["snake1"]["alpha"], p["conv1"]["w"], p["conv1"]["b"], p["snake2"]["alpha"],
+                p["conv2"]["w"], p["conv2"]["b"], 3)
+        return vf, args, lambda: vf.fused_residual_unit_plain(p, x, 3)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
+    if name == "int8_mlp_matvec":
+        w = _int8_mlp_weights(dev)
+        return int8_mlp, (x, *w), lambda: int8_mlp.int8_mlp_matvec_plain(x, *w)
+    packed = torch.randint(-128, 128, (HIDDEN // 2, 1152), generator=g, device=dev,
+                           dtype=torch.int8)
+    gscale = 0.01 * (1 + torch.rand((HIDDEN // 128, 1152), generator=g, device=dev))
+    return int4_matmul, (x, packed, gscale), lambda: int4_matmul.int4_matvec_plain(x, packed,
+                                                                                  gscale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense_decode_attention", "fused_residual_unit",
+                                  "int8_mlp_matvec", "int4_matvec"])
+def test_custom_op_launches_its_kernel_and_matches_plain(name):
+    """`torch.ops.sparktts_torch.<name>` on card tensors goes through the
+    wrapper (its launch count moves by one) and agrees with the plain
+    version at the kernel's own tolerance; on the same inputs moved to the
+    CPU the op runs the plain version."""
+    from sparktts_tpu_torch.kernels import ops  # noqa: F401  (registers the ops)
+
+    dev = _cuda()
+    module, args, plain = _op_case(name, dev)
+    op = getattr(torch.ops.sparktts_torch, name)
+    before = module.launches
+    got = op(*args)
+    assert module.launches == before + 1
+    with full_fp32():
+        want = plain()
+    tol = 1e-4 if name == "fused_residual_unit" else 2e-2
+    assert _rel_err(got, want) <= tol
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert module.launches == before + 1
+    assert _rel_err(op(*cpu_args), want.cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_program_exported_on_the_card_launches_its_kernel(tmp_path):
+    """A program exported from card inputs holds the op node and no plain
+    version; the reloaded program launches the kernel."""
+    from sparktts_tpu_torch import export
+
+    dev = _cuda()
+    q, ck, cv, start, pos = _decode_case(dev, 1, 704, [0], [300])
+
+    def fn(q, ck, cv, start, pos):
+        return da.dense_decode_attention(q, ck, cv, 1, start, pos, sm_scale=0.125) * 2
+
+    before = da.launches
+    assert export.export_program(fn, (q, ck, cv, start, pos), tmp_path / "d.pt2",
+                                 kernels=("dense_decode_attention",)) == {
+        "dense_decode_attention": 1}
+    assert da.launches == before
+    program = export.load_program(tmp_path / "d.pt2")
+    got = program(q, ck, cv, start, pos)
+    assert da.launches == before + 1
+    assert _rel_err(got, 2 * da.dense_decode_plain(q, ck, cv, 1, start, pos, 0.125)) <= 2e-2

@@ -130,7 +130,14 @@ def test_unknown_method_yields_error_chunk(server):
     assert chunk.final and "unknown method" in chunk.error
 
 
-def test_grpcio_transport_shares_the_engine(server):
+def test_grpcio_transport_shares_the_engine(pipe):
+    """The grpcio transport adopts a running continuous server (its engine,
+    loop and stats) and leaves it running when it stops.  The server is this
+    test's own, as in the JAX package's test: the engine-wide generator then
+    starts from its seed, so the two sampled clones are the same draws in
+    every run.  On the module's shared server its state depended on how many
+    dispatches earlier tests had run, and on the random tiny LM some states
+    end a sampled clone before any semantic id (an empty stream)."""
     pytest.importorskip("grpc")
     from sparktts_tpu_torch.serve.grpc_server import (
         _CHANNEL_CACHE,
@@ -139,22 +146,26 @@ def test_grpcio_transport_shares_the_engine(server):
         serve_grpc,
     )
 
+    server = FramedSocketServer(pipe, max_slots=2, steps_per_dispatch=4)
     backend = server.backend
-    grpc_srv, adopted = serve_grpc(backend.pipe, host="127.0.0.1", port=0,
-                                   cserver=backend.server, loop=backend.loop)
-    before = backend.server.stats["requests"]
     try:
-        for text in ("real grpc", "again on the cached channel"):
-            chunks = list(grpc_synthesize_stream("127.0.0.1", grpc_srv.bound_port, text,
-                                                 prompt_wav=_wav(3)))
-            assert chunks and np.concatenate([c for c, _ in chunks]).size > 0
-        assert len(_CHANNEL_CACHE) == 1
-        assert backend.server.stats["requests"] - before == 2
+        grpc_srv, adopted = serve_grpc(backend.pipe, host="127.0.0.1", port=0,
+                                       cserver=backend.server, loop=backend.loop)
+        before = backend.server.stats["requests"]
+        try:
+            for text in ("real grpc", "again on the cached channel"):
+                chunks = list(grpc_synthesize_stream("127.0.0.1", grpc_srv.bound_port, text,
+                                                     prompt_wav=_wav(3)))
+                assert chunks and np.concatenate([c for c, _ in chunks]).size > 0
+            assert len(_CHANNEL_CACHE) == 1
+            assert backend.server.stats["requests"] - before == 2
+        finally:
+            grpc_srv.stop(0)
+            adopted.close()  # an adopted server is not stopped
+            close_cached_channels()
+        assert not _CHANNEL_CACHE and backend.server._task is not None
     finally:
-        grpc_srv.stop(0)
-        adopted.close()  # an adopted server is not stopped
-        close_cached_channels()
-    assert not _CHANNEL_CACHE and backend.server._task is not None
+        server.close()
 
 
 def test_client_disconnect_frees_decode_slot(server):

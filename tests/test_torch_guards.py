@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "config", "prompt", "serve.server", "serve.voices", "serve.ui", "serve.client",
                  "serve.grpc_server", "serve.protos.sparktts_pb2", "utils.platform",
                  "utils.tokens", "cli", "webui", "bench", "bench.harness", "bench.metrics",
-                 "bench.relay_probe", "lm.speculative"):
+                 "bench.relay_probe", "lm.speculative", "lm.train", "lm.distill", "export",
+                 "kernels.ops", "nn.pooling"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -153,6 +154,22 @@ def test_pipeline_without_device_needs_a_card(monkeypatch):
         SparkTTSPipeline()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SparkTTSPipeline(speculative_k=4, draft_layers=6)
+
+
+def test_training_distillation_and_export_need_a_card(monkeypatch):
+    """The train state, the distillation entry points and the pipeline an
+    export reads default to the card and raise without one."""
+    from sparktts_tpu_torch.lm import distill, train
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.zeros((2, 2), np.float32)}
+    for call in (lambda: train.init_train_state(tree, train.make_optimizer()),
+                 lambda: train.load_train_state("missing", train.make_optimizer()),
+                 lambda: distill.make_cycler_teacher(),
+                 lambda: SparkTTSPipeline()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_bench_runners_default_to_the_card_and_raise_without_one(monkeypatch):
