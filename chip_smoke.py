@@ -224,12 +224,33 @@ and capture are set-up, counted apart).
    apart at a near tie, the `sparktts_torch::` ops in the vocoder and decode
    programs, and kernels 2, 3 and 4 launched by the programs; export seconds
    and artifact MiB printed.
+34. tensor parallelism (`sparktts_tpu_torch/parallel/`), the full-width LM
+   cut into two shards of 7 q / 1 KV heads: (a) two gloo ranks on the one
+   card through the launcher (`worker.serve`): on each, kernels 1 and 2 at
+   the shard's shapes against their plain versions; then rank 0 leads and
+   rank 1 follows every LM call, the leader checking after each call that
+   the follower committed the same ids and slot vectors: greedy `generate`
+   of the creation and clone prompts (held to tp = 1 by the near-tie rule,
+   ms a token beside the backend), 4 requests (2 creations, 2 clones, 150
+   tokens) through a greedy ContinuousTTSServer, each stream held to the
+   same requests served at tp = 1 in this process, and the same 4 sampled
+   (64 tokens); finite waveforms of 320 samples a semantic id; kernels 1
+   and 2 launched on each rank, the vocoder on rank 0; (b) a one-rank NCCL row in this
+   process through the same code path: the decode unit captured with the
+   all-reduces inside (a replayed generate makes only the prefill's host
+   all-reduce calls), its ids equal to the eager loop's; (c) with two cards,
+   tp = 2 over NCCL on cuda:0 and cuda:1 (else a line says it skipped);
+35. `codec_device` (cuda:1 where there is one, else cuda:0 named): a greedy
+   clone's waveform within WINDOW_REL_TOL of the plain pipeline's, and 4
+   requests through a ContinuousTTSServer over it, device admission and the
+   speculative first chunk off; then whether the native host audio library
+   (`io/native.py`) built, and its resample against scipy's.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
 17, 19 to 23, the server bursts of 24 to 27, phase 28's routes, phase
-29's speculative calls, phase 30's runners, phase 32's teachers and phase
-33's programs, its
+29's speculative calls, phase 30's runners, phase 32's teachers, phase
+33's programs and phases 34's (every rank) and 35's paths, its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
@@ -239,9 +260,10 @@ engine's state, for paged the engine's and the late state, and the
 servers' shapes); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the sparktts_tpu_torch package, it exits 2 and prints no
-result.  `--front-only`, `--servers-only`, `--spec-only`, `--bench-only` and
-`--train-only` run phase 28, phases 24-27, phase 29, phase 30 or phases
-31-33 alone (after the build), with no kernels line and no result line.
+result.  `--front-only`, `--servers-only`, `--spec-only`, `--bench-only`,
+`--train-only` and `--tp-only` run phase 28, phases 24-27, phase 29, phase
+30, phases 31-33 or phases 34-35 alone (after the build), with no kernels
+line and no result line.
 """
 
 from __future__ import annotations
@@ -4372,6 +4394,427 @@ def run_export(pipe, prompt, int8_params, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 34: tensor parallelism; phase 35: the codec on its own device; the
+# native host audio library
+# ---------------------------------------------------------------------------
+
+TP_NEW_TOKENS = 100     # greedy generate of each prompt on the TP row
+TP_SERVER_TOKENS = 150  # each of the 4 greedy server requests
+TP_SAMPLED_TOKENS = 64  # each of the 4 sampled ones
+
+
+def _tp_requests(wav):
+    """The 4 requests of the phase 34 and 35 servers: 2 creations, 2 clones."""
+    return [dict(text=TEXT, **VOICE),
+            dict(text="Two ranks share the heads of every layer.", gender="male",
+                 pitch="high", speed="moderate"),
+            dict(text="A cloned voice served over a tensor-parallel row.", prompt_wav=wav),
+            dict(text="And a second cloned request beside it.", prompt_wav=wav)]
+
+
+def _tp_serve(pipe, wav, greedy=True, tokens=TP_SERVER_TOKENS):
+    """The 4 requests at once through a ContinuousTTSServer over `pipe`;
+    returns ({text: (ids, waveform)}, wall seconds, server stats)."""
+    import asyncio
+
+    import numpy as np
+
+    from sparktts_tpu_torch.serve.continuous_server import ContinuousTTSServer
+
+    server = ContinuousTTSServer(pipe, max_slots=4, greedy=greedy, cache_len=1024,
+                                 default_max_new_tokens=tokens, fused_warm="sync")
+    ids, finish = {}, server._finish
+
+    def spy(req_id, tokens):
+        ids[server.inflight[req_id].text] = np.asarray(tokens)
+        return finish(req_id, tokens)
+
+    server._finish = spy
+    requests = _tp_requests(wav)
+
+    async def go():
+        await server.start()
+        t0 = time.perf_counter()
+        wavs = await asyncio.gather(*(server.synthesize(**r) for r in requests))
+        dt = time.perf_counter() - t0
+        await server.stop()
+        return wavs, dt
+
+    wavs, dt = asyncio.new_event_loop().run_until_complete(go())
+    return {r["text"]: (ids[r["text"]], w) for r, w in zip(requests, wavs)}, dt, dict(server.stats)
+
+
+def _check_served(label, pipe, served):
+    """Every served request: a finite waveform of 320 samples (the codec's
+    hop) a semantic id, and some request with audio."""
+    import numpy as np
+
+    from sparktts_tpu_torch.prompt import extract_semantic_ids
+
+    total = 0
+    for text, (ids, wav) in served.items():
+        n_sem = extract_semantic_ids(pipe.tokenizer, ids).size
+        total += n_sem
+        if not (wav.size == n_sem * pipe._wave_upsample and np.isfinite(wav).all()):
+            raise AssertionError(f"{label}: {text!r}: {wav.size} samples for {n_sem} semantic "
+                                 f"ids, finite {bool(np.isfinite(wav).all())}")
+    if not total:
+        raise AssertionError(f"{label}: no request emitted a semantic id")
+
+
+def _request_prompt(pipe, request):
+    """The LM prompt a server builds for one of `_tp_requests` (a clone's
+    voice from the voice cache the server filled)."""
+    from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+    if "gender" in request:
+        return build_control_prompt(pipe.tokenizer, request["text"], request["gender"],
+                                    request["pitch"], request["speed"]), "control"
+    glob, _ = pipe.tokenize_audio(request["prompt_wav"])
+    return build_clone_prompt(pipe.tokenizer, request["text"], glob), "clone"
+
+
+def _tp_setup(mesh, args):
+    """Phase 34 (a), every rank: the pipeline with this rank's shard of the
+    full-width LM."""
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+
+    pipe = SparkTTSPipeline(config=args["config"], device=mesh.device, seed=SEED,
+                            lm_dtype=args["lm_dtype"], voice_cache_size=4)
+    pipe.shard_llm(mesh)
+    return pipe
+
+
+def _tp_kernels(pipe, mesh, args):
+    """The shard's heads, and kernels 1 and 2 at the shard's shapes against
+    their plain versions (before the main path, so these launches are not
+    counted; `args["kernels"]` False skips them, for a CPU rehearsal)."""
+    import torch
+
+    dev, rank, cfg = mesh.device, mesh.tp.rank, pipe.config.llm
+    out = {"rank": rank, "heads": (cfg.num_attention_heads, cfg.num_key_value_heads,
+                                   cfg.head_dim), "errs": {}}
+    if not args["kernels"]:
+        return out
+    gen = torch.Generator(device=dev).manual_seed(5 + rank)
+    scale = cfg.head_dim**-0.5
+    q, k, v, st = _flash_inputs(dev, cfg, gen, 1, 64, [20])
+    flash_err = _check_flash_case(dev, q, k, v, st, scale)
+    shape = (cfg.num_hidden_layers, 1, 576, cfg.num_key_value_heads, cfg.head_dim)
+    qd = torch.randn((1, cfg.num_attention_heads, cfg.head_dim), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    window = [torch.tensor([w], dtype=torch.int32, device=dev) for w in (20, 300)]
+    decode_err = _check_decode_case(dev, qd, ck, cv, 3, *window, scale,
+                                    f"rank {rank}, the shard's Hq=7 Hkv=1 S=576")
+    out["errs"] = {"flash_attention_prefill": flash_err, "dense_decode_attention": decode_err}
+    return out
+
+
+def _tp_main(pipe, mesh, args):
+    """Phase 34 (a) on the leader (rank 0): greedy `generate` of both
+    prompts, then the 4 requests through a greedy and a sampled
+    ContinuousTTSServer; every LM call is made by rank 1 too and checked
+    equal."""
+    out = _tp_kernels(pipe, mesh, args)
+    _reset_counts()
+    out["generate"] = []
+    for prompt, mode in args["prompts"]:
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        ids = pipe.generate_tokens(prompt, greedy=True, mode=mode, max_new_tokens=TP_NEW_TOKENS)
+        _sync(pipe.device)
+        out["generate"].append((ids, time.perf_counter() - t0))
+    out["cache_heads"] = sorted({u.state.cache.k.shape[3] for u in graphs_units(pipe)})
+    out["tp2"] = _tp_serve(pipe, args["wav"])
+    out["sampled"] = _tp_serve(pipe, args["wav"], greedy=False, tokens=TP_SAMPLED_TOKENS)
+    out["launches"] = _counts()
+    out["checked"] = mesh.tp.leader.checked
+    return out
+
+
+def _tp_follow(pipe, mesh, args):
+    """Phase 34 (a) on rank 1: the kernels, then follow the leader."""
+    from sparktts_tpu_torch.parallel import worker
+
+    out = _tp_kernels(pipe, mesh, args)
+    _reset_counts()
+    out.update(worker.follow(pipe, mesh))
+    out["launches"] = _counts()
+    return out
+
+
+def graphs_units(pipe):
+    """The decode units `pipe`'s generate calls built (on the card they are
+    cached in `pipe.units`, captured or, over gloo, eager)."""
+    from sparktts_tpu_torch.lm import graphs
+
+    return [u for u in graphs.units() if u.owner == pipe.units.tag]
+
+
+def _nccl_case(mesh, pipe, prompt, mode):
+    """Phase 34 (b): the one-rank NCCL row through the same code path, on
+    the main pipeline's LM (restored after): the decode units capture the
+    row's all-reduces.  A second generate replays the captured unit: its
+    only host all-reduce calls are the eager prefill's, though every decode
+    step all-reduces."""
+    whole_params, whole_config = pipe.llm_params, pipe.config
+    try:
+        pipe.shard_llm(mesh)
+        tp = mesh.tp
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = pipe.generate_tokens(prompt, greedy=True, mode=mode, max_new_tokens=TP_NEW_TOKENS)
+        first_s = time.perf_counter() - t0
+        units = graphs_units(pipe)
+        before = tp.reduces
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        again = pipe.generate_tokens(prompt, greedy=True, mode=mode, max_new_tokens=TP_NEW_TOKENS)
+        _sync(pipe.device)
+        replay_s = time.perf_counter() - t0
+        replay_reduces = tp.reduces - before
+        launches = _counts()
+        eager, _, steps = eager_generate(pipe, prompt, mode, SEED, True, TP_NEW_TOKENS)
+        n_layers = pipe.config.llm.num_hidden_layers
+        return dict(first=first, again=again, eager=eager, steps=steps, first_s=first_s,
+                    replay_s=replay_s, replay_reduces=replay_reduces,
+                    prefill_reduces=2 * n_layers + 2, launches=launches,
+                    captured=[u.graph is not None for u in units])
+    finally:
+        pipe.config = whole_config
+        pipe.llm_params = whole_params
+        pipe.mesh = None
+
+
+def _two_card_row(mesh, args):
+    """Phase 34 (c) on one of two cards: tp = 2 over NCCL with graphs."""
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+
+    pipe = SparkTTSPipeline(config=args["config"], device=mesh.device, seed=SEED)
+    pipe.shard_llm(mesh)
+    _reset_counts()
+    ids = [pipe.generate_tokens(p, greedy=True, mode=m, max_new_tokens=TP_NEW_TOKENS)
+           for p, m in args["prompts"]]
+    return ids, _counts()
+
+
+def run_tensor_parallel(pipe, prompts, wav_path: Path, smi: str):
+    """Phase 34 (see the module docstring).  Returns the launch counts of
+    its main paths (one dict) and the kernels' largest errors at the
+    shard's shapes."""
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.io.audio import load_audio
+    from sparktts_tpu_torch.parallel import worker
+
+    print(smi)
+    t_phase = time.perf_counter()
+    wav = load_audio(wav_path, sampling_rate=16000).astype(np.float32)
+    # the references: tp = 1 greedy generate on the main pipeline (graphs)
+    refs, ref_s = [], []
+    for prompt, mode in prompts:
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        refs.append(pipe.generate_tokens(prompt, greedy=True, mode=mode,
+                                         max_new_tokens=TP_NEW_TOKENS))
+        _sync(pipe.device)
+        ref_s.append(time.perf_counter() - t0)
+    args = dict(config=pipe.config, lm_dtype=pipe.lm_dtype, prompts=prompts, wav=wav,
+                kernels=True)
+    # the 4 requests served at tp = 1 on the whole LM, for reference
+    ref_served, dt1, _ = _tp_serve(pipe, wav)
+    _check_served("tp = 1 server", pipe, ref_served)
+
+    # (a) two gloo ranks on the one card, through the launcher
+    t0 = time.perf_counter()
+    rows = worker.serve(_tp_setup, _tp_main, 2, backend="gloo", args=(args,),
+                        follow=_tp_follow, device=torch.device("cuda", 0), timeout_s=600)
+    print(f"phase 34 (a): two gloo ranks on {torch.cuda.get_device_name(0)}, "
+          f"{time.perf_counter() - t0:.1f} s with start-up; bf16 all-reduces")
+    lead, follow = rows
+    launches = []
+    for row in rows:
+        r = row["rank"]
+        if row["heads"] != (7, 1, 64):
+            raise AssertionError(f"tp rank {r}: shard heads {row['heads']}; want 7 q / 1 KV "
+                                 "heads of 64")
+        for name in ("flash_attention_prefill", "dense_decode_attention"):
+            if not row["launches"][name]:
+                raise AssertionError(f"tp rank {r}: {name} never launched on the main path")
+        print(f"tp rank {r}: kernels at the shard's shapes: {json.dumps(row['errs'])}; "
+              f"launches: {json.dumps(row['launches'])}")
+        launches.append(row["launches"])
+    if lead["cache_heads"] != [1]:
+        raise AssertionError(f"tp rank 0: cache KV heads {lead['cache_heads']}; want 1")
+    if not lead["launches"]["fused_residual_unit"]:
+        raise AssertionError("tp rank 0: the served requests never vocoded")
+    if lead["checked"] != follow["calls"] or follow["calls"] < 4:
+        raise AssertionError(f"tp: the leader checked {lead['checked']} calls, rank 1 made "
+                             f"{follow['calls']}")
+    print(f"tp: rank 1 followed {follow['calls']} LM calls ({follow['pings']} pings); after "
+          f"each the leader checked that both ranks committed the same ids and slot vectors")
+    for i, ((prompt, mode), ref) in enumerate(zip(prompts, refs)):
+        a, secs = lead["generate"][i]
+        ok, step = _near_tie_ok(pipe, pipe.llm_params, prompt, mode, a, ref)
+        if not ok:
+            raise AssertionError(f"tp generate {mode}: ids leave tp = 1's at step {step}, "
+                                 "not a near tie")
+        print(f"tp = 2 generate ({mode}, greedy, {len(a)} ids): "
+              f"{'equal to tp = 1' if step is None else f'tp = 1 apart from step {step} (a near tie)'}; "
+              f"{secs / len(a) * 1e3:.2f} ms a token over gloo (eager decode, host-staged "
+              f"all-reduces; functional) against {ref_s[i] / len(ref) * 1e3:.3f} ms at tp = 1 "
+              f"(graphs)")
+    served, dt2, stats2 = lead["tp2"]
+    _check_served("tp = 2 server", pipe, served)
+    tokens = sum(len(ids) for ids, _ in served.values())
+    equal = 0
+    for request in _tp_requests(wav):
+        prompt, mode = _request_prompt(pipe, request)
+        got, want = served[request["text"]][0], ref_served[request["text"]][0]
+        ok, step = _near_tie_ok(pipe, pipe.llm_params, prompt, mode, got, want)
+        if not ok:
+            raise AssertionError(f"tp server {request['text']!r}: ids leave tp = 1's at step "
+                                 f"{step}, not a near tie")
+        equal += step is None
+    print(f"tp = 2 ContinuousTTSServer on rank 0: 4 requests, {tokens} ids in {dt2:.2f} s, "
+          f"{dt2 / max(tokens, 1) * 1e3:.2f} ms a token over gloo; {equal} of 4 streams equal to "
+          f"tp = 1's, the rest apart at a near tie; tp = 1 served them in {dt1:.2f} s; "
+          f"stats {json.dumps({k: v for k, v in stats2.items() if 'admission' in k})}")
+    sampled, dt3, _ = lead["sampled"]
+    _check_served("tp = 2 sampled server", pipe, sampled)
+    tokens = sum(len(ids) for ids, _ in sampled.values())
+    print(f"tp = 2 ContinuousTTSServer, sampled: 4 requests, {tokens} ids in {dt3:.2f} s, "
+          f"{dt3 / max(tokens, 1) * 1e3:.2f} ms a token over gloo, the ranks' ids checked equal")
+
+    # (b) a one-rank NCCL row through the same code path, graphs on
+    prompt, mode = prompts[0]
+    nccl = worker.run_rank(0, 1, "nccl", f"tcp://127.0.0.1:{worker.free_port()}", _nccl_case,
+                           (pipe, prompt, mode), device=torch.device("cuda", 0))
+    if not (nccl["captured"] and all(nccl["captured"])):
+        raise AssertionError(f"nccl tp = 1: decode units not captured: {nccl['captured']}")
+    if not (np.array_equal(nccl["first"], nccl["eager"])
+            and np.array_equal(nccl["again"], nccl["eager"])):
+        raise AssertionError("nccl tp = 1: graph ids differ from the eager loop's")
+    if nccl["replay_reduces"] != nccl["prefill_reduces"]:
+        raise AssertionError(f"nccl tp = 1: {nccl['replay_reduces']} host all-reduce calls in a "
+                             f"replayed generate; the prefill makes {nccl['prefill_reduces']}")
+    for name in ("flash_attention_prefill", "dense_decode_attention"):
+        if not nccl["launches"][name]:
+            raise AssertionError(f"nccl tp = 1: {name} never launched")
+    launches.append(nccl["launches"])
+    n = len(nccl["again"])
+    print(f"phase 34 (b): one-rank NCCL row, {len(nccl['captured'])} decode unit(s) captured with "
+          f"the all-reduces inside: a replayed generate of {n} ids made "
+          f"{nccl['replay_reduces']} host all-reduce calls (the prefill's), its decode steps "
+          f"none; graph ids equal the eager loop's ({nccl['steps']} steps); "
+          f"{nccl['replay_s'] / n * 1e3:.3f} ms a token through the graphs (nccl)")
+
+    # (c) two cards
+    if torch.cuda.device_count() >= 2:
+        cards = worker.spawn(_two_card_row, 2, "nccl", args=(args,), timeout_s=600)
+        for (prompt, mode), ref, a, b in zip(prompts, refs, cards[0][0], cards[1][0]):
+            ok, step = _near_tie_ok(pipe, pipe.llm_params, prompt, mode, a, ref)
+            if not (np.array_equal(a, b) and ok):
+                raise AssertionError(f"two-card tp = 2 {mode}: ranks equal "
+                                     f"{np.array_equal(a, b)}, near-tie rule {ok} ({step})")
+        launches += [c[1] for c in cards]
+        print("phase 34 (c): tp = 2 over NCCL on cuda:0 and cuda:1 with graphs: ids held to "
+              "tp = 1")
+    else:
+        print("phase 34 (c): skipped: one card (tp = 2 over NCCL needs two)")
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
+    errs = {name: max(row["errs"][name] for row in rows) for name in lead["errs"]}
+    return [{name: sum(run[name] for run in launches) for name in launches[0]}], errs
+
+
+def run_codec_device(pipe, wav_path: Path, codec=None):
+    """Phase 35: the codec stack on a device of its own (cuda:1 where there
+    is one, else cuda:0 named explicitly): a greedy clone's waveform against
+    the plain pipeline's (the same LM and tokens), and a burst of 4 through
+    the continuous server over it.  Returns the launch counts of its
+    paths."""
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.io.audio import load_audio
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+    from sparktts_tpu_torch.serve.continuous_server import ContinuousTTSServer
+
+    t_phase = time.perf_counter()
+    if codec is None:
+        codec = torch.device("cuda", 1 if torch.cuda.device_count() >= 2 else 0)
+    split = SparkTTSPipeline(config=pipe.config, device=pipe.device, seed=SEED,
+                             lm_dtype=pipe.lm_dtype, codec_device=codec)
+    placed = {t.device for tree in (split.bicodec_params, split.w2v_params)
+              for t in _leaves(tree)}
+    if placed != {codec}:
+        raise AssertionError(f"codec_device {codec}: codec leaves on {placed}")
+    # a greedy clone: tokenize on the codec's card, ids to the LM's, the
+    # tokens back to the codec's for the vocode
+    request = dict(prompt_speech_path=wav_path, greedy=True, max_new_tokens=TP_NEW_TOKENS)
+    _reset_counts()
+    w_split = split.inference(TEXT, **request)
+    launches = _counts()
+    w_plain = pipe.inference(TEXT, **request)
+    peak = float(np.abs(w_plain).max()) if w_plain.size else 0.0
+    err = float(np.abs(w_split - w_plain).max()) if w_split.shape == w_plain.shape else np.inf
+    if not (w_split.size and np.isfinite(w_split).all() and err <= WINDOW_REL_TOL * peak):
+        raise AssertionError(f"codec_device: waveform of {w_split.size} samples {err} from the "
+                             f"plain pipeline's (peak {peak})")
+    print(f"phase 35: codec on {codec}, LM on {pipe.device}: a greedy clone's waveform "
+          f"({w_split.size} samples) {err / peak:.3e} of the peak from the plain pipeline's "
+          f"(bit-equal {err == 0.0}, limit {WINDOW_REL_TOL})")
+    server = ContinuousTTSServer(split, max_slots=4)
+    if server.device_admission or server.spec_first_chunk:
+        raise AssertionError("codec_device: the server kept its device-chained paths")
+    wav = load_audio(wav_path, sampling_rate=16000).astype(np.float32)
+    del server
+    _reset_counts()
+    served, dt, stats = _tp_serve(split, wav, greedy=False)
+    launches_server = _counts()
+    _check_served("codec_device server", split, served)
+    tokens_n = sum(len(ids) for ids, _ in served.values())
+    print(f"phase 35: ContinuousTTSServer over it, 4 sampled requests, {tokens_n} ids in "
+          f"{dt:.2f} s, device_admission and spec_first_chunk off; {time.perf_counter() - t_phase:.1f} s")
+    del split
+    torch.cuda.empty_cache()
+    return [launches, launches_server]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def check_native_audio():
+    """Whether the native host audio library built here, and its resample
+    against scipy's (the JAX package's test tolerance)."""
+    import numpy as np
+    from scipy.signal import resample_poly
+
+    from sparktts_tpu_torch.io import audio, native
+
+    print(f"host audio path: {audio.backend()}")
+    if native.get_lib() is None:
+        return
+    x = np.random.default_rng(0).standard_normal(44100)
+    got, want = native.resample(x, 160, 441), resample_poly(x, 160, 441)
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.allclose(got, want, rtol=1e-7, atol=1e-9):
+        raise AssertionError(f"native resample disagrees with scipy: {err}")
+    print(f"native resample 44.1 -> 16 kHz: max_abs_err {err:.3e} against scipy (rtol 1e-7)")
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -4441,6 +4884,19 @@ def main() -> int:
         run_distill(pipe, smi)
         run_export(pipe, build_control_prompt(pipe.tokenizer, TEXT, **VOICE),
                    quantize_qwen_int8(pipe.llm_params), smi)
+        return 0
+    if "--tp-only" in sys.argv[1:]:
+        # phases 34-35 and the native audio check alone, no kernels line and
+        # no result line
+        from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+        wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
+        glob, sem = pipe.tokenize_audio(wav_path)
+        prompts = [(build_control_prompt(pipe.tokenizer, TEXT, **VOICE), "control"),
+                   (build_clone_prompt(pipe.tokenizer, TEXT, glob, sem, PROMPT_TEXT), "clone")]
+        run_tensor_parallel(pipe, prompts, wav_path, smi)
+        run_codec_device(pipe, wav_path)
+        check_native_audio()
         return 0
     if "--bench-only" in sys.argv[1:]:
         # phase 30 alone, no kernels line and no result line
@@ -4528,6 +4984,11 @@ def main() -> int:
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
     check_decode_step_on_cpu(pipe, int4_params, "int4 LM", creation[1], "control")
     del int8_params, int4_params
+    # tensor parallelism, the codec on its own device, the native host audio
+    tp_launches, tp_errs = run_tensor_parallel(
+        pipe, [(creation[1], "control"), (cloning[1], "clone")], wav_path, smi)
+    codec_launches = run_codec_device(pipe, wav_path)
+    check_native_audio()
     torch.cuda.empty_cache()
 
     entries.append(paged_entry)
@@ -4538,6 +4999,7 @@ def main() -> int:
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["by_shape"].append(item)
     for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], tp_errs.get(e["name"], 0.0))
         if e["name"] in server_items:
             e["by_shape"].append(server_items[e["name"]])
             e["max_abs_err"] = max(e["max_abs_err"], server_errs.get(e["name"], 0.0))
@@ -4546,7 +5008,7 @@ def main() -> int:
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
              cache_launches, *server_launches, front_launches, spec_launches, bench_launches,
-             distill_launches, export_launches]
+             distill_launches, export_launches, *tp_launches, *codec_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     print("launches of the server phases (24-27):",

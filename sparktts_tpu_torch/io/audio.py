@@ -1,10 +1,11 @@
-"""Host-side audio I/O and DSP (numpy and scipy only).
+"""Host-side audio I/O and DSP.
 
 A copy of `sparktts_tpu/io/audio.py`: wav read/write, polyphase resampling,
 loudness normalisation, random segment selection, silence trimming and the
-6 s reference clip.  The JAX package's optional C++ host library is not
-carried over; this module always takes the scipy paths, which that package
-uses when its library is not built.
+6 s reference clip.  As there, wav read/write and resampling go through the
+native C++ host library (`io/native.py`, built with g++ at first use) where
+it builds, and through numpy and scipy otherwise; `backend()` says which,
+and the first call logs it.
 """
 
 from __future__ import annotations
@@ -15,11 +16,21 @@ from typing import Tuple, Union
 
 import numpy as np
 
+from sparktts_tpu_torch.io import native
+
 PathLike = Union[str, Path]
+
+
+def backend() -> str:
+    """The host audio path: `native.status()`, "native (...)" or "scipy (...)"."""
+    return native.status()
 
 
 def read_wav(path: PathLike) -> Tuple[np.ndarray, int]:
     """Read a wav file to float64 mono in [-1, 1] (first channel only)."""
+    res = native.read_wav(path)
+    if res is not None:
+        return res
     from scipy.io import wavfile
 
     sr, data = wavfile.read(str(path))
@@ -38,6 +49,8 @@ def read_wav(path: PathLike) -> Tuple[np.ndarray, int]:
 
 def write_wav(path: PathLike, audio: np.ndarray, sample_rate: int) -> None:
     """Write float audio in [-1, 1] as a 16-bit PCM wav."""
+    if native.write_wav(path, np.asarray(audio, dtype=np.float64), sample_rate):
+        return
     from scipy.io import wavfile
 
     clipped = np.clip(np.asarray(audio, dtype=np.float64), -1.0, 1.0)
@@ -48,9 +61,12 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resample (scipy's kaiser-windowed `resample_poly`)."""
     if orig_sr == target_sr:
         return audio
+    g = gcd(orig_sr, target_sr)
+    res = native.resample(audio, target_sr // g, orig_sr // g)
+    if res is not None:
+        return res
     from scipy.signal import resample_poly
 
-    g = gcd(orig_sr, target_sr)
     return resample_poly(audio, target_sr // g, orig_sr // g)
 
 

@@ -50,6 +50,18 @@ Where the port differs from the JAX engine:
     of one process.  The decode units of every dispatch size are captured
     by `warm_units`, so a server captures none while it serves; they are
     the engine's own (`graphs.UnitCache`) and go with it, or at `close`.
+  * Over a tensor-parallel row (`mesh=`, the params a `ShardedTree` of the
+    row, `cfg` its shard's config: `pipeline.shard_llm`), each rank keeps
+    its own KV heads and the slot vectors whole.  Every admission is then
+    one prefill of host prompt ids (`_admit_rows`; a fused clone admission
+    tokenizes and assembles on the codec's rank and reads the ids back), so
+    that the row's other ranks can make it too: on a leading row each LM
+    call of the engine (`_admit_rows`, `_decode`, `release_slot`,
+    `_commit_slot_done`, `close`) is announced to the followers first, and
+    the ranks' results and slot vectors are checked to agree after it
+    (`parallel/worker.py`).  A signature is ready at once on a mesh: its
+    first live run builds its plans.  The decode units capture the row's
+    all-reduces under NCCL and run eagerly under gloo.
 """
 
 from __future__ import annotations
@@ -66,6 +78,8 @@ from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.generate import expand_constrained, packed_allowed_mask
 from sparktts_tpu_torch.lm.qwen import KVCache, init_kv_cache, qwen_forward
 from sparktts_tpu_torch.lm.sample import NEG_INF, greedy_token, sample_token
+from sparktts_tpu_torch.parallel.mesh import capturable, tp_of
+from sparktts_tpu_torch.parallel.worker import mirrored
 from sparktts_tpu_torch.utils.platform import require_device
 
 #: Fixed decode dispatch-size menu (the JAX engine compiles one program per
@@ -332,10 +346,11 @@ def admit_prefill(
 
 
 def install_rows(slots: SlotState, slot_ids, first_toks: torch.Tensor, tmp_cache: KVCache,
-                 prompt_lens, limits, temperature, top_p) -> SlotState:
-    """Install the first n = len(slot_ids) rows of a batched clone-mode
-    admission prefill into their slots, in place: each row's prompt K/V
-    into its slot's cache row, its per-slot vectors by slot id.  Rows past
+                 prompt_lens, limits, temperature, top_p, control=None) -> SlotState:
+    """Install the first n = len(slot_ids) rows of a batched admission
+    prefill into their slots, in place: each row's prompt K/V into its
+    slot's cache row, its per-slot vectors by slot id (`control` per row,
+    default clone mode).  Rows past
     n (the ladder's pad rows) are dropped, so no slot is written twice and
     the result does not depend on the order of the writes."""
     dev = first_toks.device
@@ -352,7 +367,7 @@ def install_rows(slots: SlotState, slot_ids, first_toks: torch.Tensor, tmp_cache
     slots.limit[sid] = _rows(limits, torch.int32, dev)[:n]
     slots.active[sid] = True
     slots.done[sid] = False
-    slots.control[sid] = False
+    slots.control[sid] = False if control is None else _rows(control, torch.bool, dev)[:n]
     slots.temperature[sid] = _rows(temperature, torch.float32, dev)[:n]
     slots.top_p[sid] = _rows(top_p, torch.float32, dev)[:n]
     return slots
@@ -593,7 +608,8 @@ def decode_unit(kind: str, params, slots, n_steps: int,
             return lambda s: scan_steps(steps, s, step)
 
         return graphs.DecodeUnit(make_scan, slots, steps,
-                                 name=f"{kind} B={slots.cur_token.shape[0]} U={steps}")
+                                 name=f"{kind} B={slots.cur_token.shape[0]} U={steps}",
+                                 capture=capturable(params))
 
     return graphs.unit(key, bufs[0].device, build, units)
 
@@ -775,12 +791,16 @@ class StepProtocolMixin:
             raise ValueError(f"prompt length {n} outside [1, {t_pad}]")
         return n, t_pad
 
+    def _prompt_array(self, prompt_ids, n: int, t_pad: int) -> np.ndarray:
+        """A host id list as a (1, t_pad) right-padded host array."""
+        ids = np.full((1, t_pad), self.pad_id, np.int64)
+        ids[0, :n] = prompt_ids
+        return ids
+
     def _prompt_tensor(self, prompt_ids, n: int, t_pad: int) -> torch.Tensor:
         if isinstance(prompt_ids, torch.Tensor):
             return prompt_ids.long()
-        ids = np.full((1, t_pad), self.pad_id, np.int64)
-        ids[0, :n] = prompt_ids  # right-padded
-        return to_device(ids, self.device)
+        return to_device(self._prompt_array(prompt_ids, n, t_pad), self.device)
 
     def _resolve_sampling(self, temperature, top_p):
         eng_temperature, top_k, eng_top_p = self.sampling
@@ -900,10 +920,24 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         clone_extras: Tuple[int, ...] = (),
         max_dispatch: int = DISPATCH_LADDER[-1],
         device="cuda",
+        mesh=None,
     ):
         self._init_engine(params, cfg, device, max_slots, prompt_pad, eos_ids, pad_id,
                           (temperature, top_k, top_p), greedy, seed, vocab_slice, extra_ids,
                           clone_slice, clone_extras, max_dispatch)
+        if (mesh is None) != (tp_of(params) is None) or (mesh and tp_of(params) is not mesh.tp):
+            raise ValueError("a tensor-parallel engine takes the mesh and its row's shard of "
+                             "the params (pipeline.shard_llm(mesh), then mesh=pipeline.mesh)")
+        self.mesh = mesh
+        self.leader = None if mesh is None else mesh.tp.leader
+        if self.leader is not None:
+            # the followers build the same engine over their shards
+            self.leader_id = self.leader.new_engine(dict(
+                max_slots=max_slots, cache_len=cache_len, prompt_pad=prompt_pad,
+                eos_ids=tuple(eos_ids), pad_id=pad_id, temperature=temperature, top_k=top_k,
+                top_p=top_p, greedy=greedy, seed=seed, cache_dtype=cache_dtype,
+                vocab_slice=vocab_slice, extra_ids=tuple(extra_ids), clone_slice=clone_slice,
+                clone_extras=tuple(clone_extras), max_dispatch=max_dispatch))
         self.cache_len = cache_len
         with torch.inference_mode():
             self.slots = init_slots(cfg, max_slots, cache_len, cache_dtype, self.device)
@@ -942,6 +976,12 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         n, t_pad = self._prompt_shape(prompt_ids, prompt_len, self.prompt_pad)
         slot = self._take_slot(t_pad, max_new_tokens)
         temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
+        if self.mesh is not None:
+            ids = (prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
+                   else self._prompt_array(prompt_ids, n, t_pad))
+            self._admit_rows([slot], ids, [n], [n + max_new_tokens], [temperature], [top_p],
+                             [mode == "control"])
+            return self._register_request(slot, max_new_tokens)
         self.slots = admit_prefill(
             self.params, self.slots, self.cfg, slot, self._prompt_tensor(prompt_ids, n, t_pad),
             n, self.generator, temperature, top_k, top_p, self.greedy, self.vocab_slice,
@@ -966,6 +1006,22 @@ class ContinuousBatchingEngine(StepProtocolMixin):
                 self.greedy, self.vocab_slice, self.extra_ids, self.clone_slice,
                 self.clone_extras, self._aval_key)
 
+    @mirrored
+    @torch.inference_mode()
+    def _admit_rows(self, slot_ids, ids: np.ndarray, prompt_lens, limits, temperature, top_p,
+                    control) -> None:
+        """Every admission on a mesh: one prefill of the (B, t_pad) host
+        prompt ids, right-padded, and the first len(slot_ids) rows installed
+        into those slots (`install_rows`); the per-row lists hold B rows.
+        Host arguments only, so the row's followers make the same call."""
+        _, top_k, _ = self.sampling
+        first, tmp_cache = prefill_many(
+            self.params, self.cfg, to_device(np.asarray(ids, np.int64), self.device),
+            prompt_lens, self.generator, self.slots.cache.k.dtype, temperature, top_k, top_p,
+            self.greedy, self.vocab_slice, self.extra_ids, control, self.clone_allowed)
+        install_rows(self.slots, slot_ids, first, tmp_cache, prompt_lens, limits, temperature,
+                     top_p, control)
+
     def _ready(self, key: tuple) -> bool:
         with self._admit_lock:
             return key in self._admit_ready
@@ -974,8 +1030,13 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         """Mark `key` ready, after running `run(scratch slots, generator)`
         once unless another engine of the process already ran its global
         signature.  Thread-safe and idempotent; runs under inference mode
-        in any thread."""
+        in any thread.  On a mesh it runs nothing (a warm-up would be LM
+        work the row's other ranks do not make)."""
         if self._ready(key):
+            return
+        if self.mesh is not None:
+            with self._admit_lock:
+                self._admit_ready.add(key)
             return
         gkey = self._global_key(key, tokenize_fn, assemble_fn)
         with _ADMIT_WARM_LOCK:
@@ -1044,6 +1105,13 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         slot = self._take_slot(t_pad, max_new_tokens)
         temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
         self.warm_fused(tokenize_fn, assemble_fn, tok_args, t_pad)
+        if self.mesh is not None:
+            global_t, semantic = tokenize_fn(*tok_args)
+            ids = assemble_fn(np.asarray(scaffold, np.int32)[None, :], global_t, semantic,
+                              [g_off], [s_off], [n_sem])
+            self._admit_rows([slot], ids.cpu().numpy(), [prompt_len],
+                             [prompt_len + max_new_tokens], [temperature], [top_p], [False])
+            return self._register_request(slot, max_new_tokens), global_t, semantic
         self.slots, global_t, semantic = admit_prefill_fused(
             self.params, self.slots, self.cfg, slot, tokenize_fn, tok_args, assemble_fn,
             np.asarray(scaffold, np.int32)[None, :], g_off, s_off, n_sem, prompt_len,
@@ -1094,6 +1162,12 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         slot = self._take_slot(t_pad, max_new_tokens)
         temperature, top_k, top_p = self._resolve_sampling(temperature, top_p)
         self.warm_assembled(assemble_fn, global_t, semantic, t_pad)
+        if self.mesh is not None:
+            ids = assemble_fn(np.asarray(scaffold, np.int32)[None, :], global_t, semantic,
+                              [g_off], [s_off], [n_sem])
+            self._admit_rows([slot], ids.cpu().numpy(), [prompt_len],
+                             [prompt_len + max_new_tokens], [temperature], [top_p], [False])
+            return self._register_request(slot, max_new_tokens)
         self.slots = admit_prefill_assembled(
             self.params, self.slots, self.cfg, slot, global_t, semantic, assemble_fn,
             np.asarray(scaffold, np.int32)[None, :], g_off, s_off, n_sem, prompt_len,
@@ -1188,11 +1262,24 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         g = torch.cat([r["global_t"].reshape(1, -1) for r in padded]).to(self.device, torch.int32)
         s = torch.cat([r["semantic"].reshape(1, -1) for r in padded]).to(self.device, torch.int32)
         _, top_k, _ = self.sampling
+        if self.mesh is not None:
+            args = self._batch_args(rows, b)
+            ids = assemble_fn(args["scaffolds"], g, s, args["g_offs"], args["s_offs"],
+                              args["n_sems"])
+            self._admit_mesh_batch(rows, ids, args)
+            return self._register_rows(rows)
         self.slots = admit_prefill_assembled_batch(
             self.params, self.slots, self.cfg, [r["slot"] for r in rows], g, s, assemble_fn,
             generator=self.generator, top_k=top_k, **self._batch_args(rows, b),
             **self._settings())
         return self._register_rows(rows)
+
+    def _admit_mesh_batch(self, rows, ids: torch.Tensor, args: dict) -> None:
+        """A batched clone admission's prefill on a mesh, from its assembled
+        (b, t_pad) ids."""
+        self._admit_rows([r["slot"] for r in rows], ids.cpu().numpy(), args["prompt_lens"],
+                         args["limits"], args["temperature"], args["top_p"],
+                         [False] * ids.shape[0])
 
     def fused_batch_key(self, b: int, tok_args: tuple, t_pad: int) -> tuple:
         _, _, wav, feature_mask, ref_wav = tok_args
@@ -1245,6 +1332,13 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         t_pad = len(rows[0]["scaffold"])
         self.warm_fused_batch(tokenize_fn, assemble_fn, b, rows[0]["tok_args"], t_pad)
         _, top_k, _ = self.sampling
+        if self.mesh is not None:
+            args = self._batch_args(rows, b)
+            global_t, semantic = tokenize_fn(*self._stack_tok_args(rows, b))
+            ids = assemble_fn(args["scaffolds"], global_t, semantic, args["g_offs"],
+                              args["s_offs"], args["n_sems"])
+            self._admit_mesh_batch(rows, ids, args)
+            return self._register_rows(rows), global_t, semantic
         self.slots, global_t, semantic = admit_prefill_fused_batch(
             self.params, self.slots, self.cfg, [r["slot"] for r in rows], tokenize_fn,
             self._stack_tok_args(rows, b), assemble_fn, generator=self.generator, top_k=top_k,
@@ -1264,6 +1358,7 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         packed = self._decode(n_steps)
         return (chain_step_result(packed, chain_fn), chain_fn, n_steps, list(self.owner))
 
+    @mirrored
     def _decode(self, n_steps: int, capture_only: bool = False) -> Optional[torch.Tensor]:
         _, top_k, _ = self.sampling
         self.slots, packed = decode_steps(
@@ -1273,10 +1368,16 @@ class ContinuousBatchingEngine(StepProtocolMixin):
         )
         return packed
 
+    @mirrored
     @torch.inference_mode()
     def _commit_slot_done(self, slot: int) -> None:
         self.slots.active[slot] = False
 
+    @mirrored
+    def close(self) -> None:
+        super().close()
+
+    @mirrored
     @torch.inference_mode()
     def release_slot(self, slot: int) -> None:
         """Forcibly free a slot (failure containment): drops the request's

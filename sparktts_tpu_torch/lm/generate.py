@@ -36,6 +36,7 @@ from sparktts_tpu_torch.lm.qwen import (
     qwen_forward,
 )
 from sparktts_tpu_torch.lm.sample import Generators, PerRow, greedy_token, sample_token
+from sparktts_tpu_torch.parallel.mesh import capturable
 
 DONE_CHECK_EVERY = 8
 
@@ -219,7 +220,7 @@ def decode_unit(
                                  name=f"decode B={batch} t_pad={t_pad} S={cache_len} U={steps}"
                                  + (" greedy" if greedy else "")
                                  + (" per-row generators" if n_generators > 1 else ""),
-                                 n_generators=n_generators)
+                                 n_generators=n_generators, capture=capturable(params))
 
     return graphs.unit(key, device, build, units)
 

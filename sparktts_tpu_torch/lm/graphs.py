@@ -49,7 +49,10 @@ capture:
 
 A capture or replay error raises: there is no eager fallback on the card.
 On the CPU the same unit runs its scan eagerly at each replay; nothing is
-captured and nothing is cached (`unit` builds a fresh one every call).
+captured and nothing is cached (`unit` builds a fresh one every call).  A
+unit built with `capture=False` (a tensor-parallel shard whose row
+all-reduces through gloo, which runs on the host: `parallel.capturable`)
+runs its scan eagerly on the card too, and is cached like the others.
 
 Units have owners (`UnitCache`): a pipeline keeps the units of its
 `generate` and `decode_chunk` calls, an engine those of its dispatches, and
@@ -130,7 +133,8 @@ class DecodeUnit:
 
     def __init__(self, make_scan: Callable[[Generators], Scan], state, steps: int,
                  inputs: Optional[Dict[str, torch.Tensor]] = None, name: str = "decode unit",
-                 n_generators: int = 1, out_width: Optional[int] = None):
+                 n_generators: int = 1, out_width: Optional[int] = None,
+                 capture: bool = True):
         self.state = state            # the buffers every replay reads and updates
         self.steps = steps
         self.inputs = inputs or {}    # static inputs the caller fills before replaying
@@ -149,7 +153,7 @@ class DecodeUnit:
         self.owner = ""  # the tag of the cache that built it
         self._replayed: Optional[torch.cuda.Event] = None  # after the last replay's work
         self.lock = threading.RLock()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and capture:
             self._capture()
 
     def _body(self, state, out: torch.Tensor) -> None:

@@ -60,6 +60,7 @@ from sparktts_tpu_torch.lm.qwen import (
     unstack_layers,
 )
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
+from sparktts_tpu_torch.parallel.mesh import tp_of
 
 
 class PagedSlotState(NamedTuple):
@@ -260,7 +261,12 @@ class PagedContinuousEngine(StepProtocolMixin):
         clone_extras: Tuple[int, ...] = (),
         max_dispatch: int = DISPATCH_LADDER[-1],
         device="cuda",
+        mesh=None,
     ):
+        if mesh is not None or tp_of(params) is not None:
+            # as the JAX server refuses paged=True on a mesh
+            raise ValueError("the paged engine does not run on a tensor-parallel mesh; use the "
+                             "dense engine")
         # admission pads prompts to a multiple of both buckets (the prefill's
         # K/V is written in whole pages), so one must divide the other
         if prompt_pad % page_size and page_size % prompt_pad:

@@ -26,6 +26,16 @@ per-row scale in the lookup and the tied logits, and on a decode step an
 int8 MLP through the fused kernel module `kernels.int8_mlp`.  An untied
 config projects through its own `lm_head` (`head_logits`): bf16, int8 or
 int4, its guided columns selected before they are dequantized.
+
+A tensor-parallel shard (`parallel/shardings.py`: a `ShardedTree` carries
+its row, `tp`) runs the same forward over its own heads, MLP columns and
+vocabulary rows, with the config of its shard (`shard_config`): the
+attention output and the MLP output are all-reduced over the row before
+their biases, the embedding masks the ids outside the rank's rows and
+all-reduces, and the logits are assembled by an all-reduce of each rank's
+columns into a zeroed buffer (every backend takes `all_reduce`; gloo takes
+no `all_gather` of CUDA tensors).  Kernels 1 and 2 run at the shard's
+head counts.  A shard is a float tree: the quantized paths never see one.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from sparktts_tpu_torch.kernels.int8_mlp import MAX_ROWS as MLP_MATVEC_ROWS
 from sparktts_tpu_torch.kernels.int8_mlp import int8_mlp_matvec
 from sparktts_tpu_torch.lm.quant import unpack_int4
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
+from sparktts_tpu_torch.parallel.mesh import TPGroup, tp_of
 
 
 class KVCache(NamedTuple):
@@ -150,6 +161,7 @@ def _attention_block(
     cfg: QwenConfig,
     flash_start: Optional[torch.Tensor] = None,
     decode_window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    tp: Optional[TPGroup] = None,
 ) -> torch.Tensor:
     """Attention for prefill (T >= 1) and decode (T == 1).
 
@@ -162,7 +174,8 @@ def _attention_block(
     module.  decode_window ((B,) start, (B,) pos)
     int32: T == 1 decode through the decode kernel module, keys valid in
     [start, pos].  Otherwise key_mask_bias (B, T, S), an additive fp32 bias
-    encoding causality and left padding, masks a dense attention."""
+    encoding causality and left padding, masks a dense attention.  `tp`:
+    the row of a sharded layer, whose o output is all-reduced over it."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q, k, v = project_qkv(layer, x, rope, cfg)
@@ -193,7 +206,16 @@ def _attention_block(
     else:
         out = dense_attention(q, cache.k[layer_idx], cache.v[layer_idx], key_mask_bias)
     out = out.reshape(b, t, nh * hd).to(x.dtype)
-    return linear_apply(layer["o"], out)
+    return row_parallel(layer["o"], out, tp)
+
+
+def row_parallel(p, x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """A row-parallel linear: each rank's input rows, the partial outputs
+    summed over the row, then the bias; `linear_apply` without a row."""
+    if tp is None:
+        return linear_apply(p, x)
+    y = tp.all_reduce(linear_apply({k: v for k, v in p.items() if k != "b"}, x))
+    return y + p["b"] if "b" in p else y
 
 
 def dense_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -217,11 +239,13 @@ def int8_mlp_fusable(layer) -> bool:
     return "w_q" in gu_p and "w_q" in down_p and "b" not in gu_p and "b" not in down_p
 
 
-def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False) -> torch.Tensor:
+def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False,
+              tp: Optional[TPGroup] = None) -> torch.Tensor:
     """SwiGLU MLP.  On a decode step (`decode_fused`) of at most
     MLP_MATVEC_ROWS rows whose gate/up and down are int8 without biases, the
     fused kernel module computes it (its numbers are the unfused path's up
-    to fp32 summation order); otherwise the unfused path below."""
+    to fp32 summation order); otherwise the unfused path below.  `tp`: the
+    row of a sharded layer (its gate/up columns, its down rows)."""
     gu_p, down_p = layer["gateup"], layer["down"]
     b, t, h = x.shape
     if decode_fused and int8_mlp_fusable(layer) and b * t <= MLP_MATVEC_ROWS:
@@ -229,7 +253,7 @@ def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False) -> torch.Tenso
                             down_p["w_q"], down_p["scale"])
         return y.reshape(b, t, h)
     gate, up = linear_apply(gu_p, x).chunk(2, dim=-1)
-    return linear_apply(down_p, F.silu(gate) * up)
+    return row_parallel(down_p, F.silu(gate) * up, tp)
 
 
 def qwen_forward(
@@ -250,17 +274,20 @@ def qwen_forward(
 
     vocab_slice/extra_ids constrain the OUTPUT vocabulary (guided decoding):
     logits cover embedding rows [lo, hi) then `extra_ids`, in that packed
-    order.  logits_last_only computes logits for the final position only."""
+    order.  logits_last_only computes logits for the final position only.
+    A `ShardedTree` runs its rank's part, with `cfg` its shard's config."""
+    tp = tp_of(params)
     x = embed_lookup(params, input_ids)
     rope = rope_cos_sin(positions, cfg)
     for li, layer in enumerate(unstack_layers(params["layers"])):
         y = rms_norm_apply(layer["ln1"], x, eps=cfg.rms_norm_eps)
         x = x + _attention_block(
             layer, y, rope, cache, li, write_pos, key_mask_bias, cfg,
-            flash_start=flash_start, decode_window=decode_window,
+            flash_start=flash_start, decode_window=decode_window, tp=tp,
         )
         y = rms_norm_apply(layer["ln2"], x, eps=cfg.rms_norm_eps)
-        x = x + mlp_block(layer, y, decode_fused=decode_window is not None and y.shape[1] == 1)
+        x = x + mlp_block(layer, y, decode_fused=decode_window is not None and y.shape[1] == 1,
+                          tp=tp)
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm_apply(params["final_ln"], x, eps=cfg.rms_norm_eps)
@@ -270,7 +297,11 @@ def qwen_forward(
 def output_logits(params, cfg: QwenConfig, x: torch.Tensor, vocab_slice=None,
                   extra_ids: Tuple[int, ...] = ()) -> torch.Tensor:
     """The final hidden states' fp32 logits: through the tied embedding or,
-    for an untied config, through `lm_head`."""
+    for an untied config, through `lm_head`; for a shard, assembled over its
+    row (`vocab_parallel_logits`)."""
+    tp = tp_of(params)
+    if tp is not None:
+        return vocab_parallel_logits(params, cfg, x, tp, vocab_slice, extra_ids)
     if cfg.tie_word_embeddings:
         return lm_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids)
     return head_logits(params, x, vocab_slice=vocab_slice, extra_ids=extra_ids)
@@ -278,8 +309,16 @@ def output_logits(params, cfg: QwenConfig, x: torch.Tensor, vocab_slice=None,
 
 def embed_lookup(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows; an int8 table's rows are cast to the dtype of the norm
-    gains and times their row scale in that dtype."""
+    gains and times their row scale in that dtype.  A shard looks up the ids
+    among its own rows, zeros the others and sums the row."""
     emb = params["embed"]
+    tp = tp_of(params)
+    if tp is not None:
+        lo, hi = params.vocab
+        local = input_ids - lo
+        inside = (local >= 0) & (local < hi - lo)
+        x = F.embedding(local.clamp(0, hi - lo - 1), emb)
+        return tp.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
     if isinstance(emb, dict):
         dt = params["final_ln"]["gamma"].dtype
         return emb["w_q"][input_ids].to(dt) * emb["scale"][input_ids].to(dt)
@@ -310,6 +349,40 @@ def lm_logits(
             scale = _select_vocab_rows(scale, vocab_slice, extra_ids)
     logits = torch.matmul(x.float(), w.float().T)
     return logits if scale is None else logits * scale
+
+
+def vocab_parallel_logits(params, cfg: QwenConfig, x: torch.Tensor, tp: TPGroup,
+                          vocab_slice=None, extra_ids: Tuple[int, ...] = ()) -> torch.Tensor:
+    """A shard's fp32 logits, whole on every rank of its row: each rank
+    computes the columns of the packed axis (slice rows then `extra_ids`;
+    the whole vocabulary without a slice) that its vocabulary rows hold,
+    with the products and sums of `lm_logits` / `head_logits`, into a zeroed
+    buffer, and the row sums the buffers.  A rank may hold none of them
+    (Spark-TTS's guided ids all lie above the base vocabulary).  Host ints
+    only, so a CUDA graph captures it."""
+    a, b = params.vocab
+    lo, hi = vocab_slice if vocab_slice is not None else (0, cfg.vocab_size)
+    pieces = []  # (first local row, end local row, first packed column)
+    if max(lo, a) < min(hi, b):
+        pieces.append((max(lo, a) - a, min(hi, b) - a, max(lo, a) - lo))
+    pieces += [(e - a, e - a + 1, hi - lo + i) for i, e in enumerate(extra_ids) if a <= e < b]
+    out = torch.zeros(*x.shape[:-1], hi - lo + len(extra_ids), dtype=torch.float32,
+                      device=x.device)
+    if pieces:
+        if cfg.tie_word_embeddings:
+            w = torch.cat([params["embed"][r0:r1] for r0, r1, _ in pieces])
+            local = torch.matmul(x.float(), w.float().T)
+        else:
+            head = params["lm_head"]
+            w = torch.cat([head["w"][:, r0:r1] for r0, r1, _ in pieces], dim=1)
+            local = torch.matmul(x.float(), w.to(x.dtype).float())
+            if "b" in head:
+                local = local + torch.cat([head["b"][r0:r1] for r0, r1, _ in pieces])
+        col = 0
+        for r0, r1, c0 in pieces:
+            out[..., c0 : c0 + r1 - r0] = local[..., col : col + r1 - r0]
+            col += r1 - r0
+    return tp.all_reduce(out)
 
 
 def _select_vocab_cols(w: torch.Tensor, vocab_slice, extra_ids) -> torch.Tensor:

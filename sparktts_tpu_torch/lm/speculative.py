@@ -49,6 +49,7 @@ from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.generate import expand_constrained, prefill
 from sparktts_tpu_torch.lm.qwen import KVCache, aligned_cache_len, init_kv_cache, qwen_forward
 from sparktts_tpu_torch.lm.sample import greedy_token, sample_token, warped_probs
+from sparktts_tpu_torch.parallel.mesh import tp_of
 
 #: Rounds a captured unit runs a replay; the host reads step and done after each.
 ROUNDS_PER_UNIT = 4
@@ -291,6 +292,8 @@ def speculative_decode(
     max_new) bool, marks the emissions where a round stopped on a rejected
     proposal (the target's token stands there).  `generator` may be None
     when greedy."""
+    if tp_of(params) is not None:
+        raise ValueError("speculative decoding does not run on a tensor-parallel shard")
     b, t_pad = input_ids.shape
     if cache_len < t_pad + max_new_tokens + k:
         raise ValueError(f"cache_len {cache_len} < {t_pad} + {max_new_tokens} + k={k}")

@@ -38,6 +38,7 @@ from sparktts_tpu_torch.lm.qwen import (
 )
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
 from sparktts_tpu_torch.utils.platform import require_device
+from sparktts_tpu_torch.parallel.mesh import tp_of
 from sparktts_tpu_torch.weights import to_torch
 
 Optimizer = Callable[[list], torch.optim.Optimizer]
@@ -92,7 +93,10 @@ def _params_device(params) -> torch.device:
 
 def train_forward(params, cfg: QwenConfig, input_ids: torch.Tensor) -> torch.Tensor:
     """(B, T) ids with no padding -> fp32 logits (B, T, V), causal dense
-    attention over each layer's own K/V (no cache)."""
+    attention over each layer's own K/V (no cache).  A whole tree: the
+    train step on a mesh is not ported."""
+    if tp_of(params) is not None:
+        raise ValueError("train_forward takes a whole tree, not a tensor-parallel shard")
     b, t = input_ids.shape
     mask = torch.ones((b, t), dtype=torch.bool, device=input_ids.device)
     positions, bias = prefill_inputs(mask, t)

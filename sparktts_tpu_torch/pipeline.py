@@ -22,10 +22,17 @@ without a card the default raises instead of falling back to the CPU.
 Weights come from a checkpoint directory (`model_dir`, the published
 Spark-TTS-0.5B layout, `checkpoint.py`), from numpy or tensor trees with the
 JAX package's keys, or at random from `seed`.
+
+Two cards or more: `codec_device` puts the codec stack (wav2vec2 and the
+BiCodec) on a card of its own, so that vocoding overlaps the LM's decode;
+`shard_llm(mesh)` cuts the LM into this rank's tensor-parallel shard
+(`parallel/`), to be served from rank 0 with the other ranks following
+(`parallel/worker.py`).  The two are exclusive, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import json
@@ -50,6 +57,8 @@ from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.sample import Generators
 from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers, speculative_decode
 from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
+from sparktts_tpu_torch.parallel.shardings import attach, shard_config, shard_qwen
+from sparktts_tpu_torch.parallel.worker import lead_generate, leader_of
 from sparktts_tpu_torch.prompt import (
     HFSparkTokenizer,
     SparkTokenizerBase,
@@ -65,6 +74,7 @@ from sparktts_tpu_torch.utils.profiling import stage
 from sparktts_tpu_torch.utils.textseg import pack_segments
 from sparktts_tpu_torch.weights import (
     bicodec_state,
+    fp32_state,
     init_bicodec,
     init_qwen,
     init_wav2vec2,
@@ -182,8 +192,10 @@ class SparkTTSPipeline:
     `guided=False` samples the full vocabulary instead of the mode's token
     ranges, `speculative_k > 0` decodes one request speculatively (k drafted
     tokens a round from the first `draft_layers` layers, `lm/speculative.py`;
-    the batch and streaming surfaces ignore it), and `voice_cache_size > 0`
-    keeps that many tokenized prompt voices (LRU)."""
+    the batch and streaming surfaces ignore it), `voice_cache_size > 0`
+    keeps that many tokenized prompt voices (LRU), and `codec_device` (a
+    card) holds the codec stack apart from the LM: tokenize and vocode run
+    there, and ids cross between the two cards."""
 
     def __init__(
         self,
@@ -202,6 +214,7 @@ class SparkTTSPipeline:
         llm_params=None,
         bicodec_params=None,
         wav2vec2_params=None,
+        codec_device=None,
     ):
         self.device = require_device(device, "SparkTTSPipeline")
         # the decode units of `generate` and `decode_chunk` over this
@@ -240,6 +253,16 @@ class SparkTTSPipeline:
                 self.w2v_params = init_wav2vec2(self.config.wav2vec2, gen, self.device)
             else:
                 self.w2v_params = wav2vec2_state(wav2vec2_params, self.device)
+
+        # disaggregated serving: the codec stack on a card of its own, so
+        # that vocoding overlaps the LM's decode (the reference runs separate
+        # Triton model instances; JAX places the trees with device_put)
+        self.codec_device = None
+        if codec_device is not None:
+            self.codec_device = require_device(codec_device, "SparkTTSPipeline codec_device")
+            self.bicodec_params = fp32_state(self.bicodec_params, self.codec_device)
+            self.w2v_params = fp32_state(self.w2v_params, self.codec_device)
+        self.mesh = None  # set by shard_llm
 
         self.sample_rate = self.config.sample_rate
         self.prompt_bucket = prompt_bucket
@@ -292,6 +315,33 @@ class SparkTTSPipeline:
         if self._draft is None or self._draft[0] != key:
             self._draft = (key, draft_from_layers(self._llm_params, self.draft_layers))
         return self._draft[1]
+
+    @property
+    def codec_dev(self) -> torch.device:
+        """The card of the codec stack: `codec_device`, else the LM's."""
+        return self.codec_device if self.codec_device is not None else self.device
+
+    def shard_llm(self, mesh) -> None:
+        """Make `llm_params` this rank's tensor-parallel shard over
+        `mesh.tp` (`parallel.shardings.shard_qwen`: head-aligned q/k/v and
+        gate/up columns, o and down rows, vocabulary rows of the embedding)
+        and `config.llm` its shard's config; every rank of the row calls it
+        on the same whole tree.  Engines built after it (a server passes
+        `mesh=pipeline.mesh`) keep this rank's KV heads.  The codec stays
+        whole on this rank, and only rank 0, which serves, uses it: the JAX
+        package replicates it over the mesh instead, since there one
+        controller runs every program.  A bf16 or fp32 LM only (JAX's specs
+        do not match a quantized tree's keys); not with `codec_device` or
+        `speculative_k`."""
+        if self.codec_device is not None:
+            raise ValueError("shard_llm and codec_device are mutually exclusive")
+        if self.speculative_k > 0:
+            raise ValueError("speculative decoding does not run on a tensor-parallel shard")
+        whole, tp = self.config.llm, mesh.tp
+        shard = shard_qwen(self.llm_params, whole, tp.rank, tp.size)
+        self.config = dataclasses.replace(self.config, llm=shard_config(whole, tp.size))
+        self.llm_params = attach(shard, tp, whole)
+        self.mesh = mesh
 
     def _load_params(self, model_dir: Path) -> None:
         """Read the three checkpoints (`BiCodec/`, `wav2vec2-large-xlsr-53/`,
@@ -605,7 +655,7 @@ class SparkTTSPipeline:
         ref = self._ref_clip(wav)[None, :]
         fn = self._tokenize_fn(wav_in.shape[1], ref.shape[1])
         tok_args = (self.w2v_params, self.bicodec_params,
-                    *(to_device(a, self.device) for a in (wav_in, feature_mask, ref)))
+                    *(to_device(a, self.codec_dev) for a in (wav_in, feature_mask, ref)))
         return fn, tok_args, true_sem, feature_mask.shape[1] // self._enc_ratio
 
     _KEY_UNSET = object()
@@ -647,7 +697,7 @@ class SparkTTSPipeline:
         fn = self._tokenize_fn(wav_in.shape[1], refs.shape[1])
         with stage("tokenize_audio_batch"):
             global_ids, semantic = fn(self.w2v_params, self.bicodec_params,
-                                      *(to_device(a, self.device)
+                                      *(to_device(a, self.codec_dev)
                                         for a in (wav_in, feature_mask, refs)))
         return global_ids, semantic, counts
 
@@ -667,10 +717,11 @@ class SparkTTSPipeline:
                                  n_sems) -> torch.Tensor:
         """Each row's codec ids gathered into its scaffold on the device
         (`assemble_ids`): (B, t_pad) int32 ids equal to `build_clone_prompt`
-        at those positions."""
+        at those positions, on the LM's card (codec ids cross to it)."""
         scaffolds = np.asarray(scaffolds, np.int32)
         return self._assemble_fn_batch(scaffolds.shape[1], semantic.shape[1])(
-            scaffolds, global_ids, semantic, g_offs, s_offs, n_sems)
+            scaffolds, global_ids.to(self.device), semantic.to(self.device), g_offs, s_offs,
+            n_sems)
 
     def assemble_clone_ids(self, scaffold, global_ids, semantic, g_off: int, s_off: int,
                            n_sem: int) -> torch.Tensor:
@@ -743,13 +794,11 @@ class SparkTTSPipeline:
 
     def _generate(self, input_ids, mask, generator: Generators, max_new: int, temperature,
                   top_k, top_p, greedy, mode) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`generate` over this pipeline's LM; on a leading tensor-parallel
+        row, announced to the followers first and the ranks' ids checked to
+        agree (`parallel/worker.py`)."""
         vocab_slice, extra_ids = self.guided_constraint(mode)
-        return generate(
-            self.llm_params,
-            self.config.llm,
-            input_ids,
-            mask,
-            generator,
+        kwargs = dict(
             max_new_tokens=max_new,
             cache_len=input_ids.shape[1] + max_new,
             temperature=temperature,
@@ -763,6 +812,14 @@ class SparkTTSPipeline:
             extra_ids=extra_ids,
             units=self.units,
         )
+        leader = leader_of(self.llm_params)
+        if leader is None:
+            return generate(self.llm_params, self.config.llm, input_ids, mask, generator,
+                            **kwargs)
+        return lead_generate(
+            leader, lambda: generate(self.llm_params, self.config.llm, input_ids, mask,
+                                     generator, **kwargs),
+            input_ids, mask, generator, **kwargs)
 
     def _speculative(self, input_ids, mask, seed: int, max_new: int, temperature, top_k, top_p,
                      greedy, mode):
@@ -863,13 +920,14 @@ class SparkTTSPipeline:
             padded[i, : len(s)] = s
             if 0 < len(s) < t_pad:
                 padded[i, len(s) :] = s[-1]
+        dev = self.codec_dev
         if isinstance(global_tokens, torch.Tensor):
             # ids the device produced stay there: no host round trip
-            global_t = global_tokens.to(self.device, torch.int64).reshape(b, -1)
+            global_t = global_tokens.to(dev, torch.int64).reshape(b, -1)
         else:
-            global_t = to_device(np.asarray(global_tokens, np.int64).reshape(b, -1), self.device)
+            global_t = to_device(np.asarray(global_tokens, np.int64).reshape(b, -1), dev)
         wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec,
-                                 to_device(padded, self.device), global_t)
+                                 to_device(padded, dev), global_t)
         wav = wav.float().cpu().numpy()
         return [wav[i, : len(s) * self._wave_upsample] for i, s in enumerate(semantic_list)]
 
@@ -943,6 +1001,9 @@ class SparkTTSPipeline:
         bit."""
         if not specs or batch < len(specs):
             raise ValueError(f"{len(specs)} specs for a batch of {batch}")
+        if self.codec_device is not None:
+            raise ValueError("the speculative chain vocodes on the LM's card: not with "
+                             "codec_device")
         target = specs[0][1]
         if any(t != target for _, t, _, _ in specs):
             raise ValueError("speculative chunks of one chain need one target")
@@ -1008,8 +1069,8 @@ class SparkTTSPipeline:
         idx = torch.minimum(torch.arange(bucket, device=self.device)[None, :],
                             sem_count.clamp_min(1)[:, None] - 1)
         sem = (torch.gather(tokens, 1, idx) - tok.semantic_base).clamp(0, tok.n_semantic - 1)
-        wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec, sem,
-                                 global_rows.to(self.device, torch.int64).reshape(b, -1))
+        wav = bicodec_detokenize(self.bicodec_params, self.config.bicodec, sem.to(self.codec_dev),
+                                 global_rows.to(self.codec_dev, torch.int64).reshape(b, -1))
         flat = torch.cat([
             tokens.int().reshape(-1),
             lengths.int(),

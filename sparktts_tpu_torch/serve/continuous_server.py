@@ -31,7 +31,14 @@ Where the port differs from the JAX server:
     a speculative chain is ready once it has run on scratch state, which
     builds its kernels and library plans.  The engine's decode units are
     captured at `start` (`warm_units`), never inside a live burst.
-  * There is no `mesh` and no codec on another device.
+  * Tensor parallelism (`pipeline.shard_llm(mesh)`): the dense engine
+    takes `mesh=pipeline.mesh` (the paged one refuses a mesh, as in JAX),
+    and the server runs on the row's rank 0 while the other ranks follow
+    its engine's LM calls (`parallel/worker.py`); a burst's first-time
+    clones admit one by one, as JAX skips the batched fused row on a mesh.
+    With a `codec_device`, the device-chained admission and the
+    speculative first chunk are off, as in JAX (both chain codec work onto
+    the LM's card).
 """
 
 from __future__ import annotations
@@ -366,8 +373,8 @@ class ContinuousTTSServer:
         # admission with no host read (tokenize -> assemble -> prefill on
         # the device) and the first streaming chunk vocoded inside the
         # decode dispatch's chain; outputs equal the plain path's
-        self.device_admission = device_admission
-        self.spec_first_chunk = spec_first_chunk
+        self.device_admission = device_admission and pipeline.codec_device is None
+        self.spec_first_chunk = spec_first_chunk and pipeline.codec_device is None
         # tokenize + assembly + prefill as one admission (dense engine);
         # "background" warms a first-seen signature on a thread while the
         # request takes the chained path, "sync" warms inline
@@ -400,6 +407,8 @@ class ContinuousTTSServer:
             greedy=greedy,
             device=pipeline.device,
         )
+        if paged and pipeline.mesh is not None:
+            raise ValueError("paged KV does not compose with shard_llm; use the dense engine")
         if paged:
             from sparktts_tpu_torch.lm.paged import PagedContinuousEngine
 
@@ -421,7 +430,7 @@ class ContinuousTTSServer:
 
             self.engine = ContinuousBatchingEngine(
                 pipeline.llm_params, pipeline.config.llm, max_slots=max_slots,
-                cache_len=cache_len, **common,
+                cache_len=cache_len, mesh=pipeline.mesh, **common,
             )
         self.waiting: asyncio.Queue = asyncio.Queue()
         self._deferred: deque = deque()  # backpressured admissions, retried first
@@ -469,16 +478,17 @@ class ContinuousTTSServer:
         with torch.inference_mode(), ctx:
             return fn(*args)
 
-    @staticmethod
-    def _spawn(name: str, fn) -> None:
+    def _spawn(self, name: str, fn) -> None:
         """A daemon warm thread running fn() in inference mode, on the
         default stream (in order with the loop's work); fn logs its own
-        errors."""
+        errors.  `stop` waits for it."""
         def go():
             with torch.inference_mode():
                 fn()
 
-        threading.Thread(target=go, daemon=True, name=name).start()
+        thread = threading.Thread(target=go, daemon=True, name=name)
+        self.__dict__.setdefault("_warm_threads", []).append(thread)
+        thread.start()
 
     @staticmethod
     def _set_globals(pending: _Pending, g) -> None:
@@ -529,6 +539,10 @@ class ContinuousTTSServer:
                 setattr(self, attr, None)
         self._vocode_pool.shutdown(wait=False)
         self._fetch_pool.shutdown(wait=False)
+        # a warm run still in torch when the process exits would abort it
+        # (a daemon thread is unwound through C++ frames at finalization)
+        for thread in self.__dict__.pop("_warm_threads", []):
+            await asyncio.to_thread(thread.join)
         # the engine's decode units and their graph pools go now, not when
         # the server is dropped; a restart captures them again
         self.engine.close()
@@ -1469,7 +1483,7 @@ class ContinuousTTSServer:
             try:
                 row = self._prep_cache_hit_row(p)
                 kind = "asm"
-                if row is None:
+                if row is None and getattr(eng, "mesh", None) is None:
                     row = self._prep_fused_row(p)
                     kind = "fus"
             except Exception as e:

@@ -103,10 +103,9 @@ class TTSServer:
         # on-device semantic extraction → vocode, ONE host fetch per sampling
         # group instead of three per window.  Guided clone only;
         # controllable-mode requests keep the host path (their globals
-        # arrive in the stream).  The JAX server also requires the codec on
-        # the LM's device (`codec_device is None`); the port has no codec on
-        # another card yet, so guided decoding is the whole condition.
-        self.fused_clone = fused_clone and pipeline.guided
+        # arrive in the stream).  Off with the codec on a card of its own
+        # (`codec_device`), as in the JAX server.
+        self.fused_clone = fused_clone and pipeline.guided and pipeline.codec_device is None
         self.queue: asyncio.Queue = asyncio.Queue()
         self._worker_task: Optional[asyncio.Task] = None
         self.stats = {"requests": 0, "batches": 0, "batch_occupancy_sum": 0, "failures": 0}

@@ -19,6 +19,7 @@ import torch
 from sparktts_tpu_torch.config import StreamingConfig
 from sparktts_tpu_torch.lm.generate import decode_chunk, prefill
 from sparktts_tpu_torch.lm.qwen import aligned_cache_len, init_kv_cache
+from sparktts_tpu_torch.parallel.worker import leader_of
 from sparktts_tpu_torch.prompt import (
     build_clone_prompt,
     build_control_prompt,
@@ -96,6 +97,9 @@ class StreamingSynthesizer:
         seed: int = 0,
     ) -> Iterator[np.ndarray]:
         pipe = self.pipe
+        if leader_of(pipe.llm_params) is not None:
+            raise ValueError("StreamingSynthesizer is not mirrored to a tensor-parallel row's "
+                             "followers; stream through ContinuousTTSServer")
         tok = pipe.tokenizer
         if gender is not None:
             ids = build_control_prompt(tok, text, gender, pitch, speed)

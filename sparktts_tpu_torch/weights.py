@@ -345,3 +345,15 @@ def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
     return tree.to(dtype)
+
+
+def qwen_shard(tree, cfg: QwenConfig, mesh, device=None, dtype: torch.dtype = torch.bfloat16):
+    """This rank's tensor-parallel shard of a whole Qwen tree (numpy, a JAX
+    tree passed through `np.asarray`, or tensors), on `device` (default:
+    the mesh's) in `dtype`, bound to `mesh.tp`; returns (shard, the
+    shard's config).  `pipeline.shard_llm` does the same to a pipeline."""
+    from sparktts_tpu_torch.parallel.shardings import attach, shard_config, shard_qwen
+
+    whole = qwen_state(tree, mesh.device if device is None else device, dtype)
+    shard = shard_qwen(whole, cfg, mesh.tp.rank, mesh.tp.size)
+    return attach(shard, mesh.tp, cfg), shard_config(cfg, mesh.tp.size)

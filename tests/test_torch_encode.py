@@ -237,7 +237,12 @@ def test_load_audio_matches_jax(tmp_path, volume_normalize, amp):
                                       jaudio.get_ref_clip(want, 16000, seconds, 320))
 
 
-def test_resample_matches_scipy(tmp_path):
+def test_resample_matches_scipy(tmp_path, monkeypatch):
+    """The scipy path (the native library, held to scipy in
+    tests/test_torch_native_audio.py, is turned off here)."""
+    from sparktts_tpu_torch.io import native
+
+    monkeypatch.setattr(native, "get_lib", lambda: None)
     wav = _tone(24000, 0.5)
     np.testing.assert_array_equal(taudio.resample(wav, 24000, 16000), resample_poly(wav, 2, 3))
     path = tmp_path / "p24k.wav"

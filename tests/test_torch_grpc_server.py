@@ -137,7 +137,9 @@ def test_grpcio_transport_shares_the_engine(pipe):
     starts from its seed, so the two sampled clones are the same draws in
     every run.  On the module's shared server its state depended on how many
     dispatches earlier tests had run, and on the random tiny LM some states
-    end a sampled clone before any semantic id (an empty stream)."""
+    end a sampled clone before any semantic id (an empty stream).  The
+    channel cache is process-wide: it starts empty here, so that a channel
+    another test file left in this worker process does not count."""
     pytest.importorskip("grpc")
     from sparktts_tpu_torch.serve.grpc_server import (
         _CHANNEL_CACHE,
@@ -146,6 +148,7 @@ def test_grpcio_transport_shares_the_engine(pipe):
         serve_grpc,
     )
 
+    close_cached_channels()
     server = FramedSocketServer(pipe, max_slots=2, steps_per_dispatch=4)
     backend = server.backend
     try:

@@ -60,7 +60,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "serve.grpc_server", "serve.protos.sparktts_pb2", "utils.platform",
                  "utils.tokens", "cli", "webui", "bench", "bench.harness", "bench.metrics",
                  "bench.relay_probe", "lm.speculative", "lm.train", "lm.distill", "export",
-                 "kernels.ops", "nn.pooling"):
+                 "kernels.ops", "nn.pooling", "parallel", "parallel.mesh",
+                 "parallel.shardings", "parallel.multihost", "parallel.worker", "io.native"):
         assert f"sparktts_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -281,3 +282,24 @@ def test_quantized_trees_have_the_jax_keys_shapes_and_dtypes_at_full_width():
     got = _shapes_and_dtypes(quantize_bicodec_int8(weights.init_bicodec(tcfg.bicodec,
                                                                         device="meta")))
     assert got == _shapes_and_dtypes(jb)
+
+
+def test_native_audio_builds_only_under_build(tmp_path, monkeypatch):
+    """The port builds the host audio library from the repo's
+    `csrc/sparktts_audio.cpp` into `build/native/` (here redirected to a
+    temporary `build/native/`), and writes nothing under `csrc/`, which the
+    JAX package owns."""
+    from sparktts_tpu_torch.io import native
+
+    if subprocess.run(["which", "g++"], capture_output=True).returncode != 0:
+        pytest.skip("no g++")
+    assert native.library_path().parent == REPO / "build" / "native"
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build" / "native")
+    csrc = native.SOURCE.parent
+    before = {p.name: p.stat().st_mtime_ns for p in csrc.iterdir()}
+    target = native.library_path()
+    native._build(target)
+    assert target.exists() and target.parent == tmp_path / "build" / "native"
+    assert sorted(p.name for p in target.parent.iterdir()) == [target.name]
+    assert {p.name: p.stat().st_mtime_ns for p in csrc.iterdir()} == before
+

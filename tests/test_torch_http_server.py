@@ -286,12 +286,16 @@ def test_http_and_grpc_share_one_engine(front):
     """gRPC (grpcio) and HTTP streams land in the same continuous engine:
     both show in the shared /stats streaming counters."""
     pytest.importorskip("grpc")
-    from sparktts_tpu_torch.serve.grpc_server import grpc_synthesize_stream
+    from sparktts_tpu_torch.serve.grpc_server import close_cached_channels, grpc_synthesize_stream
 
     before = _stats(front["port"])["streaming"]
     wav = np.zeros(4000, np.float32)
     wav[::50] = 0.2
-    chunks = list(grpc_synthesize_stream(HOST, front["grpc_port"], "over grpc", prompt_wav=wav))
+    try:
+        chunks = list(grpc_synthesize_stream(HOST, front["grpc_port"], "over grpc",
+                                             prompt_wav=wav))
+    finally:
+        close_cached_channels()  # the process-wide cache: leave no channel to this front
     assert chunks and np.isfinite(np.concatenate([c for c, _ in chunks])).all()
     got = list(C.synthesize_stream(HOST, front["port"], "over http", prompt_wav=wav))
     assert got and all(np.isfinite(c).all() for c, _ in got)

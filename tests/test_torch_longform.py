@@ -101,11 +101,13 @@ def test_audio_helpers_equal_jax():
 
 
 def test_load_audio_full_signature_equals_jax(tmp_path, monkeypatch):
-    """Against the JAX package's scipy paths, which the port copies (its
-    optional C++ reader and resampler are turned off here)."""
+    """Against the JAX package's scipy paths, which the port copies (both
+    packages' optional C++ readers and resamplers are turned off here)."""
     from sparktts_tpu.io import native
+    from sparktts_tpu_torch.io import native as torch_native
 
     monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(torch_native, "get_lib", lambda: None)
     path = tmp_path / "voice.wav"
     taudio.write_wav(path, _voice(), 16000)
     for kw in (dict(sampling_rate=16000),
