@@ -94,13 +94,14 @@ and capture are set-up, counted apart).
    engine's own cache, starts and clamped positions after its first
    dispatch, timed there beside SDPA over the same windows.
 16. After each of phases 3, 4, 6 and 7, the graph path against the eager
-   loop (`eager_generate`: prefill, then `decode_step` in a Python loop):
-   greedy ids bit-equal, sampled ids with one seed equal twice through the
-   graphs and against the loop, and the loop's ms a step beside the graph
-   path's; after phase 4, `generate_tokens` from three threads at once,
-   each thread's ids those of its request alone.  In phase 13, greedy
-   engines serve the burst through their units and as the eager loop
-   (`eager_dispatch`): ids bit-equal, ms a step of each.
+   loop (`eager_generate`: prefill, then `decode_step` in a Python loop),
+   EAGER_CHECK_TOKENS (100) ids each: greedy ids bit-equal, sampled ids
+   with one seed equal twice through the graphs and against the loop, and
+   the loop's ms a step beside the graph path's; after phase 4,
+   `generate_tokens` from three threads at once, each thread's ids those of
+   its request alone.  In phase 13, greedy engines serve the burst
+   (GREEDY_BURST_TOKENS, 128 ids a request) through their units and as the
+   eager loop (`eager_dispatch`): ids bit-equal, ms a step of each.
 17. voice creation streamed (`StreamingSynthesizer`, the default schedule,
    counters 0 just before and read just after): one prefill, decode by unit
    replays only, whole vocodes, at least 3 finite chunks; its first-chunk
@@ -231,8 +232,8 @@ and capture are set-up, counted apart).
    rank 1 follows every LM call, the leader checking after each call that
    the follower committed the same ids and slot vectors: greedy `generate`
    of the creation and clone prompts (held to tp = 1 by the near-tie rule,
-   ms a token beside the backend), 4 requests (2 creations, 2 clones, 150
-   tokens) through a greedy ContinuousTTSServer, each stream held to the
+   ms a token beside the backend; 64 ids), 4 requests (2 creations, 2
+   clones, 100 tokens) through a greedy ContinuousTTSServer, each stream held to the
    same requests served at tp = 1 in this process, and the same 4 sampled
    (64 tokens); finite waveforms of 320 samples a semantic id; kernels 1
    and 2 launched on each rank, the vocoder on rank 0; (b) a one-rank NCCL row in this
@@ -244,13 +245,33 @@ and capture are set-up, counted apart).
    clone's waveform within WINDOW_REL_TOL of the plain pipeline's, and 4
    requests through a ContinuousTTSServer over it, device admission and the
    speculative first chunk off; then whether the native host audio library
-   (`io/native.py`) built, and its resample against scipy's.
+   (`io/native.py`) built, and its resample against scipy's;
+36. pipeline parallelism and training on a (dp, tp, pp) mesh: four gloo
+   ranks on the one card, each with the full-width LM placed on its mesh
+   (`parallel.shardings.place`: its tp shard, then its stage of 12 layers):
+   (a) on a (2, 1, 2) mesh each dp row a pipe of two stages, greedy
+   `generate` of one prompt (creation on row 0, clone on row 1, 100 ids):
+   kernels 1 and 2 against their plain versions at the stage's shapes
+   (kernel 2 over a cache of the stage's 12 planes, at its last local
+   plane), then launched on every rank by the main path; both stages' ids
+   equal to the single-card eager loop's; ms a token; (b) on a (1, 2, 2)
+   mesh (7 q / 1 KV heads, 12 layers a rank) both prompts, 64 ids: the same
+   kernel checks, every rank the same ids, held to phase 34's tp = 2 ids by
+   the near-tie rule; (c) on (1, 2, 2) one AdamW step of the fp32 LM (TF32
+   off) on phase 31's batch (B = 2, T = 512): the loss within
+   MESH_LOSS_RTOL of the single-card step's (run here first) and each rank's
+   gradients within MESH_GRAD_TOL of the leaf's largest element against its
+   part of the single-card gradients (together: every element of the
+   unplaced tree), then PP_TIMED_STEPS steps timed; ms a step and each
+   rank's peak GiB; (d) `dryrun_multichip(8)` on the card (eight gloo
+   ranks: its train step, sharded generate and sharded server).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
 17, 19 to 23, the server bursts of 24 to 27, phase 28's routes, phase
 29's speculative calls, phase 30's runners, phase 32's teachers, phase
-33's programs and phases 34's (every rank) and 35's paths, its
+33's programs, phases 34's (every rank) and 35's paths and phase 36's
+(every rank of (a) and (b), and the dry run's sharded paths), its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
@@ -258,12 +279,13 @@ flash, decode, vocoder and paged entries list every timed shape in
 `by_shape`: both requests' and the B = 4 batch's and, for decode, the dense
 engine's state, for paged the engine's and the late state, and the
 servers' shapes); the last line
-is {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
-directory without the sparktts_tpu_torch package, it exits 2 and prints no
-result.  `--front-only`, `--servers-only`, `--spec-only`, `--bench-only`,
-`--train-only` and `--tp-only` run phase 28, phases 24-27, phase 29, phase
-30, phases 31-33 or phases 34-35 alone (after the build), with no kernels
-line and no result line.
+is {"ok": true, "device": {...}}; before the kernels line, the seconds of
+each group of phases.  Without a CUDA card, or run from a directory without
+the sparktts_tpu_torch package, it exits 2 and prints no result.
+`--front-only`, `--servers-only`, `--spec-only`, `--bench-only`,
+`--train-only`, `--tp-only` and `--pp-only` run phase 28, phases 24-27,
+phase 29, phase 30, phases 31-33, phases 34-35 or phase 36 alone (after the
+build), with no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -349,6 +371,11 @@ ENGINE_SLOTS = 8
 PAGE_SIZE = 256
 DENSE_CACHE_LEN = 960
 ENGINE_DISPATCH = 64
+# The depth of the checks that only prove function (graph vs eager ids):
+# the eager loops of phase 16 and the greedy bursts of phase 13 run this many
+# ids, not MAX_NEW_TOKENS (the whole run keeps within its time limit)
+EAGER_CHECK_TOKENS = 100
+GREEDY_BURST_TOKENS = 128
 ENGINE_CREATIONS = (
     (TEXT, ("female", "moderate", "moderate")),
     ("Eight voices share one card and none of them waits.", ("male", "low", "high")),
@@ -1376,7 +1403,7 @@ def _clone_state(state, device=None):
     return state.clone() if device is None else state.to(device)
 
 
-def serve_burst(label, pipe, eng, requests, glob, vocode=True):
+def serve_burst(label, pipe, eng, requests, glob, vocode=True, max_new=MAX_NEW_TOKENS):
     """The engine phases' main path: submit the first six requests, dispatch
     ENGINE_DISPATCH steps through the three-phase step protocol, queue the
     other two, and after every step retry the waiting requests in order
@@ -1404,7 +1431,7 @@ def serve_burst(label, pipe, eng, requests, glob, vocode=True):
         while waiting:
             i = waiting[0]
             try:
-                req_ids[i] = eng.submit(requests[i][1], MAX_NEW_TOKENS, mode=requests[i][2])
+                req_ids[i] = eng.submit(requests[i][1], max_new, mode=requests[i][2])
             except AdmissionDeferred:
                 deferrals += 1
                 return
@@ -1789,18 +1816,20 @@ def eager_generate(pipe, prompt, mode: str, seed: int, greedy: bool,
 
 def check_graph_vs_eager(label, pipe, prompt, mode, summary):
     """The graph path (`pipe.generate_tokens`, decode units replayed) against
-    the eager loop (`eager_generate`) on one request: greedy ids bit-equal;
-    sampled ids with the same seed equal, twice through the graphs and
-    against the eager loop.  Adds the eager loop's decode ms a step to
-    `summary`, beside the graph path's decode ms a token."""
+    the eager loop (`eager_generate`) on one request, EAGER_CHECK_TOKENS ids:
+    greedy ids bit-equal; sampled ids with the same seed equal, twice
+    through the graphs and against the eager loop.  Adds the eager loop's
+    decode ms a step to `summary`, beside the graph path's decode ms a
+    token."""
     import numpy as np
 
-    greedy_graph = pipe.generate_tokens(prompt, max_new_tokens=MAX_NEW_TOKENS, mode=mode,
-                                        greedy=True)
-    greedy_eager, _, _ = eager_generate(pipe, prompt, mode, SEED, greedy=True)
-    sampled = [pipe.generate_tokens(prompt, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, mode=mode)
+    n = EAGER_CHECK_TOKENS
+    greedy_graph = pipe.generate_tokens(prompt, max_new_tokens=n, mode=mode, greedy=True)
+    greedy_eager, _, _ = eager_generate(pipe, prompt, mode, SEED, greedy=True, max_new=n)
+    sampled = [pipe.generate_tokens(prompt, seed=SEED, max_new_tokens=n, mode=mode)
                for _ in range(2)]
-    sampled_eager, eager_s, eager_steps = eager_generate(pipe, prompt, mode, SEED, greedy=False)
+    sampled_eager, eager_s, eager_steps = eager_generate(pipe, prompt, mode, SEED, greedy=False,
+                                                         max_new=n)
     summary.update(eager_decode_ms_per_step=eager_s * 1e3 / eager_steps,
                    eager_decode_steps=eager_steps,
                    graph_speedup_per_step=eager_s * 1e3 / eager_steps
@@ -1885,7 +1914,8 @@ def check_greedy_bursts(pipe, requests, glob):
         with eager_dispatch() if path == "eager" else contextlib.nullcontext():
             for name, eng in zip(("paged", "dense"), build_engines(pipe, greedy=True)):
                 runs[name, path] = serve_burst(f"{name} engine, greedy, {path}", pipe, eng,
-                                               requests, glob, vocode=False)
+                                               requests, glob, vocode=False,
+                                               max_new=GREEDY_BURST_TOKENS)
     out = {}
     for name in ("paged", "dense"):
         g, e = runs[name, "graph"]["summary"], runs[name, "eager"]["summary"]
@@ -4062,6 +4092,23 @@ EXPORT_NEW_TOKENS = 48
 EXPORT_PROMPT_LEN = 128
 
 
+def train_batch(pipe):
+    """Phase 31's fixed batch on the card: (TRAIN_BATCH, TRAIN_LEN) ids, random
+    over the whole vocabulary for TRAIN_PROMPT positions, then semantic ids,
+    which the loss mask counts."""
+    import torch
+
+    dev, cfg, tok = pipe.device, pipe.config.llm, pipe.tokenizer
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN), generator=g, device=dev)
+    ids[:, TRAIN_PROMPT:] = torch.randint(tok.semantic_base, tok.semantic_base + tok.n_semantic,
+                                          (TRAIN_BATCH, TRAIN_LEN - TRAIN_PROMPT), generator=g,
+                                          device=dev)
+    mask = torch.zeros_like(ids, dtype=torch.bool)
+    mask[:, TRAIN_PROMPT:] = True
+    return ids, mask
+
+
 def run_training(pipe, smi):
     """Phase 31: the 24-layer LM in fp32 with AdamW (`lm/train.py`) at
     B = 2, T = 512, a fixed batch of random ids, the loss over the semantic
@@ -4078,14 +4125,8 @@ def run_training(pipe, smi):
     from sparktts_tpu_torch.checkpoint import flatten_tree
     from sparktts_tpu_torch.lm import train as T
 
-    dev, cfg, tok = pipe.device, pipe.config.llm, pipe.tokenizer
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN), generator=g, device=dev)
-    ids[:, TRAIN_PROMPT:] = torch.randint(tok.semantic_base, tok.semantic_base + tok.n_semantic,
-                                          (TRAIN_BATCH, TRAIN_LEN - TRAIN_PROMPT), generator=g,
-                                          device=dev)
-    mask = torch.zeros_like(ids, dtype=torch.bool)
-    mask[:, TRAIN_PROMPT:] = True
+    dev, cfg = pipe.device, pipe.config.llm
+    ids, mask = train_batch(pipe)
     optimizer = T.make_optimizer(TRAIN_LR)
     torch.cuda.empty_cache()
     state = T.init_train_state(pipe.llm_params, optimizer, dev)
@@ -4399,8 +4440,8 @@ def run_export(pipe, prompt, int8_params, smi):
 # native host audio library
 # ---------------------------------------------------------------------------
 
-TP_NEW_TOKENS = 100     # greedy generate of each prompt on the TP row
-TP_SERVER_TOKENS = 150  # each of the 4 greedy server requests
+TP_NEW_TOKENS = 64      # greedy generate of each prompt on the TP row
+TP_SERVER_TOKENS = 100  # each of the 4 greedy server requests
 TP_SAMPLED_TOKENS = 64  # each of the 4 sampled ones
 
 
@@ -4603,8 +4644,8 @@ def _two_card_row(mesh, args):
 
 def run_tensor_parallel(pipe, prompts, wav_path: Path, smi: str):
     """Phase 34 (see the module docstring).  Returns the launch counts of
-    its main paths (one dict) and the kernels' largest errors at the
-    shard's shapes."""
+    its main paths (one dict), the kernels' largest errors at the shard's
+    shapes and the tp = 2 greedy ids of each prompt."""
     import numpy as np
     import torch
 
@@ -4728,7 +4769,8 @@ def run_tensor_parallel(pipe, prompts, wav_path: Path, smi: str):
         print("phase 34 (c): skipped: one card (tp = 2 over NCCL needs two)")
     print(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
     errs = {name: max(row["errs"][name] for row in rows) for name in lead["errs"]}
-    return [{name: sum(run[name] for run in launches) for name in launches[0]}], errs
+    return ([{name: sum(run[name] for run in launches) for name in launches[0]}], errs,
+            [ids for ids, _ in lead["generate"]])
 
 
 def run_codec_device(pipe, wav_path: Path, codec=None):
@@ -4815,6 +4857,303 @@ def check_native_audio():
     print(f"native resample 44.1 -> 16 kHz: max_abs_err {err:.3e} against scipy (rtol 1e-7)")
 
 
+# ---------------------------------------------------------------------------
+# phase 36: pipeline parallelism and training on a (dp, tp, pp) mesh
+# ---------------------------------------------------------------------------
+
+PP_NEW_TOKENS = 100     # (a): greedy generate of each prompt on a pipe of two stages
+PP_TP_NEW_TOKENS = TP_NEW_TOKENS  # (b): each prompt on tp = 2 x pp = 2, held to phase 34's ids
+PP_TIMED_STEPS = 3      # (c): AdamW steps timed after the checked first one
+# (c): the mesh step against the single-card step on the card (both fp32, TF32
+# off): the row's sums and the vocab-parallel loss add in other orders
+MESH_LOSS_RTOL = 1e-4
+MESH_GRAD_TOL = 1e-4    # of the leaf's largest gradient element
+PP_TIMEOUT_S = 600
+
+
+def _pp_jobs(pipe, prompts):
+    """The generate calls of phase 36, one per prompt, as host values: ids
+    and mask as `generate_tokens` pads them, the mode's guided vocabulary."""
+    jobs = []
+    for prompt, mode in prompts:
+        ids, mask = pipe.prompt_inputs(prompt)
+        vocab_slice, extra_ids = pipe.guided_constraint(mode)
+        jobs.append(dict(ids=ids.cpu().numpy(), mask=mask.cpu().numpy(), mode=mode,
+                         vocab_slice=vocab_slice, extra_ids=tuple(extra_ids),
+                         eos_ids=tuple(pipe.tokenizer.eos_ids), pad_id=pipe.tokenizer.pad_id))
+    return jobs
+
+
+def _pp_generate(part, pcfg, dev, job, max_new, dtype):
+    """Greedy `generate` of one job over a placed tree; (ids, seconds)."""
+    import torch
+
+    from sparktts_tpu_torch.lm.generate import generate
+
+    ids = torch.from_numpy(job["ids"]).to(dev)
+    mask = torch.from_numpy(job["mask"]).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    toks, lens = generate(part, pcfg, ids, mask, torch.Generator(device=dev).manual_seed(SEED),
+                          max_new_tokens=max_new, cache_len=ids.shape[1] + max_new,
+                          eos_ids=job["eos_ids"], pad_id=job["pad_id"], greedy=True,
+                          cache_dtype=dtype, vocab_slice=job["vocab_slice"],
+                          extra_ids=job["extra_ids"])
+    out = toks[0, : int(lens[0])].cpu().numpy()
+    return out, time.perf_counter() - t0
+
+
+def _pp_kernels(mesh, pcfg, label):
+    """Kernels 1 and 2 against their plain versions at a stage's shapes (its
+    heads; for kernel 2 a cache of the stage's own planes, read at its last
+    local plane); before the main path, so these launches are not counted."""
+    import torch
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(7 + mesh.rank)
+    scale = pcfg.head_dim**-0.5
+    q, k, v, st = _flash_inputs(dev, pcfg, gen, 1, 64, [20])
+    flash_err = _check_flash_case(dev, q, k, v, st, scale)
+    shape = (pcfg.num_hidden_layers, 1, 576, pcfg.num_key_value_heads, pcfg.head_dim)
+    qd = torch.randn((1, pcfg.num_attention_heads, pcfg.head_dim), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    window = [torch.tensor([w], dtype=torch.int32, device=dev) for w in (20, 300)]
+    decode_err = _check_decode_case(
+        dev, qd, ck, cv, pcfg.num_hidden_layers - 1, *window, scale,
+        f"{label} rank {mesh.rank}, stage {mesh.pp_rank}: Hq={pcfg.num_attention_heads} "
+        f"Hkv={pcfg.num_key_value_heads} planes={pcfg.num_hidden_layers} S=576")
+    return {"flash_attention_prefill": flash_err, "dense_decode_attention": decode_err}
+
+
+def _pp_rank(mesh, args):
+    """Phase 36 on every rank of four: (a) on the spawned (2, 1, 2) mesh, dp
+    row i a pipe of two stages generating prompt i; (b) on a (1, 2, 2) mesh
+    both prompts; (c) the train step on (1, 2, 2), its gradients held
+    against this rank's part of the single-card gradients."""
+    import torch
+
+    from sparktts_tpu_torch.lm import train as T
+    from sparktts_tpu_torch.parallel.mesh import make_mesh
+    from sparktts_tpu_torch.parallel.shardings import place
+    from sparktts_tpu_torch.weights import init_qwen, qwen_place
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, cfg, dtype = mesh.device, args["cfg"], args["lm_dtype"]
+    # the main pipeline's LM: the same generator, the LM drawn first
+    whole = init_qwen(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype, dev)
+    out = {"rank": mesh.rank}
+
+    # (a) pp = 2, one prompt a dp row
+    part, pcfg = qwen_place(whole, cfg, mesh, dtype=dtype)
+    errs = _pp_kernels(mesh, pcfg, "(a)")
+    _reset_counts()
+    ids, secs = _pp_generate(part, pcfg, dev, args["jobs"][mesh.dp_rank], PP_NEW_TOKENS, dtype)
+    out["a"] = dict(dp_rank=mesh.dp_rank, stage=mesh.pp_rank, ids=ids, seconds=secs,
+                    planes=pcfg.num_hidden_layers,
+                    heads=(pcfg.num_attention_heads, pcfg.num_key_value_heads),
+                    launches=_counts())
+    del part
+
+    # (b) tp = 2 x pp = 2, both prompts
+    mesh_b = make_mesh(dp=1, tp=2, pp=2, device=dev, timeout_s=PP_TIMEOUT_S)
+    part, pcfg = qwen_place(whole, cfg, mesh_b, dtype=dtype)
+    for name, err in _pp_kernels(mesh_b, pcfg, "(b)").items():
+        errs[name] = max(errs[name], err)
+    _reset_counts()
+    runs = [_pp_generate(part, pcfg, dev, job, PP_TP_NEW_TOKENS, dtype) for job in args["jobs"]]
+    out["b"] = dict(stage=mesh_b.pp_rank, tp_rank=mesh_b.tp.rank, runs=runs,
+                    planes=pcfg.num_hidden_layers,
+                    heads=(pcfg.num_attention_heads, pcfg.num_key_value_heads),
+                    launches=_counts())
+    out["errs"] = errs
+    del part
+
+    # (c) one AdamW step at full width, fp32, on (1, 2, 2)
+    part, pcfg = qwen_place(whole, cfg, mesh_b, dtype=torch.float32)
+    del whole
+    ref = torch.load(args["train_ref"], map_location="cpu", mmap=True)
+    ref_part = place(ref["grads"], cfg, mesh_b)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = T.init_train_state(part, T.make_optimizer(TRAIN_LR), dev)
+    del part
+    ids, mask = args["train_batch"]
+    state.optimizer.zero_grad(set_to_none=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = float(T.compute_grads(state, pcfg, ids, mask))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    gaps, want = {}, T.flatten_tree(ref_part)[0]
+    for name, leaf in T.flatten_tree(state.params)[0].items():
+        err = float((leaf.grad - want[name].to(dev)).abs().max())
+        gaps[name] = err / ref["leaf_max"][name] if ref["leaf_max"][name] else err
+    del ref_part, ref
+    state.optimizer.step()
+    step_ms = []
+    for _ in range(PP_TIMED_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, _ = T.train_step(state, pcfg, ids, mask)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["c"] = dict(stage=mesh_b.pp_rank, tp_rank=mesh_b.tp.rank, loss=loss, gaps=gaps,
+                    first_ms=first_ms, step_ms=step_ms,
+                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_pipeline_parallel(pipe, prompts, smi, tp2_ids=None):
+    """Phase 36 (see the module docstring): four gloo ranks on the one card
+    run (a)-(c) (`_pp_rank`), then `dryrun_multichip(8)` (d).  `tp2_ids`:
+    phase 34's tp = 2 greedy ids of each prompt, which (b) is held to (else
+    the single-card eager ids).  Returns the launch counts of its main paths
+    and the kernels' largest errors at the stages' shapes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.lm import train as T
+    from sparktts_tpu_torch.parallel import worker
+    from sparktts_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    print(smi)
+    t_phase = time.perf_counter()
+    dev, cfg = pipe.device, pipe.config.llm
+    jobs = _pp_jobs(pipe, prompts)
+    refs = [eager_generate(pipe, prompt, mode, SEED, True, PP_NEW_TOKENS)[0]
+            for prompt, mode in prompts]
+    # (c)'s reference: the single-card fp32 step's loss and gradients, on the
+    # host in a file the ranks map
+    ids, mask = train_batch(pipe)
+    torch.cuda.empty_cache()
+    state = T.init_train_state(pipe.llm_params, T.make_optimizer(TRAIN_LR), dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref_loss = float(T.compute_grads(state, cfg, ids, mask))
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    grads = T.map_tree(state.params, lambda t: t.grad.detach().cpu())
+    del state
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="pp_phase_"))
+    try:
+        leaf_max = {n: float(g.abs().max()) for n, g in T.flatten_tree(grads)[0].items()}
+        torch.save({"grads": grads, "leaf_max": leaf_max}, tmp / "train_ref.pt")
+        del grads
+        args = dict(cfg=cfg, lm_dtype=pipe.lm_dtype, jobs=jobs, train_ref=str(tmp / "train_ref.pt"),
+                    train_batch=(ids.cpu().numpy(), mask.cpu().numpy()))
+        t0 = time.perf_counter()
+        ranks = worker.spawn(_pp_rank, 4, "gloo", args=(args,), device=torch.device("cuda", 0),
+                             timeout_s=PP_TIMEOUT_S, mesh_kwargs=dict(dp=2, tp=1, pp=2))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 36: four gloo ranks on {torch.cuda.get_device_name(0)}, {spawn_s:.1f} s with "
+          f"start-up; hand-offs and logits by broadcast")
+    launches = []
+    for r in ranks:
+        for part in ("a", "b"):
+            row = r[part]
+            for name in ("flash_attention_prefill", "dense_decode_attention"):
+                if not row["launches"][name]:
+                    raise AssertionError(f"pp ({part}) rank {r['rank']}: {name} never launched "
+                                         "on the main path")
+            launches.append(row["launches"])
+        print(f"pp rank {r['rank']}: kernels at the stages' shapes: {json.dumps(r['errs'])}; "
+              f"launches (a) {json.dumps(r['a']['launches'])}, (b) "
+              f"{json.dumps(r['b']['launches'])}")
+    # (a) pp = 2: each dp row's two stages return the same ids, the single-card eager ids
+    for r in ranks:
+        a = r["a"]
+        if a["planes"] != cfg.num_hidden_layers // 2 or a["heads"] != (
+                cfg.num_attention_heads, cfg.num_key_value_heads):
+            raise AssertionError(f"pp (a) rank {r['rank']}: {a['planes']} planes, heads "
+                                 f"{a['heads']}")
+        want = refs[a["dp_rank"]]
+        if not np.array_equal(a["ids"], want):
+            n = min(len(want), len(a["ids"]))
+            raise AssertionError(f"pp (a) rank {r['rank']} (stage {a['stage']}): ids differ from "
+                                 f"the single-card eager ids at "
+                                 f"{np.flatnonzero(a['ids'][:n] != want[:n])[:3]} (lengths "
+                                 f"{len(a['ids'])}, {len(want)})")
+    for i, ((_, mode), want) in enumerate(zip(prompts, refs)):
+        secs = max(r["a"]["seconds"] for r in ranks if r["a"]["dp_rank"] == i)
+        print(f"pp = 2 generate ({mode}, greedy, {len(want)} ids, 12 layers a stage): equal to "
+              f"the single-card eager ids on both stages; {secs / len(want) * 1e3:.2f} ms a "
+              f"token over gloo on one card (eager decode, host-staged hand-offs; functional, "
+              f"the two pipes at once)")
+    # (b) tp = 2 x pp = 2: every rank the same ids, held to tp = 2's by the near-tie rule
+    for r in ranks:
+        b = r["b"]
+        if b["planes"] != cfg.num_hidden_layers // 2 or b["heads"] != (
+                cfg.num_attention_heads // 2, cfg.num_key_value_heads // 2):
+            raise AssertionError(f"pp (b) rank {r['rank']}: {b['planes']} planes, heads "
+                                 f"{b['heads']}")
+    for i, (prompt, mode) in enumerate(prompts):
+        got = ranks[0]["b"]["runs"][i][0]
+        if any(not np.array_equal(r["b"]["runs"][i][0], got) for r in ranks):
+            raise AssertionError(f"pp (b) {mode}: the ranks' ids differ")
+        ref_name = "tp = 2 (phase 34)" if tp2_ids is not None else "the single-card eager ids"
+        want = (tp2_ids[i] if tp2_ids is not None else refs[i])[:PP_TP_NEW_TOKENS]
+        ok, step = _near_tie_ok(pipe, pipe.llm_params, prompt, mode, got, want)
+        if not ok:
+            raise AssertionError(f"pp (b) {mode}: ids leave {ref_name}'s at step {step}, not a "
+                                 "near tie")
+        secs = max(r["b"]["runs"][i][1] for r in ranks)
+        print(f"tp = 2 x pp = 2 generate ({mode}, greedy, {len(got)} ids): "
+              f"{'equal to' if step is None else f'apart from step {step} (a near tie) of'} "
+              f"{ref_name}; {secs / len(got) * 1e3:.2f} ms a token over gloo on one card "
+              f"(functional)")
+    # (c) the mesh train step against the single-card step
+    gaps = {}
+    for r in ranks:
+        for name, gap in r["c"]["gaps"].items():
+            gaps[name] = max(gaps.get(name, 0.0), gap)
+    loss_gap = max(abs(r["c"]["loss"] - ref_loss) / abs(ref_loss) for r in ranks)
+    steps = [sorted(r["c"]["step_ms"])[len(r["c"]["step_ms"]) // 2] for r in ranks]
+    row = dict(loss=ranks[0]["c"]["loss"], loss_single_card=ref_loss, loss_rel_gap=loss_gap,
+               grad_rel_gap=gaps, single_card_grads_ms=ref_ms,
+               first_step_grads_ms=[r["c"]["first_ms"] for r in ranks],
+               step_ms=[r["c"]["step_ms"] for r in ranks], median_step_ms=max(steps),
+               peak_gib={r["rank"]: r["c"]["peak_gib"] for r in ranks})
+    print(f"mesh train step (tp = 2 x pp = 2, B = {TRAIN_BATCH}, T = {TRAIN_LEN}, fp32, TF32 off, "
+          f"AdamW lr {TRAIN_LR}): {json.dumps(row)} (loss rtol {MESH_LOSS_RTOL}, grads "
+          f"{MESH_GRAD_TOL} of the leaf's largest; functional over gloo on one card) | {smi}")
+    if not (loss_gap <= MESH_LOSS_RTOL and max(gaps.values()) <= MESH_GRAD_TOL):
+        raise AssertionError(f"mesh train step: loss gap {loss_gap:.3e}, gradient gaps {gaps}")
+    # (d) the dry run on the card
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(8)
+    print(f"phase 36 (d): dryrun_multichip(8) on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({k: v for k, v in summary.items() if k != 'generate_shape'})}")
+    for name in ("flash_attention_prefill", "dense_decode_attention", "fused_residual_unit"):
+        if not summary["launches"][name]:
+            raise AssertionError(f"dryrun_multichip: {name} never launched")
+    launches.append(summary["launches"])
+    print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
+    errs = {name: max(r["errs"][name] for r in ranks) for name in ranks[0]["errs"]}
+    return [{name: sum(run[name] for run in launches) for name in launches[0]}], errs
+
+
+#: Seconds of each group of phases in this run (`mark`), printed before the
+#: kernels line.
+PHASE_S: dict = {}
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(label: str) -> None:
+    """Record the seconds since the previous mark (or the start) as
+    `label`'s."""
+    now = time.perf_counter()
+    PHASE_S[label] = now - _LAST_MARK[0]
+    _LAST_MARK[0] = now
+
+
 def main() -> int:
     if not (REPO / "sparktts_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the sparktts_tpu_torch package is not beside this script",
@@ -4898,6 +5237,15 @@ def main() -> int:
         run_codec_device(pipe, wav_path)
         check_native_audio()
         return 0
+    if "--pp-only" in sys.argv[1:]:
+        # phase 36 alone, no kernels line and no result line
+        from sparktts_tpu_torch.prompt import build_clone_prompt, build_control_prompt
+
+        glob, sem = pipe.tokenize_audio(make_prompt_wav(OUT_DIR / "clone_prompt.wav"))
+        prompts = [(build_control_prompt(pipe.tokenizer, TEXT, **VOICE), "control"),
+                   (build_clone_prompt(pipe.tokenizer, TEXT, glob, sem, PROMPT_TEXT), "clone")]
+        run_pipeline_parallel(pipe, prompts, smi)
+        return 0
     if "--bench-only" in sys.argv[1:]:
         # phase 30 alone, no kernels line and no result line
         del pipe
@@ -4909,6 +5257,7 @@ def main() -> int:
         run_servers(pipe, make_prompt_wav(OUT_DIR / "clone_prompt.wav"), float("nan"),
                     quantize_qwen_int8(pipe.llm_params))
         return 0
+    mark("1-2 start-up, build, pipeline")
     creation = run_voice_creation(pipe)
     check_graph_vs_eager("voice creation", pipe, creation[1], "control", creation[2])
     wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
@@ -4933,9 +5282,11 @@ def main() -> int:
                          creation_int4[2])
     pipe.llm_params = bf16_params
     check_int8_codec(pipe, cloning_int8[3])
+    mark("3-8, 16 requests, graph vs eager, threads, tokenize on the CPU, int8 codec")
 
     # continuous batching: the paged and the dense engine serve one burst
     paged_entry, dense_state, engine_launches, engine_tokens_per_s = run_engines(pipe, wav_path)
+    mark("12-15 engines")
     # token streaming over decode_chunk
     _, stream_launches = run_streaming(pipe)
     # a checkpoint directory, the untied head, the batch surfaces, longform,
@@ -4946,6 +5297,7 @@ def main() -> int:
     _, batch_launches, batch_kernels = run_batch(pipe, wav_path, b1_tokens_per_s)
     _, long_launches = run_longform(pipe)
     _, cache_launches = run_voice_cache(pipe, wav_path)
+    mark("17, 19-23 streaming, checkpoint, untied, batch, longform, voice cache")
 
     # every kernel at the shapes the requests gave it (creation first)
     runs = [summary for _, _, summary, _ in (creation, cloning)]
@@ -4963,18 +5315,23 @@ def main() -> int:
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], check_decode_two_streams(dev, cfg))
     entries.append(check_int8_mlp(dev, unstack_layers(int8_params["layers"])))
     entries.append(check_int4(dev, unstack_layers(int4_params["layers"])))
+    mark("9 kernels vs plain, timed")
     # the continuous-batching server over both engines, after the launch
     # traces above: when it ran before them, on an H100, none of their later
     # profiler sessions recorded device activity
     server_launches, server_items, server_errs = run_servers(pipe, wav_path, engine_tokens_per_s,
                                                              int8_params)
+    mark("24-27 servers")
     # the HTTP front door over a pipeline of its own, dropped after
     front_launches = run_front_door(wav_path, smi)
+    mark("28 front door")
     # speculative decoding through the pipeline; the benchmark harness over a
     # pipeline of its own, dropped after
     spec_launches = run_speculative(pipe, [(creation[1], "control"), (cloning[1], "clone")],
                                     wav_path, int8_params, int4_params, smi)
+    mark("29 speculative")
     bench_launches = run_bench(wav_path, smi)
+    mark("30 bench")
     # fine-tuning, draft distillation and export over the same pipeline
     run_training(pipe, smi)
     distill_launches = run_distill(pipe, smi)
@@ -4984,12 +5341,19 @@ def main() -> int:
     check_decode_step_on_cpu(pipe, int8_params, "int8 LM", creation[1], "control")
     check_decode_step_on_cpu(pipe, int4_params, "int4 LM", creation[1], "control")
     del int8_params, int4_params
+    mark("31-33 training, distillation, export; 10-11 prefill and int8/int4 step card vs CPU")
     # tensor parallelism, the codec on its own device, the native host audio
-    tp_launches, tp_errs = run_tensor_parallel(
+    tp_launches, tp_errs, tp2_ids = run_tensor_parallel(
         pipe, [(creation[1], "control"), (cloning[1], "clone")], wav_path, smi)
     codec_launches = run_codec_device(pipe, wav_path)
     check_native_audio()
     torch.cuda.empty_cache()
+    mark("34-35 tensor parallelism, codec_device, native audio")
+    # pipeline parallelism and training on a mesh, the dry run
+    pp_launches, pp_errs = run_pipeline_parallel(
+        pipe, [(creation[1], "control"), (cloning[1], "clone")], smi, tp2_ids)
+    torch.cuda.empty_cache()
+    mark("36 pipeline parallelism, mesh training, dryrun_multichip")
 
     entries.append(paged_entry)
     entries[1]["by_shape"].append(dense_state)
@@ -4999,18 +5363,21 @@ def main() -> int:
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["by_shape"].append(item)
     for e in entries:
-        e["max_abs_err"] = max(e["max_abs_err"], tp_errs.get(e["name"], 0.0))
+        e["max_abs_err"] = max(e["max_abs_err"], tp_errs.get(e["name"], 0.0),
+                               pp_errs.get(e["name"], 0.0))
         if e["name"] in server_items:
             e["by_shape"].append(server_items[e["name"]])
             e["max_abs_err"] = max(e["max_abs_err"], server_errs.get(e["name"], 0.0))
     check_units(n_layers)
     check_failed_capture(dev)
+    mark("18 units, failed capture")
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
              cache_launches, *server_launches, front_launches, spec_launches, bench_launches,
-             distill_launches, export_launches, *tp_launches, *codec_launches]
+             distill_launches, export_launches, *tp_launches, *codec_launches, *pp_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
+    print("phase seconds:", json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     print("launches of the server phases (24-27):",
           json.dumps({e["name"]: sum(run[e["name"]] for run in server_launches) for e in entries}))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

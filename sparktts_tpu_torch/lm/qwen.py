@@ -34,8 +34,22 @@ attention output and the MLP output are all-reduced over the row before
 their biases, the embedding masks the ids outside the rank's rows and
 all-reduces, and the logits are assembled by an all-reduce of each rank's
 columns into a zeroed buffer (every backend takes `all_reduce`; gloo takes
-no `all_gather` of CUDA tensors).  Kernels 1 and 2 run at the shard's
+no `all_gather` of CUDA tensors).  The row's collectives go through the
+autograd pairs of `parallel/autograd.py` (`copy_to_row` before a
+column-parallel linear, `reduce_from_row` after a row-parallel one and the
+masked lookup), so the train step (`lm/train.py`) differentiates these
+same functions; under `torch.inference_mode` the pairs are the in-place
+all-reduce and nothing.  Kernels 1 and 2 run at the shard's
 head counts.  A shard is a float tree: the quantized paths never see one.
+
+A tree placed on a (dp, tp, pp) mesh (`shardings.place`: a `ShardedTree`
+with its pipe column, `pp`) is one stage: a stage other than the first
+takes its input hidden states from the previous stage's hand-off instead
+of the embedding, runs its own L/pp layers over its own cache of L/pp
+planes (local plane indices: kernels 1 and 2 run there, at the stage's
+planes and the shard's heads), and hands its output on; the last stage's
+fp32 logits, whole on every rank of its row, are broadcast over the pipe
+column, so every rank returns the same logits and samples the same ids.
 """
 
 from __future__ import annotations
@@ -53,7 +67,8 @@ from sparktts_tpu_torch.kernels.int8_mlp import MAX_ROWS as MLP_MATVEC_ROWS
 from sparktts_tpu_torch.kernels.int8_mlp import int8_mlp_matvec
 from sparktts_tpu_torch.lm.quant import unpack_int4
 from sparktts_tpu_torch.nn.layers import linear_apply, rms_norm_apply
-from sparktts_tpu_torch.parallel.mesh import TPGroup, tp_of
+from sparktts_tpu_torch.parallel.autograd import copy_to_row, reduce_from_row
+from sparktts_tpu_torch.parallel.mesh import TPGroup, pp_of, tp_of
 
 
 class KVCache(NamedTuple):
@@ -137,12 +152,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: QwenConfig) -> tor
 # ---------------------------------------------------------------------------
 
 
-def project_qkv(layer, x: torch.Tensor, rope, cfg: QwenConfig):
+def project_qkv(layer, x: torch.Tensor, rope, cfg: QwenConfig, tp: Optional[TPGroup] = None):
     """Fused QKV projection + RoPE.  x: (B, T, H) -> q (B, T, nh, hd),
-    k/v (B, T, nkv, hd)."""
+    k/v (B, T, nkv, hd).  `tp`: the row of a sharded layer (its heads'
+    columns)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    qkv = linear_apply(layer["qkv"], x)
+    qkv = linear_apply(layer["qkv"], x if tp is None else copy_to_row(x, tp))
     q_dim, kv_dim = nh * hd, nkv * hd
     q = qkv[..., :q_dim].reshape(b, t, nh, hd)
     k = qkv[..., q_dim : q_dim + kv_dim].reshape(b, t, nkv, hd)
@@ -178,7 +194,7 @@ def _attention_block(
     the row of a sharded layer, whose o output is all-reduced over it."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q, k, v = project_qkv(layer, x, rope, cfg)
+    q, k, v = project_qkv(layer, x, rope, cfg, tp)
     if isinstance(write_pos, torch.Tensor):
         if t == 1:  # a decode step: no window offsets to add
             rows, cols, new_k, new_v = (torch.arange(b, device=x.device), write_pos.long(),
@@ -214,7 +230,7 @@ def row_parallel(p, x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     summed over the row, then the bias; `linear_apply` without a row."""
     if tp is None:
         return linear_apply(p, x)
-    y = tp.all_reduce(linear_apply({k: v for k, v in p.items() if k != "b"}, x))
+    y = reduce_from_row(linear_apply({k: v for k, v in p.items() if k != "b"}, x), tp)
     return y + p["b"] if "b" in p else y
 
 
@@ -252,7 +268,7 @@ def mlp_block(layer, x: torch.Tensor, decode_fused: bool = False,
         y = int8_mlp_matvec(x.reshape(b * t, h).contiguous(), gu_p["w_q"], gu_p["scale"],
                             down_p["w_q"], down_p["scale"])
         return y.reshape(b, t, h)
-    gate, up = linear_apply(gu_p, x).chunk(2, dim=-1)
+    gate, up = linear_apply(gu_p, x if tp is None else copy_to_row(x, tp)).chunk(2, dim=-1)
     return row_parallel(down_p, F.silu(gate) * up, tp)
 
 
@@ -275,9 +291,15 @@ def qwen_forward(
     vocab_slice/extra_ids constrain the OUTPUT vocabulary (guided decoding):
     logits cover embedding rows [lo, hi) then `extra_ids`, in that packed
     order.  logits_last_only computes logits for the final position only.
-    A `ShardedTree` runs its rank's part, with `cfg` its shard's config."""
-    tp = tp_of(params)
-    x = embed_lookup(params, input_ids)
+    A `ShardedTree` runs its rank's part, with `cfg` its part's config
+    (`shard_config`, `placed_config`); a stage of a pipe the stage's
+    layers, the logits coming from the last stage."""
+    tp, pp = tp_of(params), pp_of(params)
+    if pp is None or pp.first:
+        x = embed_lookup(params, input_ids)
+    else:
+        x = pp.receive((*input_ids.shape, cfg.hidden_size),
+                       params["layers"]["ln1"]["gamma"].dtype, input_ids.device)
     rope = rope_cos_sin(positions, cfg)
     for li, layer in enumerate(unstack_layers(params["layers"])):
         y = rms_norm_apply(layer["ln1"], x, eps=cfg.rms_norm_eps)
@@ -288,10 +310,17 @@ def qwen_forward(
         y = rms_norm_apply(layer["ln2"], x, eps=cfg.rms_norm_eps)
         x = x + mlp_block(layer, y, decode_fused=decode_window is not None and y.shape[1] == 1,
                           tp=tp)
+    if pp is not None and not pp.last:
+        pp.send(x)
+        width = (cfg.vocab_size if vocab_slice is None
+                 else vocab_slice[1] - vocab_slice[0] + len(extra_ids))
+        shape = (x.shape[0], 1 if logits_last_only else x.shape[1], width)
+        return pp.share(torch.empty(shape, dtype=torch.float32, device=x.device)), cache
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm_apply(params["final_ln"], x, eps=cfg.rms_norm_eps)
-    return output_logits(params, cfg, x, vocab_slice, extra_ids), cache
+    logits = output_logits(params, cfg, x, vocab_slice, extra_ids)
+    return (logits if pp is None else pp.share(logits.contiguous())), cache
 
 
 def output_logits(params, cfg: QwenConfig, x: torch.Tensor, vocab_slice=None,
@@ -318,7 +347,7 @@ def embed_lookup(params, input_ids: torch.Tensor) -> torch.Tensor:
         local = input_ids - lo
         inside = (local >= 0) & (local < hi - lo)
         x = F.embedding(local.clamp(0, hi - lo - 1), emb)
-        return tp.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
+        return reduce_from_row(torch.where(inside[..., None], x, torch.zeros_like(x)), tp)
     if isinstance(emb, dict):
         dt = params["final_ln"]["gamma"].dtype
         return emb["w_q"][input_ids].to(dt) * emb["scale"][input_ids].to(dt)
@@ -369,20 +398,34 @@ def vocab_parallel_logits(params, cfg: QwenConfig, x: torch.Tensor, tp: TPGroup,
     out = torch.zeros(*x.shape[:-1], hi - lo + len(extra_ids), dtype=torch.float32,
                       device=x.device)
     if pieces:
-        if cfg.tie_word_embeddings:
-            w = torch.cat([params["embed"][r0:r1] for r0, r1, _ in pieces])
-            local = torch.matmul(x.float(), w.float().T)
-        else:
-            head = params["lm_head"]
-            w = torch.cat([head["w"][:, r0:r1] for r0, r1, _ in pieces], dim=1)
-            local = torch.matmul(x.float(), w.to(x.dtype).float())
-            if "b" in head:
-                local = local + torch.cat([head["b"][r0:r1] for r0, r1, _ in pieces])
+        local = shard_head_logits(params, cfg, x, [(r0, r1) for r0, r1, _ in pieces])
         col = 0
         for r0, r1, c0 in pieces:
             out[..., c0 : c0 + r1 - r0] = local[..., col : col + r1 - r0]
             col += r1 - r0
     return tp.all_reduce(out)
+
+
+def shard_head_logits(params, cfg: QwenConfig, x: torch.Tensor, rows=None) -> torch.Tensor:
+    """A shard's fp32 logits of its own vocabulary rows (`rows`: [r0, r1)
+    ranges of local rows, side by side; default all of them), with the
+    products and sums of `lm_logits` / `head_logits`.  The caller passes
+    `x` through `copy_to_row` where it differentiates."""
+    if rows is None:
+        rows = [(0, params.vocab[1] - params.vocab[0])]
+
+    def join(parts, dim=0):  # no copy of a single range (the whole shard's table)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+    if cfg.tie_word_embeddings:
+        w = join([params["embed"][r0:r1] for r0, r1 in rows])
+        return torch.matmul(x.float(), w.float().T)
+    head = params["lm_head"]
+    w = join([head["w"][:, r0:r1] for r0, r1 in rows], dim=1)
+    local = torch.matmul(x.float(), w.to(x.dtype).float())
+    if "b" in head:
+        local = local + join([head["b"][r0:r1] for r0, r1 in rows])
+    return local
 
 
 def _select_vocab_cols(w: torch.Tensor, vocab_slice, extra_ids) -> torch.Tensor:

@@ -5,9 +5,19 @@ of devices with named axes and lets GSPMD insert the collectives.  PyTorch
 runs one process a card, so here the mesh is the grid of ranks of the
 default process group (`init_process_group`, NCCL on the card, gloo on the
 CPU), with one process group for each tp row and each dp column of the
-grid.  The collectives are explicit: the tensor-parallel forward
-(`lm/qwen.py`) all-reduces over its row's `TPGroup`, which a sharded param
-tree carries (`parallel/shardings.py`).
+grid, and, where pp > 1, for each pipe column (the ranks of one (dp, tp)
+index across the stages), each stage boundary of a column and each
+column's first and last stage.  The collectives are explicit: the
+tensor-parallel forward (`lm/qwen.py`) all-reduces over its row's
+`TPGroup`, and a staged forward hands its hidden states on over its
+column's `PPGroup`; a placed param tree carries both
+(`parallel/shardings.py`).
+
+Every hand-off is a `broadcast` over a two-rank group, and the logits go
+back over the column by a `broadcast` too: gloo takes no `send`/`recv` or
+`all_gather` of CUDA tensors, but it does take `broadcast` and
+`all_reduce` of them, and NCCL's broadcast is captured in a CUDA graph
+like its all-reduce.
 
 JAX's `named(mesh, *spec)` has no counterpart: its specs become the shard
 functions of `parallel/shardings.py`.
@@ -66,12 +76,87 @@ class TPGroup:
         dist.all_reduce(x, group=self.group)
         return x
 
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest `x` over the row, in place; returns it."""
+        self.reduces += 1
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
+
+@dataclass(eq=False)
+class PPGroup:
+    """One pipe column of the mesh, as this rank sees it: the column's
+    global ranks in stage order, this rank's stage and the number of
+    stages, and the backend.  `group` spans the column (the last stage's
+    logits are broadcast over it), `handoffs[s]` is the two-rank group of
+    stages s and s + 1 (the hidden states go forward over it, their
+    gradient back), and `embed_pair` the group of the first and the last
+    stage, which both hold a tied embedding.  Every method is a
+    collective of the ranks it names."""
+
+    group: Any
+    stage: int
+    size: int
+    backend: str
+    ranks: Tuple[int, ...]
+    handoffs: Tuple[Any, ...]
+    embed_pair: Any = None
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.size - 1
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture the column's broadcasts (NCCL)."""
+        return self.backend == "nccl"
+
+    def _broadcast(self, x: torch.Tensor, src_stage: int, group) -> torch.Tensor:
+        dist.broadcast(x, src=self.ranks[src_stage], group=group)
+        return x
+
+    def send(self, x: torch.Tensor) -> None:
+        """Hand `x` on to the next stage (`receive` there)."""
+        self._broadcast(x.contiguous(), self.stage, self.handoffs[self.stage])
+
+    def receive(self, shape, dtype, device) -> torch.Tensor:
+        """The tensor the previous stage `send`s."""
+        buf = torch.empty(shape, dtype=dtype, device=device)
+        return self._broadcast(buf, self.stage - 1, self.handoffs[self.stage - 1])
+
+    def send_back(self, g: torch.Tensor) -> None:
+        """Hand a gradient back to the previous stage (`receive_back` there)."""
+        self._broadcast(g.contiguous(), self.stage, self.handoffs[self.stage - 1])
+
+    def receive_back(self, shape, dtype, device) -> torch.Tensor:
+        """The gradient the next stage `send_back`s."""
+        buf = torch.empty(shape, dtype=dtype, device=device)
+        return self._broadcast(buf, self.stage + 1, self.handoffs[self.stage])
+
+    def share(self, x: torch.Tensor) -> torch.Tensor:
+        """The last stage's `x` on every stage of the column: the last stage
+        passes its tensor, the others a buffer of its shape, filled in
+        place; returns it."""
+        return self._broadcast(x, self.size - 1, self.group)
+
+    def sum_ends(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum `x` over the first and the last stage, in place."""
+        dist.all_reduce(x, group=self.embed_pair)
+        return x
+
 
 @dataclass(eq=False)
 class Mesh:
     """A (dp, tp, pp) grid of global ranks and this rank's place in it.
     `tp` is this rank's tensor-parallel row, `dp_group` the process group
-    of its data-parallel column (the ranks that hold the same shard)."""
+    of its data-parallel column (the ranks that hold the same part of the
+    model), `pp` its pipe column (None where pp = 1) and `side` a gloo
+    group of every rank of the mesh, for host tensors (a whole tree
+    gathered onto one rank)."""
 
     grid: np.ndarray               # (dp, tp, pp) global ranks
     rank: int
@@ -80,6 +165,8 @@ class Mesh:
     dp_rank: int
     pp_rank: int
     device: torch.device
+    pp: Optional[PPGroup] = None
+    side: Any = None
 
     @property
     def shape(self) -> dict:
@@ -152,11 +239,26 @@ def _mesh_from_grid(grid: np.ndarray, device=None, timeout_s: float = DEFAULT_TI
             group = dist.new_group(col, timeout=timeout)
             if me in col:
                 mine["dp"] = group
+    if pp > 1:
+        for i in range(dp):
+            for j in range(tp):
+                pipe = [int(r) for r in grid[i, j, :]]
+                group = dist.new_group(pipe, timeout=timeout)
+                handoffs = tuple(dist.new_group(pipe[s : s + 2], timeout=timeout)
+                                 for s in range(pp - 1))
+                # at pp = 2 the ends are the one boundary's pair
+                ends = (handoffs[0] if pp == 2
+                        else dist.new_group([pipe[0], pipe[-1]], timeout=timeout))
+                if me in pipe:
+                    mine["pp"] = PPGroup(group, pipe.index(me), pp, backend, tuple(pipe),
+                                         handoffs, ends)
+    side = dist.new_group([int(r) for r in grid.reshape(-1)], backend="gloo", timeout=timeout)
     if "tp" not in mine:
         raise ValueError(f"rank {me} is not in the mesh {grid.tolist()}")
-    group, side, row_ranks = mine["tp"]
-    row = TPGroup(group, row_ranks.index(me), tp, backend, row_ranks, side, timeout_s)
-    return Mesh(grid, me, row, mine["dp"], mine["dp_rank"], mine["pp_rank"], device)
+    group, row_side, row_ranks = mine["tp"]
+    row = TPGroup(group, row_ranks.index(me), tp, backend, row_ranks, row_side, timeout_s)
+    return Mesh(grid, me, row, mine["dp"], mine["dp_rank"], mine["pp_rank"], device,
+                mine.get("pp"), side)
 
 
 def tp_of(params) -> Optional[TPGroup]:
@@ -165,8 +267,15 @@ def tp_of(params) -> Optional[TPGroup]:
     return getattr(params, "tp", None)
 
 
+def pp_of(params) -> Optional[PPGroup]:
+    """The pipe column a param tree is a stage of, or None (a whole tree,
+    or a tp shard of all the layers)."""
+    return getattr(params, "pp", None)
+
+
 def capturable(params) -> bool:
     """Whether a decode unit over `params` can be a CUDA graph: a whole
-    tree, or a shard whose row's collectives a graph captures (NCCL)."""
-    tp = tp_of(params)
-    return tp is None or tp.capturable
+    tree, or a placed tree whose row's all-reduces and column's broadcasts
+    a graph captures (NCCL)."""
+    tp, pp = tp_of(params), pp_of(params)
+    return (tp is None or tp.capturable) and (pp is None or pp.capturable)

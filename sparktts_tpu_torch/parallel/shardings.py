@@ -28,32 +28,59 @@ Spark-TTS (semantic ids and markers above the base vocabulary) may all lie
 on one rank, so nothing assumes a balanced share.  JAX's `shard_llm` maps
 its specs over a bf16 tree; a weight-only quantized tree's keys do not
 match them, and here `shard_qwen` refuses one.
+
+The pp axis (`qwen_param_specs(cfg, pp=True)`) cuts the stacked layer axis
+into stages (`stage_qwen`): stage s of pp owns layers [s*L/pp,
+(s+1)*L/pp), the first stage the embedding, the last the final norm and
+the head (with a tied embedding, a second copy of `embed`).  `place` makes
+a rank's part of a whole tree on a (dp, tp, pp) mesh: its tp shard, then
+its stage; `unplace` rebuilds the whole tree from every rank's part.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from sparktts_tpu_torch.config import QwenConfig
 from sparktts_tpu_torch.lm.qwen import KVCache
-from sparktts_tpu_torch.parallel.mesh import TPGroup
+from sparktts_tpu_torch.parallel.mesh import Mesh, PPGroup, TPGroup
 
 #: Keys of a weight-only quantized linear or table (`lm/quant.py`).
 QUANT_KEYS = ("w_q", "w_p4", "scale", "gscale")
 
 
 class ShardedTree(dict):
-    """One tp rank's shard of a Qwen tree (a dict with the whole tree's
-    keys), with the row it belongs to (`tp`) and the vocabulary rows of its
-    embedding and head (`vocab`, [lo, hi)).  The forward reads both."""
+    """One rank's part of a Qwen tree on a mesh (`place`: a dict with keys
+    of the whole tree's), with the mesh (`mesh`: the train step reads its
+    dp column), the whole model's config (`config`), and from them the row
+    it belongs to (`tp`), the vocabulary rows of its embedding and head
+    (`vocab`, [lo, hi)) and its pipe column (`pp`, None for all the
+    layers).  The forward reads them."""
 
-    def __init__(self, tree: dict, tp: TPGroup, vocab: Tuple[int, int]):
+    def __init__(self, tree: dict, mesh: Mesh, config: QwenConfig):
         super().__init__(tree)
-        self.tp = tp
-        self.vocab = vocab
+        self.mesh = mesh
+        self.config = config
+        self.tp: TPGroup = mesh.tp
+        self.pp: Optional[PPGroup] = mesh.pp
+        self.vocab: Tuple[int, int] = vocab_bounds(config.vocab_size, mesh.tp.rank, mesh.tp.size)
+
+    def like(self, tree: dict) -> "ShardedTree":
+        """`tree` (of this part's keys) with this part's placement."""
+        return ShardedTree(tree, self.mesh, self.config)
+
+    @property
+    def first(self) -> bool:
+        """Whether this part holds the first stage (the embedding lookup)."""
+        return self.pp is None or self.pp.first
+
+    @property
+    def last(self) -> bool:
+        """Whether this part holds the last stage (the final norm, the head)."""
+        return self.pp is None or self.pp.last
 
 
 def vocab_bounds(vocab_size: int, rank: int, size: int) -> Tuple[int, int]:
@@ -151,8 +178,8 @@ def unshard_qwen_layers(shards: Sequence[dict], cfg: QwenConfig) -> dict:
 def shard_qwen(tree: dict, cfg: QwenConfig, rank: int, size: int) -> dict:
     """Rank's shard of a whole Qwen tree (`qwen_param_specs`): the layers
     as `shard_qwen_layers`, the embedding's `vocab_bounds` rows, an untied
-    head's same columns, the final norm whole.  A plain dict; `attach`
-    gives it its row.  Refuses a weight-only quantized tree."""
+    head's same columns, the final norm whole.  A plain dict; `place`
+    binds it to its mesh.  Refuses a weight-only quantized tree."""
     _check_float(tree)
     lo, hi = vocab_bounds(cfg.vocab_size, rank, size)
     out = {
@@ -179,17 +206,12 @@ def unshard_qwen(shards: Sequence[dict], cfg: QwenConfig) -> dict:
     return out
 
 
-def attach(shard: dict, tp: TPGroup, cfg: QwenConfig) -> ShardedTree:
-    """A shard of `cfg`'s tree (whole-model config) bound to its row: the
-    forward over it all-reduces on `tp`."""
-    return ShardedTree(shard, tp, vocab_bounds(cfg.vocab_size, tp.rank, tp.size))
-
-
 def stage_layers(layers: dict, stage: int, stages: int) -> dict:
     """The pp=True cut of JAX's `qwen_layer_specs`: stage `stage` of
     `stages` owns layers [stage*L/stages, (stage+1)*L/stages) of the
-    stacked tree (for a pipeline-parallel forward, which the port does not
-    run yet).  Requires L % stages == 0."""
+    stacked tree, which the staged forward (`lm/qwen.py`) runs with the
+    local plane indices 0 .. L/stages - 1 of its stage's cache.  Requires
+    L % stages == 0."""
     return {name: {k: _row_cut(v, 0, stage, stages) for k, v in sub.items()}
             for name, sub in layers.items()}
 
@@ -198,6 +220,66 @@ def unstage_layers(stages: Sequence[dict]) -> dict:
     """Inverse of `stage_layers` over every stage, in order."""
     return {name: {k: torch.cat([s[name][k] for s in stages], 0) for k in sub}
             for name, sub in stages[0].items()}
+
+
+def stage_config(cfg: QwenConfig, stages: int) -> QwenConfig:
+    """The config of one stage: L/stages layers, everything else as is (a
+    stage's KV cache then holds its own planes)."""
+    if cfg.num_hidden_layers % stages:
+        raise ValueError(f"pp={stages} must divide the layers ({cfg.num_hidden_layers})")
+    return dataclasses.replace(cfg, num_hidden_layers=cfg.num_hidden_layers // stages)
+
+
+def stage_qwen(tree: dict, cfg: QwenConfig, stage: int, stages: int) -> dict:
+    """Stage `stage` of a Qwen tree (whole or a tp shard): its layers
+    (`stage_layers`), `embed` on the first stage, `final_ln` and an untied
+    `lm_head` on the last, and with a tied embedding `embed` on the last
+    stage too (both ends then hold a copy)."""
+    out = {"layers": stage_layers(tree["layers"], stage, stages)}
+    first, last = stage == 0, stage == stages - 1
+    if first or (last and cfg.tie_word_embeddings):
+        out["embed"] = tree["embed"]
+    if last:
+        out["final_ln"] = dict(tree["final_ln"])
+        if "lm_head" in tree:
+            out["lm_head"] = dict(tree["lm_head"])
+    return out
+
+
+def unstage_qwen(stages: Sequence[dict]) -> dict:
+    """Inverse of `stage_qwen` over every stage, in order (the embedding
+    of the first stage)."""
+    out = {"embed": stages[0]["embed"], "layers": unstage_layers([s["layers"] for s in stages]),
+           "final_ln": dict(stages[-1]["final_ln"])}
+    if "lm_head" in stages[-1]:
+        out["lm_head"] = dict(stages[-1]["lm_head"])
+    return out
+
+
+def placed_config(cfg: QwenConfig, mesh: Mesh) -> QwenConfig:
+    """The config of a rank's part on `mesh` (`place`): its shard's heads
+    and MLP columns, its stage's layers."""
+    shape = mesh.shape
+    return stage_config(shard_config(cfg, shape["tp"]), shape["pp"])
+
+
+def place(tree: dict, cfg: QwenConfig, mesh: Mesh) -> ShardedTree:
+    """This rank's part of a whole Qwen tree on a (dp, tp, pp) mesh: its tp
+    shard (`shard_qwen`), then its stage (`stage_qwen`), bound to its row,
+    its pipe column and the mesh.  Every rank of the mesh calls it on the
+    same whole tree; the forward over the part takes `placed_config`."""
+    shape = mesh.shape
+    shard = shard_qwen(tree, cfg, mesh.tp.rank, shape["tp"])
+    return ShardedTree(stage_qwen(shard, cfg, mesh.pp_rank, shape["pp"]), mesh, cfg)
+
+
+def unplace(parts: Sequence[dict], cfg: QwenConfig, grid) -> dict:
+    """Inverse of `place`: the whole tree from every rank's part, `parts`
+    indexed by global rank, `grid` the mesh's (dp, tp, pp) ranks (the dp
+    replicas are alike: dp index 0's parts are read)."""
+    _, tp, pp = grid.shape
+    shards = [unstage_qwen([parts[int(grid[0, j, s])] for s in range(pp)]) for j in range(tp)]
+    return unshard_qwen(shards, cfg)
 
 
 def shard_kv_cache(cache: KVCache, rank: int, size: int) -> KVCache:

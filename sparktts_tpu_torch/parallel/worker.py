@@ -46,7 +46,10 @@ import datetime
 import functools
 import hashlib
 import itertools
+import os
+import pickle
 import socket
+import tempfile
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -393,10 +396,12 @@ def run_rank(rank: int, world_size: int, backend: str, address: str, fn: Callabl
         dist.destroy_process_group()
 
 
-def _spawned(rank, world_size, backend, address, fn, args, device, timeout_s, mesh_kwargs,
+def _spawned(rank, world_size, backend, address, fn, args_path, device, timeout_s, mesh_kwargs,
              queue, threads):
     if threads:
         torch.set_num_threads(threads)
+    with open(args_path, "rb") as f:
+        args = pickle.load(f)
     out = run_rank(rank, world_size, backend, address, fn, args, device, timeout_s, mesh_kwargs)
     queue.put((rank, out))
 
@@ -414,20 +419,29 @@ def spawn(fn: Callable, world_size: int, backend: str = "nccl", args: Sequence =
 
     address = f"tcp://127.0.0.1:{free_port()}"
     queue = mp.get_context("spawn").SimpleQueue()
-    ctx = mp.start_processes(
-        _spawned, args=(world_size, backend, address, fn, tuple(args), device, timeout_s,
-                        mesh_kwargs, queue, threads),
-        nprocs=world_size, join=False, start_method="spawn")
-    results = {}
-    while True:
+    # `args` go through a file: a process's spawn arguments are written to
+    # its pipe before the next process starts, and arguments larger than
+    # the pipe's buffer wait there until the child has imported torch, so
+    # the ranks would start one after another
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
+        pickle.dump(tuple(args), f)
+    try:
+        ctx = mp.start_processes(
+            _spawned, args=(world_size, backend, address, fn, f.name, device, timeout_s,
+                            mesh_kwargs, queue, threads),
+            nprocs=world_size, join=False, start_method="spawn")
+        results = {}
+        while True:
+            while not queue.empty():
+                rank, out = queue.get()
+                results[rank] = out
+            if ctx.join(timeout=0.05):
+                break
         while not queue.empty():
             rank, out = queue.get()
             results[rank] = out
-        if ctx.join(timeout=0.05):
-            break
-    while not queue.empty():
-        rank, out = queue.get()
-        results[rank] = out
+    finally:
+        os.unlink(f.name)
     return [results[r] for r in range(world_size)]
 
 

@@ -57,7 +57,7 @@ from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.sample import Generators
 from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers, speculative_decode
 from sparktts_tpu_torch.nn.wav2vec2 import feature_lengths, normalize_input, wav2vec2_features
-from sparktts_tpu_torch.parallel.shardings import attach, shard_config, shard_qwen
+from sparktts_tpu_torch.parallel.shardings import place, placed_config
 from sparktts_tpu_torch.parallel.worker import lead_generate, leader_of
 from sparktts_tpu_torch.prompt import (
     HFSparkTokenizer,
@@ -323,24 +323,29 @@ class SparkTTSPipeline:
 
     def shard_llm(self, mesh) -> None:
         """Make `llm_params` this rank's tensor-parallel shard over
-        `mesh.tp` (`parallel.shardings.shard_qwen`: head-aligned q/k/v and
-        gate/up columns, o and down rows, vocabulary rows of the embedding)
-        and `config.llm` its shard's config; every rank of the row calls it
+        `mesh.tp` (`parallel.shardings.place` at pp = 1: head-aligned q/k/v
+        and gate/up columns, o and down rows, vocabulary rows of the
+        embedding) and `config.llm` its shard's config; every rank of the row calls it
         on the same whole tree.  Engines built after it (a server passes
         `mesh=pipeline.mesh`) keep this rank's KV heads.  The codec stays
         whole on this rank, and only rank 0, which serves, uses it: the JAX
         package replicates it over the mesh instead, since there one
         controller runs every program.  A bf16 or fp32 LM only (JAX's specs
         do not match a quantized tree's keys); not with `codec_device` or
-        `speculative_k`."""
+        `speculative_k`, and not on a mesh with pp > 1: the served paths cut
+        no stages (nor does JAX's `shard_llm`); a staged tree runs through
+        `generate` directly (`parallel.shardings.place`)."""
         if self.codec_device is not None:
             raise ValueError("shard_llm and codec_device are mutually exclusive")
         if self.speculative_k > 0:
             raise ValueError("speculative decoding does not run on a tensor-parallel shard")
-        whole, tp = self.config.llm, mesh.tp
-        shard = shard_qwen(self.llm_params, whole, tp.rank, tp.size)
-        self.config = dataclasses.replace(self.config, llm=shard_config(whole, tp.size))
-        self.llm_params = attach(shard, tp, whole)
+        if mesh.shape["pp"] > 1:
+            raise ValueError(f"shard_llm serves a (dp, tp) mesh; this one has pp="
+                             f"{mesh.shape['pp']} (place the LM with parallel.shardings.place "
+                             f"and call generate on every stage)")
+        whole = self.config.llm
+        self.llm_params = place(self.llm_params, whole, mesh)
+        self.config = dataclasses.replace(self.config, llm=placed_config(whole, mesh))
         self.mesh = mesh
 
     def _load_params(self, model_dir: Path) -> None:

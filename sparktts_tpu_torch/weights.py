@@ -347,13 +347,13 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def qwen_shard(tree, cfg: QwenConfig, mesh, device=None, dtype: torch.dtype = torch.bfloat16):
-    """This rank's tensor-parallel shard of a whole Qwen tree (numpy, a JAX
-    tree passed through `np.asarray`, or tensors), on `device` (default:
-    the mesh's) in `dtype`, bound to `mesh.tp`; returns (shard, the
-    shard's config).  `pipeline.shard_llm` does the same to a pipeline."""
-    from sparktts_tpu_torch.parallel.shardings import attach, shard_config, shard_qwen
+def qwen_place(tree, cfg: QwenConfig, mesh, device=None, dtype: torch.dtype = torch.bfloat16):
+    """This rank's part of a whole Qwen tree (numpy, a JAX tree passed
+    through `np.asarray`, or tensors) on a (dp, tp, pp) mesh (its tp shard,
+    then its stage: `parallel.shardings.place`), on `device` (default: the
+    mesh's) in `dtype`; returns (part, the part's config).
+    `pipeline.shard_llm` does the same to a pipeline's LM at pp = 1."""
+    from sparktts_tpu_torch.parallel.shardings import place, placed_config
 
     whole = qwen_state(tree, mesh.device if device is None else device, dtype)
-    shard = shard_qwen(whole, cfg, mesh.tp.rank, mesh.tp.size)
-    return attach(shard, mesh.tp, cfg), shard_config(cfg, mesh.tp.size)
+    return place(whole, cfg, mesh), placed_config(cfg, mesh)

@@ -112,11 +112,11 @@ def _row(mesh, inputs):
     from sparktts_tpu_torch.lm.continuous import ContinuousBatchingEngine
     from sparktts_tpu_torch.lm.generate import generate
     from sparktts_tpu_torch.lm.qwen import init_kv_cache, prefill_inputs, qwen_forward
-    from sparktts_tpu_torch.weights import qwen_shard
+    from sparktts_tpu_torch.weights import qwen_place
 
     cfg = tiny_test_config().llm
     out = {}
-    shard, scfg = qwen_shard(inputs["llm"], cfg, mesh, dtype=torch.float32)
+    shard, scfg = qwen_place(inputs["llm"], cfg, mesh, dtype=torch.float32)
     ids, mask = (torch.from_numpy(a) for a in inputs["prompts"])
     kw = dict(max_new_tokens=GEN_NEW, cache_len=ids.shape[1] + GEN_NEW, eos_ids=(300,), pad_id=1,
               cache_dtype=torch.float32)
@@ -134,7 +134,7 @@ def _row(mesh, inputs):
     out["logits"] = logits.numpy()
     out["kv_heads"] = cache.k.shape[3]
 
-    eshard, ecfg = qwen_shard(inputs["engine_tree"], ENGINE_CFG, mesh, dtype=torch.float32)
+    eshard, ecfg = qwen_place(inputs["engine_tree"], ENGINE_CFG, mesh, dtype=torch.float32)
     eng = ContinuousBatchingEngine(eshard, ecfg, cache_dtype=torch.float32, device="cpu",
                                    mesh=mesh, **ENGINE_KW)
     p0, p1 = inputs["engine_prompts"]
@@ -523,9 +523,9 @@ CARD_CFG = QwenConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
 
 def _nccl_generate(mesh, tree, ids, mask):
     from sparktts_tpu_torch.lm.generate import generate
-    from sparktts_tpu_torch.weights import qwen_shard
+    from sparktts_tpu_torch.weights import qwen_place
 
-    shard, scfg = qwen_shard(tree, CARD_CFG, mesh)
+    shard, scfg = qwen_place(tree, CARD_CFG, mesh)
     toks, _ = generate(shard, scfg, torch.from_numpy(ids).to(mesh.device),
                        torch.from_numpy(mask).to(mesh.device), torch.Generator(mesh.device),
                        GEN_NEW, 32 + GEN_NEW, greedy=True, **GUIDED)
