@@ -120,7 +120,7 @@ and capture are set-up, counted apart).
    The same directory loaded a second time reads the converted trees from
    its `_torch_cache/`, converts nothing, and gives every tree bit for bit
    (each load's read/convert/cache/upload seconds printed).  The directory
-   is deleted after;
+   (with its cache) is kept for phase 37 and deleted after it;
 20. the untied head: the creation request on the LM with
    tie_word_embeddings=False (a random bf16 lm_head), 100 greedy ids
    through the decode unit equal to the eager loop's; one decode step of
@@ -180,8 +180,9 @@ and capture are set-up, counted apart).
    and none of their decode units.
 29. speculative decoding through `SparkTTSPipeline(speculative_k=4)`
    (`lm/speculative.py`: captured units of rounds, each k draft decode
-   steps, one verify forward of k tokens, the acceptance on the card), 500
-   new tokens on the creation and clone prompts of phases 3 and 4: (a)
+   steps, one verify forward of k tokens, the acceptance on the card),
+   SPEC_NEW_TOKENS (250) new tokens on the creation and clone prompts of
+   phases 3 and 4: (a)
    greedy with draft_layers=24 (draft = target): ids vanilla greedy's or
    first apart at a near tie (phase 14's rule), k - 1 proposals accepted a
    round but where the draft's decode path and the verify's dense attention
@@ -217,8 +218,9 @@ and capture are set-up, counted apart).
    draft started from its first layers (20 steps over semantic ids), its
    corpus_stats, losses and acceptance before and after printed; kernels 1
    and 2 launched by the teachers;
-33. export (`export.py`): the five programs of the full-width pipeline (bf16
-   LM) and the int8 LM's lm_prefill + lm_decode, written under
+33. export (`export.py`): the codec programs of the full-width pipeline and
+   lm_prefill + lm_decode of the bf16 and of the int8 LM cut to their first
+   EXPORT_LM_LAYERS (4) layers at full width, written under
    chiprun_out/export/ (deleted after), reloaded: mel within 1e-5 and the
    tokenize ids of the live path, the vocoder within WINDOW_REL_TOL of the
    live detokenize, greedy ids of the LM programs the live generate's or
@@ -265,13 +267,24 @@ and capture are set-up, counted apart).
    unplaced tree), then PP_TIMED_STEPS steps timed; ms a step and each
    rank's peak GiB; (d) `dryrun_multichip(8)` on the card (eight gloo
    ranks: its train step, sharded generate and sharded server).
+37. the deploy path: `scripts/run_server_torch.main` in a thread over phase
+   19's checkpoint directory (its `_torch_cache/` read, nothing converted),
+   with --warmup, a voice cache, --voices_dir holding phase 4's prompt wav,
+   a gRPC port and DEPLOY_NEW_TOKENS (48) a request; over the socket, counts
+   0 after it listens and read after: an offline and a streamed clone
+   through the port's client module, /v1/audio/speech with the registered
+   voice and one gRPC stream, each 200 or OK with a finite waveform (the
+   offline ones 320 samples a semantic id), kernels 1, 2 and 3 launched;
+   then stopped through its `control` and phase 28's leak check.  The load,
+   warm-up and per-request seconds are printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
 17, 19 to 23, the server bursts of 24 to 27, phase 28's routes, phase
 29's speculative calls, phase 30's runners, phase 32's teachers, phase
-33's programs, phases 34's (every rank) and 35's paths and phase 36's
-(every rank of (a) and (b), and the dry run's sharded paths), its
+33's programs, phases 34's (every rank) and 35's paths, phase 36's
+(every rank of (a) and (b), and the dry run's sharded paths) and phase
+37's requests), its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
 one row, for the paged kernel one layer at the paged engine's state; the
@@ -283,8 +296,9 @@ is {"ok": true, "device": {...}}; before the kernels line, the seconds of
 each group of phases.  Without a CUDA card, or run from a directory without
 the sparktts_tpu_torch package, it exits 2 and prints no result.
 `--front-only`, `--servers-only`, `--spec-only`, `--bench-only`,
-`--train-only`, `--tp-only` and `--pp-only` run phase 28, phases 24-27,
-phase 29, phase 30, phases 31-33, phases 34-35 or phase 36 alone (after the
+`--train-only`, `--tp-only`, `--pp-only` and `--deploy-only` run phase 28,
+phases 24-27, phase 29, phase 30, phases 31-33, phases 34-35, phase 36 or
+phase 37 (over a checkpoint written as phase 19 writes it) alone (after the
 build), with no kernels line and no result line.
 """
 
@@ -294,6 +308,7 @@ import contextlib
 import functools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -301,6 +316,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
+CKPT_DIR = OUT_DIR / "ckpt"  # phase 19's checkpoint directory, served again by phase 37
 
 TEXT = "Spark TTS speaks from one H100 card."
 VOICE = dict(gender="female", pitch="moderate", speed="moderate")
@@ -2440,8 +2456,10 @@ def run_checkpoint(pipe, wav_path: Path):
     upload seconds and the card's peak memory; every tree with the keys,
     shapes and dtypes of the random init at full width; one creation and
     one clone request with the launch counts of phases 3 and 4; prefill
-    logits card vs the same directory loaded on the CPU.  The directory is
-    deleted after.  Returns (summary, [launches of the two requests])."""
+    logits card vs the same directory loaded on the CPU.  The directory
+    (CKPT_DIR) stays for phase 37, which serves it: `main` deletes it after
+    phase 37, and the script's exit path whatever phase stopped the run.
+    Returns (summary, [launches of the two requests])."""
     import shutil
 
     import torch
@@ -2450,51 +2468,48 @@ def run_checkpoint(pipe, wav_path: Path):
     from sparktts_tpu_torch.prompt import build_control_prompt
 
     dev = pipe.device
-    model_dir = OUT_DIR / "ckpt"
+    model_dir = CKPT_DIR
     shutil.rmtree(model_dir, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        sizes = write_checkpoint(model_dir, dev)
-        write_s = time.perf_counter() - t0
-        on_card = dev.type == "cuda"
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated() if on_card else 0
-        t0 = time.perf_counter()
-        cp = SparkTTSPipeline(model_dir=model_dir, device=dev)
-        load_s = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else float("nan")
-        summary = dict(write_s=write_s, file_bytes=sizes, load_s=load_s, **cp.load_seconds,
-                       peak_load_gib=peak,
-                       tokenizer=type(cp.tokenizer).__name__,
-                       semantic_base=cp.tokenizer.semantic_base,
-                       global_base=cp.tokenizer.global_base)
-        print("checkpoint load:", json.dumps(summary))
-        check_cached_load(cp, model_dir)
-        for name, got, want in (("LM", cp.llm_params, pipe.llm_params),
-                                ("BiCodec", cp.bicodec_params, pipe.bicodec_params),
-                                ("wav2vec2", cp.w2v_params, pipe.w2v_params)):
-            g, w = _tree_signature(got), _tree_signature(want)
-            if g != w:
-                diff = sorted(set(g.items()) ^ set(w.items()))[:6]
-                raise AssertionError(f"checkpoint: the loaded {name} tree is not the init's: "
-                                     f"{diff}")
-            print(f"checkpoint: the {name} tree has the init's {len(g)} leaves, shapes and "
-                  f"dtypes")
-        creation = run_voice_creation(cp, label="checkpoint: voice creation")
-        cloning = run_voice_cloning(cp, wav_path, label="checkpoint: voice cloning")
-        summary.update(creation_rtf=creation[2]["rtf"], cloning_rtf=cloning[2]["rtf"],
-                       peak_request_gib=max(creation[2]["peak_mem_gib"],
-                                            cloning[2]["peak_mem_gib"]))
-        prompt = build_control_prompt(cp.tokenizer, TEXT, **VOICE)
-        t0 = time.perf_counter()
-        cpu_pipe = SparkTTSPipeline(model_dir=model_dir, device="cpu")
-        summary["cpu_load_s"] = time.perf_counter() - t0
-        check_prefill_on_cpu(cp, cpu_pipe, prompt, "checkpoint")
-        del cpu_pipe, cp
-    finally:
-        shutil.rmtree(model_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    sizes = write_checkpoint(model_dir, dev)
+    write_s = time.perf_counter() - t0
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    cp = SparkTTSPipeline(model_dir=model_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else float("nan")
+    summary = dict(write_s=write_s, file_bytes=sizes, load_s=load_s, **cp.load_seconds,
+                   peak_load_gib=peak,
+                   tokenizer=type(cp.tokenizer).__name__,
+                   semantic_base=cp.tokenizer.semantic_base,
+                   global_base=cp.tokenizer.global_base)
+    print("checkpoint load:", json.dumps(summary))
+    check_cached_load(cp, model_dir)
+    for name, got, want in (("LM", cp.llm_params, pipe.llm_params),
+                            ("BiCodec", cp.bicodec_params, pipe.bicodec_params),
+                            ("wav2vec2", cp.w2v_params, pipe.w2v_params)):
+        g, w = _tree_signature(got), _tree_signature(want)
+        if g != w:
+            diff = sorted(set(g.items()) ^ set(w.items()))[:6]
+            raise AssertionError(f"checkpoint: the loaded {name} tree is not the init's: "
+                                 f"{diff}")
+        print(f"checkpoint: the {name} tree has the init's {len(g)} leaves, shapes and "
+              f"dtypes")
+    creation = run_voice_creation(cp, label="checkpoint: voice creation")
+    cloning = run_voice_cloning(cp, wav_path, label="checkpoint: voice cloning")
+    summary.update(creation_rtf=creation[2]["rtf"], cloning_rtf=cloning[2]["rtf"],
+                   peak_request_gib=max(creation[2]["peak_mem_gib"],
+                                        cloning[2]["peak_mem_gib"]))
+    prompt = build_control_prompt(cp.tokenizer, TEXT, **VOICE)
+    t0 = time.perf_counter()
+    cpu_pipe = SparkTTSPipeline(model_dir=model_dir, device="cpu")
+    summary["cpu_load_s"] = time.perf_counter() - t0
+    check_prefill_on_cpu(cp, cpu_pipe, prompt, "checkpoint")
+    del cpu_pipe, cp
     return summary, [creation[0], cloning[0]]
 
 
@@ -3768,6 +3783,10 @@ def _greedy_tts(port, seed, creation):
 
 SPEC_K = 4
 SPEC_DRAFTS = (24, 6)  # draft = target (every proposal accepted), the default early exit
+# ids a speculative call (and its vanilla yardstick) generates: decode, twice
+# a case over eight cases, took most of the phase's ~109 s at 500 on one
+# H100 (PERF.md)
+SPEC_NEW_TOKENS = 250
 
 
 def _spec_call(pipe, prompt, mode, greedy, seed=SEED):
@@ -3779,13 +3798,13 @@ def _spec_call(pipe, prompt, mode, greedy, seed=SEED):
 
     ids_t, mask_t = pipe.prompt_inputs(prompt)
     with torch.inference_mode():  # the warm call: the unit's capture
-        pipe._speculative(ids_t, mask_t, seed, MAX_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
+        pipe._speculative(ids_t, mask_t, seed, SPEC_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
     _sync(pipe.device)
     _reset_counts()
     t0 = time.perf_counter()
     with torch.inference_mode():
         tokens, lengths, accepted, rounds, rejected = pipe._speculative(
-            ids_t, mask_t, seed, MAX_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
+            ids_t, mask_t, seed, SPEC_NEW_TOKENS, 0.8, 50, 0.95, greedy, mode)
         ids = tokens[0, : int(lengths[0])].cpu().numpy()
     ms = (time.perf_counter() - t0) * 1e3
     where = rejected[0].nonzero()[:, 0].cpu().numpy()
@@ -3797,11 +3816,11 @@ def _vanilla_call(pipe, prompt, mode, greedy, seed=SEED):
     k = pipe.speculative_k
     pipe.speculative_k = 0
     try:
-        pipe.generate_tokens(prompt, seed=seed, max_new_tokens=MAX_NEW_TOKENS, greedy=greedy,
+        pipe.generate_tokens(prompt, seed=seed, max_new_tokens=SPEC_NEW_TOKENS, greedy=greedy,
                              mode=mode)
         _sync(pipe.device)
         t0 = time.perf_counter()
-        ids = pipe.generate_tokens(prompt, seed=seed, max_new_tokens=MAX_NEW_TOKENS,
+        ids = pipe.generate_tokens(prompt, seed=seed, max_new_tokens=SPEC_NEW_TOKENS,
                                    greedy=greedy, mode=mode)
         return ids, (time.perf_counter() - t0) * 1e3
     finally:
@@ -3830,7 +3849,7 @@ def _check_spec_launches(label, launches, n_layers, draft, lm):
 
 
 def run_speculative(pipe, prompts, wav_path: Path, int8_params, int4_params, smi):
-    """Phase 29: `SparkTTSPipeline(speculative_k=4)` at 500 new tokens on
+    """Phase 29: `SparkTTSPipeline(speculative_k=4)` at SPEC_NEW_TOKENS on
     the creation and clone prompts (`prompts`: [(ids, "control"), (ids,
     "clone")], the clone's from `wav_path`).  (a) greedy with draft_layers=24 (the
     draft is the target): ids vanilla greedy's under the near-tie rule, and
@@ -3911,15 +3930,15 @@ def run_speculative(pipe, prompts, wav_path: Path, int8_params, int4_params, smi
             record(launches)
             _, vanilla_ms = _vanilla_call(pipe, prompt, mode, greedy=False)
             if request is not None:
-                wav = pipe.inference(TEXT, seed=SEED, max_new_tokens=MAX_NEW_TOKENS, **request)
+                wav = pipe.inference(TEXT, seed=SEED, max_new_tokens=SPEC_NEW_TOKENS, **request)
             else:
                 wav = pipe.inference(TEXT, prompt_speech_path=wav_path,
                                      prompt_text=PROMPT_TEXT, seed=SEED,
-                                     max_new_tokens=MAX_NEW_TOKENS)
+                                     max_new_tokens=SPEC_NEW_TOKENS)
             n_sem = extract_semantic_ids(pipe.tokenizer, got).size
             row = dict(label=f"sampled, draft {short}, {mode}", tokens=len(got), accepted=accepted,
                        rounds=rounds, acceptance=accepted / len(got), ms_per_token=ms / len(got),
-                       vanilla_ms_per_token=vanilla_ms / MAX_NEW_TOKENS,
+                       vanilla_ms_per_token=vanilla_ms / SPEC_NEW_TOKENS,
                        semantic_tokens=int(n_sem), wav_samples=int(wav.size))
             print(f"speculative {row['label']}: {json.dumps(row)} | {smi}")
             results.append(row)
@@ -4090,6 +4109,10 @@ CYCLER_H = 32
 DISTILL_DRAFT_LAYERS = 4
 EXPORT_NEW_TOKENS = 48
 EXPORT_PROMPT_LEN = 128
+# phase 33's LM programs (bf16 and int8) are those of the LM's first layers:
+# torch.export traces every layer, and 24 took ~100 of the phase's ~190 s
+# on one H100 (PERF.md); the codec programs stay at full depth
+EXPORT_LM_LAYERS = 4
 
 
 def train_batch(pipe):
@@ -4303,18 +4326,20 @@ def _artifact_greedy(prefill, decode, ids, mask, n):
 
 
 def run_export(pipe, prompt, int8_params, smi):
-    """Phase 33: `export_pipeline_artifacts` of the full-width pipeline (bf16
-    LM; the five programs at JAX's default shapes) and lm_prefill +
-    lm_decode of the int8 LM, written under chiprun_out/export/ (deleted
-    after) and reloaded.  The vocoder and decode programs must hold their
-    `sparktts_torch::` ops (kernel 3; kernel 2, and 4 on int8); mel within
-    1e-5 of the live mel, tokenize ids agreeing in TOKENIZE_AGREEMENT of
-    positions, the vocoder's waveform within WINDOW_REL_TOL of the live
-    `bicodec_detokenize`, and greedy ids of the LM programs (the creation
-    prompt left-padded to EXPORT_PROMPT_LEN) the live `generate`'s or first
-    apart at a near tie (phase 14's rule), bf16 and int8.  Kernels 2, 3 and
-    4 must launch while the programs run.  Returns the launches of the
-    programs' runs."""
+    """Phase 33: `export_pipeline_artifacts` of the full-width pipeline: the
+    codec programs (mel, audio_tokenize, vocoder) at JAX's default shapes,
+    and lm_prefill + lm_decode of the bf16 and of the int8 LM cut to their
+    first EXPORT_LM_LAYERS layers (full width), written under
+    chiprun_out/export/ (deleted after) and reloaded.  The vocoder and decode
+    programs must hold their `sparktts_torch::` ops (kernel 3; kernel 2, and
+    4 on int8, one a layer); mel within 1e-5 of the live mel, tokenize ids
+    agreeing in TOKENIZE_AGREEMENT of positions, the vocoder's waveform
+    within WINDOW_REL_TOL of the live `bicodec_detokenize`, and greedy ids of
+    the LM programs (the creation prompt left-padded to EXPORT_PROMPT_LEN)
+    the live `generate`'s of the same cut LM or first apart at a near tie
+    (phase 14's rule), bf16 and int8.  Kernels 2, 3 and 4 must launch while
+    the programs run.  Returns the launches of the programs' runs."""
+    import dataclasses
     import shutil
 
     import numpy as np
@@ -4326,12 +4351,16 @@ def run_export(pipe, prompt, int8_params, smi):
     from sparktts_tpu_torch.io.audio import load_audio
     from sparktts_tpu_torch.lm import graphs
     from sparktts_tpu_torch.lm.generate import generate
+    from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers
     from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
 
     dev, cfg = pipe.device, pipe.config
     out = OUT_DIR / "export"
     shutil.rmtree(out, ignore_errors=True)
     bf16_params = pipe.llm_params
+    cut_cfg = dataclasses.replace(cfg, llm=draft_config(cfg.llm, EXPORT_LM_LAYERS))
+    lms = {"bf16": draft_from_layers(bf16_params, EXPORT_LM_LAYERS),
+           "int8": draft_from_layers(int8_params, EXPORT_LM_LAYERS)}
     save, saving = torch.export.save, [0.0]
 
     def timed_save(*args, **kwargs):  # the share of writing the files
@@ -4342,22 +4371,25 @@ def run_export(pipe, prompt, int8_params, smi):
     try:
         torch.export.save = timed_save
         t0 = time.perf_counter()
-        manifest = E.export_pipeline_artifacts(pipe, out, prompt_len=EXPORT_PROMPT_LEN)
-        export_s = {"five programs": time.perf_counter() - t0, "of it saving": saving[0]}
-        t0, saving[0] = time.perf_counter(), 0.0
-        pipe.llm_params = int8_params
-        E.export_pipeline_artifacts(pipe, out / "int8", prompt_len=EXPORT_PROMPT_LEN,
-                                    graphs=("lm_prefill", "lm_decode"))
-        export_s.update({"int8 lm pair": time.perf_counter() - t0, "int8 of it saving": saving[0]})
+        manifest = E.export_pipeline_artifacts(pipe, out, prompt_len=EXPORT_PROMPT_LEN,
+                                               graphs=("mel", "audio_tokenize", "vocoder"))
+        export_s = {"codec programs": time.perf_counter() - t0, "of it saving": saving[0]}
+        pipe.config = cut_cfg
+        for lm, params in lms.items():
+            t0, saving[0] = time.perf_counter(), 0.0
+            pipe.llm_params = params
+            E.export_pipeline_artifacts(pipe, out / lm, prompt_len=EXPORT_PROMPT_LEN,
+                                        graphs=("lm_prefill", "lm_decode"))
+            export_s.update({f"{lm} lm pair, {EXPORT_LM_LAYERS} layers":
+                             time.perf_counter() - t0, f"{lm} of it saving": saving[0]})
         torch.export.save = save
-        pipe.llm_params = bf16_params
+        pipe.llm_params, pipe.config = bf16_params, cfg
         files = sorted(out.rglob("*.pt2"))
         sizes = {str(f.relative_to(out)): round(f.stat().st_size / 2**20, 1) for f in files}
         meta = json.loads((out / "manifest.json").read_text())
         print(f"export: {json.dumps({'seconds': export_s, 'artifact_mib': sizes})} | {smi}")
 
         # live references, before the counted window
-        n_layers = cfg.llm.num_hidden_layers
         pad = EXPORT_PROMPT_LEN - len(prompt)
         ids = torch.tensor([[0] * pad + list(prompt)], device=dev)
         mask = torch.tensor([[False] * pad + [True] * len(prompt)], device=dev)
@@ -4376,8 +4408,8 @@ def run_export(pipe, prompt, int8_params, smi):
             feat = wav2vec2_features(pipe.w2v_params, wav, cfg.wav2vec2)
             live["tokenize"] = bicodec_tokenize(pipe.bicodec_params, cfg.bicodec, feat, ref)
             live["vocoder"] = bicodec_detokenize(pipe.bicodec_params, cfg.bicodec, sem, glob)
-            for lm, params in (("bf16", bf16_params), ("int8", int8_params)):
-                toks, _ = generate(params, cfg.llm, ids, mask, g, EXPORT_NEW_TOKENS,
+            for lm, params in lms.items():
+                toks, _ = generate(params, cut_cfg.llm, ids, mask, g, EXPORT_NEW_TOKENS,
                                    EXPORT_PROMPT_LEN + EXPORT_NEW_TOKENS, eos_ids=(), pad_id=0,
                                    greedy=True, cache_dtype=pipe.lm_dtype, units=units)
                 live[lm] = toks[0].cpu().numpy()
@@ -4397,7 +4429,9 @@ def run_export(pipe, prompt, int8_params, smi):
         peak = float(live["vocoder"].abs().max())
         rows["vocoder_rel_err"] = float((wav_art - live["vocoder"]).abs().max()) / peak
         ops = {"vocoder": vocode.ops}
-        for lm, sub, params in (("bf16", out, bf16_params), ("int8", out / "int8", int8_params)):
+        pipe.config = cut_cfg  # the near-tie rule's forward runs the cut LM
+        for lm, params in lms.items():
+            sub = out / lm
             prefill = E.load_program(sub / "lm_prefill.pt2")
             decode = E.load_program(sub / "lm_decode.pt2")
             ops[f"lm_decode {lm}"], ops[f"lm_prefill {lm}"] = decode.ops, prefill.ops
@@ -4409,15 +4443,16 @@ def run_export(pipe, prompt, int8_params, smi):
                 raise AssertionError(f"export: the {lm} programs' greedy ids part from live "
                                      f"generate at step {step}, not at a near tie")
             del prefill, decode
+        pipe.config = cfg
         _sync(dev)
         rows["load_and_run_s"] = time.perf_counter() - t0
         launches = _counts()
         print(f"export: programs vs live: {json.dumps(rows)}; ops {json.dumps(ops)} | {smi}")
         print("export launches (phase 33, the programs' runs): " + json.dumps(launches))
         want_ops = {"vocoder": {"fused_residual_unit": VOCODER_UNITS},
-                    "lm_decode bf16": {"dense_decode_attention": n_layers},
-                    "lm_decode int8": {"dense_decode_attention": n_layers,
-                                       "int8_mlp_matvec": n_layers}}
+                    "lm_decode bf16": {"dense_decode_attention": EXPORT_LM_LAYERS},
+                    "lm_decode int8": {"dense_decode_attention": EXPORT_LM_LAYERS,
+                                       "int8_mlp_matvec": EXPORT_LM_LAYERS}}
         for name, want in want_ops.items():
             if ops[name] != want:
                 raise AssertionError(f"export: the {name} program holds {ops[name]}, want {want}")
@@ -4429,7 +4464,7 @@ def run_export(pipe, prompt, int8_params, smi):
                 raise AssertionError(f"export: {name} did not launch from the programs")
     finally:
         torch.export.save = save
-        pipe.llm_params = bf16_params
+        pipe.llm_params, pipe.config = bf16_params, cfg
         shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
@@ -5140,6 +5175,173 @@ def run_pipeline_parallel(pipe, prompts, smi, tp2_ids=None):
     return [{name: sum(run[name] for run in launches) for name in launches[0]}], errs
 
 
+# ---------------------------------------------------------------------------
+# phase 37: the deploy path (scripts/run_server_torch.py) from a checkpoint
+# directory
+# ---------------------------------------------------------------------------
+
+DEPLOY_NEW_TOKENS = 48
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _grpc_stream(port, text, **kw):
+    """(chunks, sample rate) of one gRPC stream, over grpcio where it
+    imports (serve_http then serves grpcio), else over the framed transport
+    serve_http falls back to."""
+    from sparktts_tpu_torch.serve import grpc_server as G
+
+    try:
+        import grpc  # noqa: F401
+
+        stream, close = G.grpc_synthesize_stream, G.close_cached_channels
+    except ImportError:
+        stream, close = G.framed_synthesize_stream, lambda: None
+    try:
+        pairs = list(stream("127.0.0.1", port, text, **kw))
+    finally:
+        close()
+    return [c for c, _ in pairs], (pairs[0][1] if pairs else None)
+
+
+def run_deploy(model_dir: Path, wav_path: Path, smi: str):
+    """Phase 37: `scripts/run_server_torch.main` in a thread over the
+    checkpoint directory `model_dir` (phase 19's, its `_torch_cache/`
+    written), with --warmup, a voice cache of 4, a voices directory holding
+    phase 4's prompt wav, a gRPC port and DEPLOY_NEW_TOKENS a request; over
+    the socket, counts 0 after it listens and read after: an offline and a
+    streamed clone through the port's client module, /v1/audio/speech with
+    the registered voice (the streamed clone and the voice without their
+    transcript: the streaming engine's prompt room is 4 prompt buckets), one
+    gRPC stream; each 200 or OK with a finite
+    waveform (offline ones of 320 samples a semantic id, the streams
+    cross-faded), and kernels 1, 2 and 3 launched.  Then `control["stop"]()`
+    and phase 28's leak check.  Prints the load, warm-up and per-request
+    seconds; returns the launches of the requests."""
+    import importlib.util
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from sparktts_tpu_torch.io.audio import load_audio
+    from sparktts_tpu_torch.lm import graphs
+    from sparktts_tpu_torch.serve import client as C
+    from sparktts_tpu_torch.serve import server as S
+
+    spec = importlib.util.spec_from_file_location(
+        "run_server_torch", REPO / "scripts" / "run_server_torch.py")
+    run_server = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run_server)
+    voices = OUT_DIR / "deploy_voices"
+    shutil.rmtree(voices, ignore_errors=True)
+    voices.mkdir(parents=True)
+    shutil.copy(wav_path, voices / "prompt.wav")
+    port, grpc_port = _free_port(), _free_port()
+    argv = ["--model_dir", str(model_dir), "--host", "127.0.0.1", "--port", str(port),
+            "--warmup", "--voice_cache", "4", "--voices_dir", str(voices),
+            "--grpc_port", str(grpc_port), "--max_new_tokens", str(DEPLOY_NEW_TOKENS)]
+
+    mem_before = _allocated()
+    marks, serve_http = {}, S.serve_http
+
+    def timed_serve_http(pipeline, **kwargs):  # the pipeline is loaded: warm-up starts
+        marks["loaded"], marks["pipe"] = time.perf_counter(), pipeline
+        return serve_http(pipeline, **kwargs)
+
+    ctl: dict = {}
+    S.serve_http = timed_serve_http
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run_server.main, name="run_server_torch",
+                              kwargs=dict(argv=argv, control=ctl), daemon=True)
+    thread.start()
+    try:
+        while "stop" not in ctl:
+            if not thread.is_alive():
+                raise AssertionError("deploy: run_server_torch.main ended before it listened")
+            time.sleep(0.05)
+    finally:
+        S.serve_http = serve_http
+    listening = time.perf_counter()
+    pipe = marks.pop("pipe")
+    secs = {"load": marks["loaded"] - t0, "warm-up": listening - marks["loaded"]}
+    tags = {pipe.units.tag, ctl["cserver"].engine.units.tag}
+    up = pipe._wave_upsample
+    prompt = np.asarray(load_audio(wav_path, sampling_rate=16000), np.float32)
+    load = json.dumps({k: round(v, 3) for k, v in pipe.load_seconds.items()})
+    print(f"deploy: run_server_torch up on port {port} (gRPC {grpc_port}): load "
+          f"{secs['load']:.2f} s ({load}), warm-up {secs['warm-up']:.2f} s")
+    if pipe.load_seconds["read"] or pipe.load_seconds["convert"]:
+        raise AssertionError(f"deploy: the server did not load the directory's cache: "
+                             f"{pipe.load_seconds}")
+
+    def timed(label, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[label] = time.perf_counter() - t
+        return out
+
+    _sync(pipe.device)
+    _reset_counts()
+    status, _, body, _, _ = _http(port, "/health", method="GET")
+    if status != 200 or json.loads(body) != {"healthy": True}:
+        raise AssertionError(f"deploy: /health {status} {body!r}")
+    wav, sr, _ = timed("offline clone", lambda: C.synthesize(
+        "127.0.0.1", port, TEXT, prompt_wav=prompt, prompt_text=PROMPT_TEXT, timeout=600))
+    _check_audio("deploy offline clone", wav, sr, up)
+    # streamed without the transcript: the streaming engine's slots hold
+    # 4 prompt buckets (256 ids) and the budget, and the transcript clone's
+    # 448-id prompt would be refused (RequestTooLong), as in the JAX server
+    chunks = timed("streamed clone", lambda: list(C.synthesize_stream(
+        "127.0.0.1", port, TEXT, prompt_wav=prompt)))
+    if not chunks:
+        raise AssertionError("deploy: the streamed clone gave no chunk")
+    _check_audio("deploy streamed clone", np.concatenate([c for c, _ in chunks]),
+                 chunks[0][1], 1)
+    status, headers, body, _, _ = timed("/v1/audio/speech voice", lambda: _http(
+        port, "/v1/audio/speech", {"input": TEXT, "voice": "prompt"}))
+    if status != 200 or headers.get("Content-Type") != "audio/wav":
+        raise AssertionError(f"deploy: /v1/audio/speech by the registered voice: {status}")
+    rate, pcm = _wav_body(body)
+    _check_audio("deploy /v1/audio/speech voice", pcm.astype(np.float32), rate, up)
+    grpc_chunks, rate = timed("gRPC stream", lambda: _grpc_stream(
+        grpc_port, TEXT, gender="male", pitch="moderate", speed="moderate"))
+    if not grpc_chunks:
+        raise AssertionError("deploy: the gRPC stream gave no chunk")
+    _check_audio("deploy gRPC stream", np.concatenate(grpc_chunks), rate, 1)
+    _sync(pipe.device)
+    launches = _counts()
+
+    ctl["stop"]()
+    thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("deploy: run_server_torch.main did not return after stop")
+    del pipe, ctl
+    mem_after = _allocated()
+    left = [u for u in graphs.units() if u.owner in tags]
+    shutil.rmtree(voices, ignore_errors=True)
+    for label, sec in secs.items():
+        print(f"deploy seconds, {label}: {sec:.3f} | {smi}")
+    path_kernels = ("flash_attention_prefill", "dense_decode_attention", "fused_residual_unit")
+    print("deploy launches of the requests: " + json.dumps({k: launches[k] for k in path_kernels}))
+    print(f"deploy leak check: memory_allocated {mem_before / 2**20:.1f} MiB before the phase, "
+          f"{mem_after / 2**20:.1f} MiB after it (its server stopped and its pipeline dropped), "
+          f"{(mem_after - mem_before) / 2**20:+.1f} MiB (margin {LEAK_MARGIN_MIB} MiB); decode "
+          f"units of its pipeline and engine left: {len(left)}")
+    for name in path_kernels:
+        if launches[name] < 1:
+            raise AssertionError(f"deploy: {name} was not launched while the server answered")
+    if left or mem_after - mem_before > LEAK_MARGIN_MIB * 2**20:
+        raise AssertionError("deploy: the stopped server's memory or units stayed")
+    return launches
+
+
 #: Seconds of each group of phases in this run (`mark`), printed before the
 #: kernels line.
 PHASE_S: dict = {}
@@ -5245,6 +5447,17 @@ def main() -> int:
         prompts = [(build_control_prompt(pipe.tokenizer, TEXT, **VOICE), "control"),
                    (build_clone_prompt(pipe.tokenizer, TEXT, glob, sem, PROMPT_TEXT), "clone")]
         run_pipeline_parallel(pipe, prompts, smi)
+        return 0
+    if "--deploy-only" in sys.argv[1:]:
+        # phase 37 alone over a checkpoint written as phase 19 writes it, no
+        # kernels line and no result line
+        del pipe
+        wav_path = make_prompt_wav(OUT_DIR / "clone_prompt.wav")
+        t0 = time.perf_counter()
+        write_checkpoint(CKPT_DIR, dev)
+        SparkTTSPipeline(model_dir=CKPT_DIR, device=dev)  # the first load writes its cache
+        print(f"deploy: checkpoint written and loaded once in {time.perf_counter() - t0:.1f} s")
+        run_deploy(CKPT_DIR, wav_path, smi)
         return 0
     if "--bench-only" in sys.argv[1:]:
         # phase 30 alone, no kernels line and no result line
@@ -5354,6 +5567,11 @@ def main() -> int:
         pipe, [(creation[1], "control"), (cloning[1], "clone")], smi, tp2_ids)
     torch.cuda.empty_cache()
     mark("36 pipeline parallelism, mesh training, dryrun_multichip")
+    # the deploy path over phase 19's checkpoint directory, deleted after
+    deploy_launches = run_deploy(CKPT_DIR, wav_path, smi)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("37 deploy")
 
     entries.append(paged_entry)
     entries[1]["by_shape"].append(dense_state)
@@ -5374,7 +5592,8 @@ def main() -> int:
     runs = [r[0] for r in (creation, cloning, cloning_int8, creation_int4)] + list(engine_launches)
     runs += [stream_launches, *checkpoint_launches, untied_launches, batch_launches, long_launches,
              cache_launches, *server_launches, front_launches, spec_launches, bench_launches,
-             distill_launches, export_launches, *tp_launches, *codec_launches, *pp_launches]
+             distill_launches, export_launches, *tp_launches, *codec_launches, *pp_launches,
+             deploy_launches]
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in runs)
     print("phase seconds:", json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
@@ -5390,4 +5609,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        # phase 19 keeps its checkpoint for phase 37: never leave its 2.9 GB
+        # behind, whatever phase stopped the run
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    sys.exit(rc)

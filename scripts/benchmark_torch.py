@@ -8,9 +8,10 @@ jsonl manifest or synthetic tasks.  The counterpart of
         --mode offline --concurrency 2
 
 Without `--model_dir` it benchmarks the full Spark-TTS-0.5B architecture on
-random weights (seed 0); `--ignore_eos` fixes the token budget, since random
-weights sample EOS at chance level.  It runs on the card unless `--device
-cpu` is given, and raises without one.
+random weights (seed 0), or the tiny config with `--tiny` (a smoke run, as
+`scripts/deploy_torch.sh` runs it without a checkpoint); `--ignore_eos`
+fixes the token budget, since random weights sample EOS at chance level.
+It runs on the card unless `--device cpu` is given, and raises without one.
 """
 import argparse
 import json
@@ -29,6 +30,8 @@ def main():
     parser.add_argument("--num_synthetic", type=int, default=4)
     parser.add_argument("--max_new_tokens", type=int, default=3000)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--tiny", action="store_true",
+                        help="the random-init tiny config (without --model_dir)")
     parser.add_argument("--output", default=None, help="write stats JSON here")
     parser.add_argument(
         "--ignore_eos", action="store_true",
@@ -45,12 +48,12 @@ def main():
         run_offline_benchmark,
         run_streaming_benchmark,
     )
-    from sparktts_tpu_torch.config import SparkTTSConfig
+    from sparktts_tpu_torch.config import SparkTTSConfig, tiny_test_config
     from sparktts_tpu_torch.pipeline import SparkTTSPipeline
 
     pipe = SparkTTSPipeline(
         model_dir=args.model_dir,
-        config=None if args.model_dir else SparkTTSConfig(),
+        config=None if args.model_dir else tiny_test_config() if args.tiny else SparkTTSConfig(),
         device=args.device,
         max_new_tokens=args.max_new_tokens,
     )

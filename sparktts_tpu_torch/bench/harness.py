@@ -37,6 +37,57 @@ class BenchTask:
     max_new_tokens: Optional[int] = None  # per-task target-length override
 
 
+def make_tasks(n: int, max_new_choices, prompt_secs=(3, 6)) -> List[BenchTask]:
+    """Synthetic manifest (a copy of `scripts/run_dataset_bench.py`'s
+    `make_tasks`): seeded noise prompts in a few duration buckets and
+    per-task generation budgets -- varied prompt and target lengths over a
+    bounded set of shapes.  Texts stay short enough that every prompt lands
+    in one prompt bucket: batch composition depends on timing, so another
+    bucket would put first runs inside timed runs."""
+    rng = np.random.default_rng(0)
+    sr = 16000
+    words = ("the quick brown fox jumps over the lazy dog and runs far away "
+             "while birds sing in the tall green trees near the river").split()
+    tasks = []
+    for i in range(n):
+        dur = prompt_secs[i % len(prompt_secs)]
+        wav = (0.2 * rng.standard_normal(int(dur * sr))).astype(np.float32)
+        n_words = 4 + (i * 3) % 8
+        text = " ".join(words[(i * 3 + j) % len(words)] for j in range(n_words))
+        tasks.append(BenchTask(text=text, prompt_wav=wav,
+                               max_new_tokens=max_new_choices[i % len(max_new_choices)]))
+    return tasks
+
+
+def script_pipeline(tiny: bool, device, max_new_tokens: int, int8: bool = True,
+                    model_dir=None):
+    """The pipeline a bench script serves (`scripts/*_torch.py`): with `tiny`
+    the random-init tiny config (fp32 LM, prompt bucket 32), else the
+    checkpoint in `model_dir` or the full Spark-TTS-0.5B config on random
+    weights (seed 0), its LM quantized to int8 unless `int8=False`.  On
+    `device` (default: $SPARKTTS_PLATFORM, else the card; it raises without
+    one)."""
+    import torch
+
+    from sparktts_tpu_torch.config import SparkTTSConfig, tiny_test_config
+    from sparktts_tpu_torch.pipeline import SparkTTSPipeline
+    from sparktts_tpu_torch.utils.platform import apply_platform_env
+
+    device = device or apply_platform_env()
+    if tiny:
+        return SparkTTSPipeline(config=tiny_test_config(), device=device,
+                                lm_dtype=torch.float32, max_new_tokens=max_new_tokens,
+                                prompt_bucket=32)
+    pipe = SparkTTSPipeline(model_dir=model_dir,
+                            config=None if model_dir else SparkTTSConfig(), device=device,
+                            max_new_tokens=max_new_tokens)
+    if int8:
+        from sparktts_tpu_torch.lm.quant import quantize_qwen_int8
+
+        pipe.llm_params = quantize_qwen_int8(pipe.llm_params)
+    return pipe
+
+
 def load_manifest(path: str | Path) -> List[BenchTask]:
     """jsonl manifest: {"target_text": ..., "reference_wav_path": ...,
     "reference_text": ...} per line (same fields the reference's dataset

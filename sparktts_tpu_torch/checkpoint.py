@@ -60,6 +60,12 @@ def load_safetensors(path: str | Path) -> State:
     return read_safetensors(path)[0]
 
 
+def torch_state_to_numpy(module) -> dict:
+    """A torch module's state_dict as numpy arrays (a test helper, as in the
+    JAX package)."""
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+
 def read_safetensors(path: str | Path) -> Tuple[State, Dict[str, str]]:
     """(`load_safetensors`'s tensors, the header's string metadata)."""
     with open(path, "rb") as f:

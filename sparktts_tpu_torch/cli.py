@@ -61,18 +61,19 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def load_pipeline(model_dir=None, max_new_tokens: int = 3000, device=None):
+def load_pipeline(model_dir=None, max_new_tokens: int = 3000, device=None, **kwargs):
     """The checkpoint's pipeline, or the random-init tiny config's without
-    `model_dir`, on `device` (default: `apply_platform_env()`)."""
+    `model_dir`, on `device` (default: `apply_platform_env()`); `kwargs` go
+    to `SparkTTSPipeline` (the server's guided, speculative_k,
+    voice_cache_size)."""
     from sparktts_tpu_torch.config import tiny_test_config
     from sparktts_tpu_torch.pipeline import SparkTTSPipeline
     from sparktts_tpu_torch.utils.platform import apply_platform_env
 
-    device = device or apply_platform_env()
-    if model_dir is None:
-        return SparkTTSPipeline(config=tiny_test_config(), max_new_tokens=max_new_tokens,
-                                device=device)
-    return SparkTTSPipeline(model_dir=model_dir, max_new_tokens=max_new_tokens, device=device)
+    return SparkTTSPipeline(model_dir=model_dir,
+                            config=None if model_dir else tiny_test_config(),
+                            max_new_tokens=max_new_tokens, device=device or apply_platform_env(),
+                            **kwargs)
 
 
 def run_tts(args) -> str:

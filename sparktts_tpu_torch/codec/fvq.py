@@ -1,7 +1,8 @@
 """Factorized VQ: the semantic token codebook.
 
-Port of `fvq_tokenize`, `fvq_detokenize` and the eval forward `fvq_forward`
-(with its codebook usage statistics) of `sparktts_tpu/codec/fvq.py`.
+Port of `fvq_tokenize`, `fvq_detokenize`, the eval forward `fvq_forward`
+(with its codebook usage statistics), `fvq_vq2emb` and `fvq_get_emb` of
+`sparktts_tpu/codec/fvq.py`.
 """
 
 from __future__ import annotations
@@ -60,3 +61,17 @@ def fvq_forward(p, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         "perplexity": perplexity,
         "active_num": (counts > 0).sum().float(),
     }
+
+
+def fvq_vq2emb(p, vq: torch.Tensor, out_proj: bool = True) -> torch.Tensor:
+    """Code indices -> their codebook rows, projected out unless
+    `out_proj=False` (reference `factorized_vector_quantize.py:142-146`)."""
+    emb = F.embedding(vq.long(), p["codebook"])
+    if out_proj and "out_project" in p:
+        emb = linear_apply(p["out_project"], emb)
+    return emb
+
+
+def fvq_get_emb(p) -> torch.Tensor:
+    """The codebook (reference `factorized_vector_quantize.py:160-161`)."""
+    return p["codebook"]

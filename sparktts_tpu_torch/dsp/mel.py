@@ -97,12 +97,18 @@ def make_mel_basis(params: MelParams) -> MelBasis:
     )
 
 
+def frame_signal(wav: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """(B, T) -> (B, num_frames, n_fft): center=True reflect padding, then
+    frames of n_fft samples every hop_length (a strided view)."""
+    pad = n_fft // 2
+    x = F.pad(wav[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    return x.unfold(1, n_fft, hop_length)
+
+
 def mel_spectrogram(wav: torch.Tensor, basis: MelBasis) -> torch.Tensor:
     """(B, T) -> (B, num_frames, n_mels) fp32 magnitude mel, channels-last."""
     dev = wav.device
-    pad = basis.n_fft // 2
-    x = F.pad(wav.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = x.unfold(1, basis.n_fft, basis.hop_length)  # (B, F, n_fft)
+    frames = frame_signal(wav.float(), basis.n_fft, basis.hop_length)
     frames = frames * torch.from_numpy(basis.window).to(dev)
     real = frames @ torch.from_numpy(basis.rfft_real).to(dev)
     imag = frames @ torch.from_numpy(basis.rfft_imag).to(dev)

@@ -17,10 +17,31 @@ import torch
 
 NEG_INF = -1e9
 
+_CHUNK = 2048  # per-chunk width of `topk_two_stage`
+
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
 #: A float for the whole batch, or a (B, 1) tensor: one value per row (the
 #: continuous engines keep each request's temperature and top_p per slot).
 PerRow = Union[float, torch.Tensor]
+
+
+def topk_two_stage(x: torch.Tensor, k: int):
+    """Exact top-k over a large last axis in two stages: a top-k in each
+    chunk of max(2048, k) columns (the last padded with NEG_INF), then a
+    top-k over the chunk winners.  Exact because every element of the global
+    top-k is in its own chunk's top-k.  A utility, as in the JAX package: the
+    sampler takes the flat `torch.topk`.  Returns (values, indices) (B, k),
+    indices int64."""
+    b, v = x.shape
+    c = max(_CHUNK, k)
+    n = -(-v // c)
+    pad = n * c - v
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=NEG_INF)
+    vals1, idx1 = torch.topk(x.reshape(b, n, c), k, dim=-1)    # (B, n, k)
+    vals2, pos = torch.topk(vals1.reshape(b, n * k), k, dim=-1)  # over the chunk winners
+    within = torch.gather(idx1.reshape(b, n * k), 1, pos)
+    return vals2, torch.div(pos, k, rounding_mode="floor") * c + within
 
 
 def _warp(logits: torch.Tensor, temperature: PerRow, top_k: int, top_p: PerRow):

@@ -1,6 +1,6 @@
 """Prompt assembly and token-id arithmetic (host code).
 
-A copy of `sparktts_tpu/prompt.py` and the maps of `sparktts_tpu/utils/tokens.py`.
+A copy of `sparktts_tpu/prompt.py`; the maps come from `utils/tokens.py`.
 Every `<|bicodec_semantic_N|>` / `<|bicodec_global_N|>` is one tokenizer id
 at a contiguous base offset, so audio-token <-> LLM-token conversion is
 addition.  Two tokenizers give those ids: `HFSparkTokenizer`, the
@@ -18,22 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-TASK_TOKEN_MAP = {
-    "vc": "<|task_vc|>",
-    "tts": "<|task_tts|>",
-    "asr": "<|task_asr|>",
-    "s2s": "<|task_s2s|>",
-    "t2s": "<|task_t2s|>",
-    "understand": "<|task_understand|>",
-    "caption": "<|task_cap|>",
-    "controllable_tts": "<|task_controllable_tts|>",
-    "prompt_tts": "<|task_prompt_tts|>",
-    "speech_edit": "<|task_edit|>",
-}
-
-LEVELS_MAP = {"very_low": 0, "low": 1, "moderate": 2, "high": 3, "very_high": 4}
-
-GENDER_MAP = {"female": 0, "male": 1}
+from sparktts_tpu_torch.utils.tokens import GENDER_MAP, LEVELS_MAP, TASK_TOKEN_MAP
 
 _CONTROL_TOKENS = [
     "<|start_content|>",

@@ -6,6 +6,8 @@ its random init has the JAX init's tree at the full Spark-TTS-0.5B widths."""
 
 import ast
 import json
+import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -100,6 +102,62 @@ def test_bench_scripts_and_modules_import_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+DEPLOY_AND_AB_SCRIPTS = ("run_server_torch", "run_dataset_bench_torch", "bench_first_chunk_torch",
+                         "bench_paged_ab_torch", "bench_long_stream_torch",
+                         "bench_dispatch_scaling_torch", "bench_speculative_torch")
+
+_IMPORT_SCRIPTS = """
+import importlib.util, json, sys
+for name in %r:
+    spec = importlib.util.spec_from_file_location(name, "scripts/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sparktts_tpu"))
+print(json.dumps(bad))
+""" % (DEPLOY_AND_AB_SCRIPTS,)
+
+
+def test_deploy_and_ab_scripts_import_no_jax():
+    """The deploy script and the serving A/B scripts (imported as modules:
+    their work runs in `main`) import nothing of JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_SCRIPTS], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", DEPLOY_AND_AB_SCRIPTS)
+def test_deploy_and_ab_scripts_need_a_card(name, monkeypatch):
+    """Each runs on the card unless --device or SPARKTTS_PLATFORM asks for
+    the CPU, and raises without one before it serves or measures anything."""
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SPARKTTS_PLATFORM", raising=False)
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    argv = ["--port", "0"] if name == "run_server_torch" else ["--tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(argv)
+
+
+def test_deploy_runbook_needs_a_card(tmp_path):
+    """`deploy_torch.sh` runs its stages on the card unless
+    SPARKTTS_PLATFORM=cpu, and stops at the first without one."""
+    env = {k: v for k, v in os.environ.items() if k != "SPARKTTS_PLATFORM"}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = subprocess.run(["bash", str(REPO / "scripts" / "deploy_torch.sh"), "0", "0"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env=dict(env, CUDA_VISIBLE_DEVICES="", WORK=str(tmp_path / "work"),
+                                  PORT=str(port)))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "stage 0 OK" not in out.stdout
 
 
 def test_front_doors_import_no_jax_grpc_or_protobuf():
