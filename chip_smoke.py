@@ -4337,8 +4337,13 @@ def run_export(pipe, prompt, int8_params, smi):
     within WINDOW_REL_TOL of the live `bicodec_detokenize`, and greedy ids of
     the LM programs (the creation prompt left-padded to EXPORT_PROMPT_LEN)
     the live `generate`'s of the same cut LM or first apart at a near tie
-    (phase 14's rule), bf16 and int8.  Kernels 2, 3 and 4 must launch while
-    the programs run.  Returns the launches of the programs' runs."""
+    (phase 14's rule), bf16 and int8.  Each program runs twice: eagerly
+    (`LoadedProgram.eager`, the graph walked op by op) and replayed (a call:
+    the CUDA graph captured at its first call), and both runs are held to
+    the live path by those rules; the eager and the replayed decode ms a
+    step are printed.  Kernels 2, 3 and 4 must launch from the eager runs
+    and from the replays, and dropping the programs must give their memory
+    back (LEAK_MARGIN_MIB).  Returns the launches of the programs' runs."""
     import dataclasses
     import shutil
 
@@ -4416,38 +4421,65 @@ def run_export(pipe, prompt, int8_params, smi):
         units.clear()
         _sync(dev)
 
-        _reset_counts()
-        rows = {}
-        t0 = time.perf_counter()
-        mel = E.load_program(out / manifest["mel"])(ref)
-        rows["mel_rel_err"] = float((mel - live["mel"]).abs().max() / live["mel"].abs().max())
-        sem_t, glob_t = E.load_program(out / manifest["audio_tokenize"])(wav, ref)
-        agree = [float((a == b).float().mean()) for a, b in zip((sem_t, glob_t), live["tokenize"])]
-        rows["tokenize_agreement"] = agree
-        vocode = E.load_program(out / manifest["vocoder"])
-        wav_art = vocode(sem, glob)
-        peak = float(live["vocoder"].abs().max())
-        rows["vocoder_rel_err"] = float((wav_art - live["vocoder"]).abs().max()) / peak
-        ops = {"vocoder": vocode.ops}
+        before = _allocated()
+        programs = {name: E.load_program(out / manifest[name])
+                    for name in ("mel", "audio_tokenize", "vocoder")}
+        for lm in lms:
+            for name in ("lm_prefill", "lm_decode"):
+                programs[f"{name} {lm}"] = E.load_program(out / lm / f"{name}.pt2")
+        ops = {name: p.ops for name, p in programs.items()}
+        rows, launches, peak = {}, {}, float(live["vocoder"].abs().max())
         pipe.config = cut_cfg  # the near-tie rule's forward runs the cut LM
-        for lm, params in lms.items():
-            sub = out / lm
-            prefill = E.load_program(sub / "lm_prefill.pt2")
-            decode = E.load_program(sub / "lm_decode.pt2")
-            ops[f"lm_decode {lm}"], ops[f"lm_prefill {lm}"] = decode.ops, prefill.ops
-            got, ms = _artifact_greedy(prefill, decode, ids, mask, EXPORT_NEW_TOKENS)
-            ok, step = _near_tie_ok(pipe, params, prompt, None, np.asarray(got), live[lm])
-            rows[f"greedy {lm}"] = dict(equal=step is None, first_apart=step, near_tie_ok=ok,
-                                        decode_ms=ms)
-            if not ok:
-                raise AssertionError(f"export: the {lm} programs' greedy ids part from live "
-                                     f"generate at step {step}, not at a near tie")
-            del prefill, decode
+        t0 = time.perf_counter()
+        for how in ("eager", "replayed"):
+            def run(name):
+                p = programs[name]
+                return p.eager if how == "eager" else p
+
+            _reset_counts()
+            row = {}
+            mel = run("mel")(ref)
+            row["mel_rel_err"] = float((mel - live["mel"]).abs().max() / live["mel"].abs().max())
+            tokens = run("audio_tokenize")(wav, ref)
+            row["tokenize_agreement"] = [float((a == b).float().mean())
+                                         for a, b in zip(tokens, live["tokenize"])]
+            wav_art = run("vocoder")(sem, glob)
+            row["vocoder_rel_err"] = float((wav_art - live["vocoder"]).abs().max()) / peak
+            del mel, tokens, wav_art
+            for lm, params in lms.items():
+                got, ms = _artifact_greedy(run(f"lm_prefill {lm}"), run(f"lm_decode {lm}"), ids,
+                                           mask, EXPORT_NEW_TOKENS)
+                ok, step = _near_tie_ok(pipe, params, prompt, None, np.asarray(got), live[lm])
+                row[f"greedy {lm}"] = dict(equal=step is None, first_apart=step,
+                                           near_tie_ok=ok, decode_ms=ms)
+                if not ok:
+                    raise AssertionError(f"export: the {lm} programs' greedy ids ({how}) part "
+                                         f"from live generate at step {step}, not at a near tie")
+            _sync(dev)
+            launches[how] = _counts()
+            rows[how] = row
+            if not (row["mel_rel_err"] <= 1e-5
+                    and min(row["tokenize_agreement"]) >= TOKENIZE_AGREEMENT
+                    and row["vocoder_rel_err"] <= WINDOW_REL_TOL):
+                raise AssertionError(f"export: a codec program ({how}) disagrees with the live "
+                                     f"path: {row}")
+            for name in ("dense_decode_attention", "fused_residual_unit", "int8_mlp_matvec"):
+                if not launches[how][name]:
+                    raise AssertionError(f"export: {name} did not launch from the programs ({how})")
         pipe.config = cfg
-        _sync(dev)
         rows["load_and_run_s"] = time.perf_counter() - t0
-        launches = _counts()
-        print(f"export: programs vs live: {json.dumps(rows)}; ops {json.dumps(ops)} | {smi}")
+        rows["captured"] = {name: [round(c.capture_ms, 1) for c in p.captured.values()]
+                            for name, p in programs.items()}
+        decode_ms = {f"{lm} {how}": rows[how][f"greedy {lm}"]["decode_ms"]
+                     for lm in lms for how in ("eager", "replayed")}
+        del programs
+        leak_mib = (_allocated() - before) / 2**20
+        rows["leak_mib"] = leak_mib
+        print(f"export: programs vs live, eager and replayed: {json.dumps(rows)}; "
+              f"ops {json.dumps(ops)} | {smi}")
+        print(f"export: decode ms a step, {EXPORT_LM_LAYERS} layers: {json.dumps(decode_ms)} "
+              f"| {smi}")
+        launches = {k: launches["eager"][k] + launches["replayed"][k] for k in launches["eager"]}
         print("export launches (phase 33, the programs' runs): " + json.dumps(launches))
         want_ops = {"vocoder": {"fused_residual_unit": VOCODER_UNITS},
                     "lm_decode bf16": {"dense_decode_attention": EXPORT_LM_LAYERS},
@@ -4456,12 +4488,9 @@ def run_export(pipe, prompt, int8_params, smi):
         for name, want in want_ops.items():
             if ops[name] != want:
                 raise AssertionError(f"export: the {name} program holds {ops[name]}, want {want}")
-        if not (rows["mel_rel_err"] <= 1e-5 and min(agree) >= TOKENIZE_AGREEMENT
-                and rows["vocoder_rel_err"] <= WINDOW_REL_TOL):
-            raise AssertionError(f"export: a codec program disagrees with the live path: {rows}")
-        for name in ("dense_decode_attention", "fused_residual_unit", "int8_mlp_matvec"):
-            if not launches[name]:
-                raise AssertionError(f"export: {name} did not launch from the programs")
+        if leak_mib > LEAK_MARGIN_MIB:
+            raise AssertionError(f"export: dropping the loaded programs left {leak_mib:.1f} MiB "
+                                 f"allocated (limit {LEAK_MARGIN_MIB})")
     finally:
         torch.export.save = save
         pipe.llm_params, pipe.config = bf16_params, cfg

@@ -17,19 +17,23 @@ implementation launches the kernel (its CPU one runs the plain version).
 hold, so no export records a plain version in a kernel's place.  Programs
 of the codec (mel, tokenize, vocoder) record that they run in full fp32,
 and `load_program` runs them under `nn/layers.full_fp32` (a program does
-not carry PyTorch's TF32 flags).
+not carry PyTorch's TF32 flags).  On the card a loaded program replays a
+CUDA graph captured at its first call (`LoadedProgram`), as the live decode
+replays its units.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
 from sparktts_tpu_torch.kernels import ops
+from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.qwen import int8_mlp_fusable
 from sparktts_tpu_torch.nn.layers import full_fp32
 
@@ -66,16 +70,90 @@ def export_program(fn, args: Tuple, path: str | Path, kernels: Iterable[str] = (
 
 class LoadedProgram:
     """A loaded program: call it as the exported function.  `module` is the
-    runnable graph module, `ops` the kernel ops it holds."""
+    runnable graph module, `ops` the kernel ops it holds.
+
+    On the card a program runs as the replay of a CUDA graph, the
+    counterpart of JAX's compiled `Exported.call`: the first call with a
+    signature (each argument's shape, dtype and device) captures the module
+    once over input buffers of its own (`graphs.CapturedCall`: a warm-up on a
+    stream of its own first, the replays counted in `graphs.launches()`);
+    every call copies its arguments in, replays, and returns copies that the
+    caller owns, so a result held across later calls (a cache fed back in)
+    never changes.  Dropping the program frees its graphs and their pools.
+    On the CPU the module runs eagerly.  Before a capture, the program's
+    host constants move to the card (`_host_constants_to_card`), so every
+    program of the manifest captures."""
 
     def __init__(self, module: torch.nn.Module, meta: dict):
         self.module = module
         self.ops = ops.graph_ops(module.graph)
         self.fp32 = bool(meta.get("fp32"))
+        self.captured: Dict[tuple, graphs.CapturedCall] = {}  # by signature
+        self._lock = threading.Lock()
 
-    def __call__(self, *args):
+    def eager(self, *args):
+        """The module walked op by op, on any device (what a call runs on the
+        CPU; on the card, the reference a replay is held to)."""
         with torch.no_grad(), (full_fp32() if self.fp32 else contextlib.nullcontext()):
             return self.module(*args)
+
+    def __call__(self, *args):
+        if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            return self.eager(*args)
+        with torch.no_grad(), (full_fp32() if self.fp32 else contextlib.nullcontext()):
+            key = tuple((a.shape, a.dtype, a.device) for a in args)
+            with self._lock:
+                call = self.captured.get(key)
+                if call is None:
+                    _host_constants_to_card(self.module, args[0].device)
+                    call = graphs.CapturedCall(self.module, args)
+                    self.captured[key] = call
+                return call(*args)
+
+
+def _tensor_attrs(module: torch.fx.GraphModule):
+    """[(get_attr node, owning module, attribute name, tensor)] of the graph."""
+    out = []
+    for node in module.graph.nodes:
+        if node.op == "get_attr":
+            *path, name = node.target.split(".")
+            owner = module
+            for part in path:
+                owner = getattr(owner, part)
+            value = getattr(owner, name)
+            if isinstance(value, torch.Tensor):
+                out.append((node, owner, name, value))
+    return out
+
+
+def _host_constants_to_card(module: torch.fx.GraphModule, card: torch.device) -> int:
+    """Move a program's host constants to `card`; returns how many moved.  A
+    table the traced code builds with numpy (the mel bases, the FSQ levels
+    and scales, the RoPE frequencies) is recorded as a CPU constant that
+    each call copies (`lift_fresh_copy`), checks to be on the CPU
+    (`_assert_tensor_metadata`) and copies to the card, and a CUDA graph
+    cannot capture a copy from pageable host memory.  Once the constant lies
+    on the card, and its checks name the card, both copies are device to
+    device."""
+    moved = set()
+    for node, owner, name, value in _tensor_attrs(module):
+        if value.device.type == "cpu":
+            on_card = value.to(card)
+            if isinstance(value, torch.nn.Parameter):
+                on_card = torch.nn.Parameter(on_card, requires_grad=value.requires_grad)
+            setattr(owner, name, on_card)
+            moved.add(node)
+    count = len(moved)
+    aten = torch.ops.aten
+    for node in module.graph.nodes:
+        if node.op != "call_function" or not node.args or node.args[0] not in moved:
+            continue
+        if node.target is aten.lift_fresh_copy.default:
+            moved.add(node)  # a copy of the constant: on the card too
+        elif node.target is aten._assert_tensor_metadata.default and "device" in node.kwargs:
+            node.kwargs = {**node.kwargs, "device": card}
+    module.recompile()
+    return count
 
 
 def load_program(path: str | Path) -> LoadedProgram:

@@ -57,6 +57,11 @@ runs its scan eagerly on the card too, and is cached like the others.
 Units have owners (`UnitCache`): a pipeline keeps the units of its
 `generate` and `decode_chunk` calls, an engine those of its dispatches, and
 each goes with its owner or when the owner evicts it.
+
+A `CapturedCall` is the same capture for one call of any function over
+input buffers of its own: a loaded export program replays through one, as
+do the attribution scripts' timed loops (`scripts/bench_decode_*_torch.py`,
+`scripts/bench_vocoder_torch.py`).
 """
 
 from __future__ import annotations
@@ -66,9 +71,10 @@ import itertools
 import threading
 import time
 import weakref
-from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from sparktts_tpu_torch.kernels import (
     arrivals,
@@ -127,6 +133,27 @@ def reset_launches() -> None:
             REPLAYED[name] = 0
 
 
+def note_replay(launches: Dict[str, int]) -> None:
+    """Add a graph replay's kernel launches (its capture's tally) to `REPLAYED`."""
+    with _replayed_lock:
+        for name, n in launches.items():
+            REPLAYED[name] += n
+
+
+@contextlib.contextmanager
+def set_up() -> Iterator[Dict[str, int]]:
+    """The block is set-up, not the caller's work: a warm-up, or a capture
+    (which records launches without running them).  This thread's launches
+    inside it (`build.launch_tally`) are taken back from the wrappers'
+    counts when it ends; yields their tally."""
+    with build.launch_tally() as tally:
+        try:
+            yield tally
+        finally:
+            for name, m in KERNELS.items():
+                m.launches -= tally.get(name, 0)
+
+
 class DecodeUnit:
     """U decode steps over fixed state buffers: one CUDA graph on the card,
     the eager scan on the CPU."""
@@ -180,8 +207,9 @@ class DecodeUnit:
             graph.register_generator_state(generator)
         scratch = _clone(self.state)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with build.launch_tally() as warm, torch.cuda.stream(stream):
+        with set_up() as warm, torch.cuda.stream(stream):
             self._body(scratch, torch.empty_like(self.out))
+        self.setup_launches.update(warm)
         stream.synchronize()
         del scratch
         reserved = torch.cuda.memory_reserved(self.device)  # the graph's pool is new segments
@@ -192,7 +220,7 @@ class DecodeUnit:
         # first, which would stall every other thread's dispatches (a server
         # captures in background threads while it serves)
         try:
-            with build.launch_tally() as captured, torch.cuda.stream(stream):
+            with set_up() as captured, torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self._body(self.state, self.out)
@@ -200,11 +228,7 @@ class DecodeUnit:
                     graph.capture_end()
         finally:
             torch.cuda.set_stream(caller)  # a failed capture leaves its stream current
-            # set-up, this thread's launches only: replays count the unit's
-            for name, m in KERNELS.items():
-                m.launches -= warm.get(name, 0) + captured.get(name, 0)
-                self.setup_launches[name] = warm.get(name, 0)
-                self.unit_launches[name] = captured.get(name, 0)
+        self.unit_launches.update(captured)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
@@ -246,9 +270,7 @@ class DecodeUnit:
             else:
                 self.graph.replay()
                 self._replayed.record()
-                with _replayed_lock:
-                    for name, n in self.unit_launches.items():
-                        REPLAYED[name] += n
+                note_replay(self.unit_launches)
             self.replays += 1
         return self.out
 
@@ -271,6 +293,75 @@ def unpack(outs: List[torch.Tensor], steps: int) -> Tuple[torch.Tensor, torch.Te
     toks = torch.cat([o[:, :steps] for o in outs], dim=1).long()
     valid = torch.cat([o[:, steps:] for o in outs], dim=1).bool()
     return toks, valid
+
+
+class CapturedCall:
+    """`fn(*inputs)` captured once as a CUDA graph over input buffers of its
+    own (`inputs`, clones of the example `args`), for work that is run again
+    and again at one signature: a loaded export program
+    (`export.LoadedProgram`) and the attribution scripts' timed loops.
+
+    The capture is a decode unit's: a warm-up on a stream of its own first,
+    arrival counters of its own (`arrivals.private`), the set-up's launches
+    taken back, and each replay adding the capture's launches (`launches`)
+    to `REPLAYED`; `generators` are registered with the graph, so their
+    draws advance at every replay.  `replay` runs the graph over whatever
+    `inputs` hold and returns `outputs`, which the next replay overwrites;
+    calling the object copies its arguments in first and returns copies
+    that the caller owns.  On the CPU nothing is captured: `replay` runs fn
+    eagerly."""
+
+    def __init__(self, fn: Callable, args: Sequence[torch.Tensor],
+                 generators: Sequence[torch.Generator] = ()):
+        self.fn = fn
+        self.inputs = [a.clone() for a in args]
+        self.device = self.inputs[0].device
+        self.outputs: Any = None
+        self.launches = dict.fromkeys(KERNELS, 0)  # launches a replay
+        self.capture_ms = 0.0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        if self.device.type == "cuda":
+            self._capture(generators)
+
+    def _capture(self, generators: Sequence[torch.Generator]) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for generator in generators:  # before the stream waits (`DecodeUnit._capture_on`)
+            graph.register_generator_state(generator)
+        caller = torch.cuda.current_stream(self.device)
+        with arrivals.private(self.device) as counters:
+            self._counters = counters  # bound by the graph: kept as long as it
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(caller)
+            with set_up(), torch.cuda.stream(stream):
+                self.fn(*self.inputs)
+            stream.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with set_up() as captured, torch.cuda.stream(stream):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self.outputs = self.fn(*self.inputs)
+                    finally:
+                        graph.capture_end()
+            finally:
+                torch.cuda.set_stream(caller)
+        self.launches.update(captured)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph = graph
+
+    def replay(self) -> Any:
+        """One run over `inputs`, on the current stream; returns `outputs`."""
+        if self.graph is None:
+            self.outputs = self.fn(*self.inputs)
+        else:
+            self.graph.replay()
+            note_replay(self.launches)
+        return self.outputs
+
+    def __call__(self, *args: torch.Tensor) -> Any:
+        for mine, theirs in zip(self.inputs, args):
+            mine.copy_(theirs)
+        return pytree.tree_map(torch.clone, self.replay())
 
 
 #: Device types whose units are cached.  On the CPU a unit is built fresh

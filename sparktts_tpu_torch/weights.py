@@ -288,6 +288,13 @@ def init_qwen(
     return _cast(params, dtype)
 
 
+def init_wave_generator(
+    cfg: WaveGeneratorConfig, generator: Optional[torch.Generator] = None, device="cuda"
+) -> dict:
+    """Random fp32 params of the WaveGenerator alone (the vocoder bench's)."""
+    return _Init(generator, device).wave_generator(cfg)
+
+
 def init_bicodec(
     cfg: BiCodecConfig, generator: Optional[torch.Generator] = None, device="cuda"
 ) -> dict:

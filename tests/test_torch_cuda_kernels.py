@@ -1084,8 +1084,10 @@ def test_custom_op_launches_its_kernel_and_matches_plain(name):
 @pytest.mark.cuda
 def test_program_exported_on_the_card_launches_its_kernel(tmp_path):
     """A program exported from card inputs holds the op node and no plain
-    version; the reloaded program launches the kernel."""
+    version; the reloaded program launches the kernel (once a call: the
+    replay of the graph captured at its first call)."""
     from sparktts_tpu_torch import export
+    from sparktts_tpu_torch.lm import graphs
 
     dev = _cuda()
     q, ck, cv, start, pos = _decode_case(dev, 1, 704, [0], [300])
@@ -1093,12 +1095,12 @@ def test_program_exported_on_the_card_launches_its_kernel(tmp_path):
     def fn(q, ck, cv, start, pos):
         return da.dense_decode_attention(q, ck, cv, 1, start, pos, sm_scale=0.125) * 2
 
-    before = da.launches
+    before = graphs.launches()["dense_decode_attention"]
     assert export.export_program(fn, (q, ck, cv, start, pos), tmp_path / "d.pt2",
                                  kernels=("dense_decode_attention",)) == {
         "dense_decode_attention": 1}
-    assert da.launches == before
+    assert graphs.launches()["dense_decode_attention"] == before
     program = export.load_program(tmp_path / "d.pt2")
     got = program(q, ck, cv, start, pos)
-    assert da.launches == before + 1
+    assert graphs.launches()["dense_decode_attention"] == before + 1
     assert _rel_err(got, 2 * da.dense_decode_plain(q, ck, cv, 1, start, pos, 0.125)) <= 2e-2

@@ -7,25 +7,28 @@ equals the live `bicodec_detokenize` and JAX's within 1e-5, and greedy ids
 from `lm_prefill` + `lm_decode` equal the live `generate`'s and JAX's; the
 same for an int8 LM.  The exported `vocoder` and `lm_decode` hold their
 `sparktts_torch::` kernel ops, and `export_program` refuses a program that
-lacks an op it must hold (a plain version traced in a kernel's place).
+lacks an op it must hold (a plain version traced in a kernel's place).  On
+the CPU a loaded program runs its module eagerly (nothing captured).
+
+The `cuda`-marked case holds a loaded `lm_decode` at full width on the card,
+replayed as a CUDA graph, to the eager run of its module.  JAX is imported
+inside the cases that compare with it, so that case runs where JAX is not
+installed: `python -m pytest --noconftest -m cuda tests/test_torch_export.py`.
 """
 
+import dataclasses
 import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from sparktts_tpu.codec.bicodec import bicodec_detokenize as jax_detokenize
-from sparktts_tpu.config import tiny_test_config as jax_tiny_config
-from sparktts_tpu.lm.generate import generate as jax_generate
 from sparktts_tpu_torch import export as EXP
 from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize
 from sparktts_tpu_torch.config import tiny_test_config
 from sparktts_tpu_torch.kernels import decode_attention, vocoder_fusion
 from sparktts_tpu_torch.kernels.ops import graph_ops
+from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.generate import generate
 from sparktts_tpu_torch.lm.quant import quantize_qwen_int8
 from sparktts_tpu_torch.pipeline import SparkTTSPipeline
@@ -67,6 +70,9 @@ def artifacts(pipe, tmp_path_factory):
 
 
 def _jax(tree):
+    import jax
+    import jax.numpy as jnp
+
     return jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
 
 
@@ -81,6 +87,31 @@ def test_export_roundtrip_simple(tmp_path):
     assert EXP.export_program(fn, (x,), tmp_path / "f.pt2") == {}
     loaded = EXP.load_program(tmp_path / "f.pt2")
     torch.testing.assert_close(loaded(x), fn(x), rtol=1e-6, atol=0)
+
+
+def test_host_constants_move_to_the_card_with_their_checks(tmp_path):
+    """A table built with numpy in the traced code is a host constant that
+    the graph copies and checks to lie on the CPU at every call; moved to
+    the card (here the meta device stands for it), the checks name the card
+    (on the card the copies are then device to device, which a CUDA graph
+    captures).  On the CPU nothing moves."""
+    w = torch.randn(3, generator=torch.Generator().manual_seed(0))
+
+    def fn(x):
+        c = torch.from_numpy(np.arange(3, dtype=np.float32)).to(x.device)
+        return x * w + c + torch.as_tensor(np.ones(3, np.float32), device=x.device)
+
+    EXP.export_program(fn, (torch.randn(3),), tmp_path / "c.pt2")
+    program = EXP.load_program(tmp_path / "c.pt2")
+    x = torch.randn(3, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(program(x), fn(x), rtol=0, atol=0)
+    assert program.captured == {}
+    card = torch.device("meta")
+    assert EXP._host_constants_to_card(program.module, card) == 3  # w and the two tables
+    assert all(t.device == card for *_, t in EXP._tensor_attrs(program.module))
+    checks = [n for n in program.module.graph.nodes
+              if n.target is torch.ops.aten._assert_tensor_metadata.default]
+    assert len(checks) == 2 and all(n.kwargs["device"] == card for n in checks)
 
 
 def test_export_refuses_a_program_without_its_kernel_op(pipe, tmp_path):
@@ -116,6 +147,12 @@ def test_pipeline_artifacts_and_their_ops(artifacts):
 
 
 def test_vocoder_artifact_equals_live_and_jax(pipe, artifacts):
+    import jax
+    import jax.numpy as jnp
+
+    from sparktts_tpu.codec.bicodec import bicodec_detokenize as jax_detokenize
+    from sparktts_tpu.config import tiny_test_config as jax_tiny_config
+
     out, _ = artifacts
     vocode = EXP.load_program(out / "vocoder.pt2")
     rng = np.random.default_rng(0)
@@ -149,7 +186,9 @@ def test_codec_artifacts_equal_live(pipe, artifacts):
         mel = mel_spectrogram(ref, make_mel_basis(cfg.bicodec.mel_params))
         tokens = bicodec_tokenize(pipe.bicodec_params, cfg.bicodec,
                                   wav2vec2_features(pipe.w2v_params, wav, cfg.wav2vec2), ref)
-    torch.testing.assert_close(EXP.load_program(out / "mel.pt2")(ref), mel, rtol=1e-5, atol=1e-5)
+    mel_program = EXP.load_program(out / "mel.pt2")
+    torch.testing.assert_close(mel_program(ref), mel, rtol=1e-5, atol=1e-5)
+    assert mel_program.captured == {}  # the CPU runs the module eagerly
     for got, want in zip(EXP.load_program(out / "audio_tokenize.pt2")(wav, ref), tokens):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -179,6 +218,12 @@ def _live_greedy(llm, cfg, ids):
 def test_exported_lm_generates_greedily(pipe, artifacts):
     """Greedy ids from the lm_prefill + lm_decode artifacts equal the live
     generate's and JAX's."""
+    import jax
+    import jax.numpy as jnp
+
+    from sparktts_tpu.config import tiny_test_config as jax_tiny_config
+    from sparktts_tpu.lm.generate import generate as jax_generate
+
     out, _ = artifacts
     cfg = pipe.config.llm
     ids = np.random.default_rng(1).integers(5, cfg.vocab_size - 5, size=(1, PROMPT))
@@ -217,3 +262,56 @@ def test_export_leaves_eager_decode_unchanged(pipe, artifacts):
     ids = np.random.default_rng(3).integers(5, pipe.config.llm.vocab_size - 5, size=(1, PROMPT))
     _live_greedy(pipe.llm_params, pipe.config.llm, ids)
     assert decode_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_loaded_lm_decode_replays_a_cuda_graph(tmp_path):
+    """A reloaded full-width `lm_decode` (bf16, cut to 2 layers) replays the
+    graph captured at its first call: its logits within 1e-3 x max|logit| of
+    the eager run of its module (cuBLAS may pick other algorithms under
+    capture), a result held across a second call (its cache fed back in)
+    unchanged, and each replay adding the program's kernel launches to
+    `graphs.launches()`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a loaded program replays a CUDA graph there")
+    from sparktts_tpu_torch.lm.speculative import draft_config, draft_from_layers
+
+    layers, prompt, new = 2, 32, 32
+    pipe = SparkTTSPipeline(device="cuda")
+    pipe.config = dataclasses.replace(pipe.config, llm=draft_config(pipe.config.llm, layers))
+    pipe.llm_params = draft_from_layers(pipe.llm_params, layers)
+    EXP.export_pipeline_artifacts(pipe, tmp_path, prompt_len=prompt, decode_len=new,
+                                  graphs=("lm_decode",))
+    decode = EXP.load_program(tmp_path / "lm_decode.pt2")
+    cfg = pipe.config.llm
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (layers, 1, prompt + new, cfg.num_key_value_heads, cfg.head_dim)
+    k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+
+    def args(tok, pos, k, v):
+        return (torch.tensor([tok], device="cuda"), torch.tensor([pos], device="cuda"),
+                torch.zeros(1, dtype=torch.int32, device="cuda"), k, v,
+                torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+    want = decode.eager(*args(7, prompt, k, v))
+    graphs.reset_launches()
+    got = decode(*args(7, prompt, k, v))
+    torch.cuda.synchronize()
+    (call,) = decode.captured.values()
+    assert call.graph is not None and call.launches["dense_decode_attention"] == layers
+    assert graphs.launches()["dense_decode_attention"] == layers  # the replay, not the capture
+    peak = float(want[0].abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-3 * peak
+    others = torch.ones(prompt + new, dtype=torch.bool)
+    others[prompt] = False
+    for a, b in zip(got[1:], want[1:]):  # the cache: the one row written, the rest copied
+        torch.testing.assert_close(a[:, :, others], b[:, :, others], rtol=0, atol=0)
+        row = (a[:, :, prompt] - b[:, :, prompt]).float().abs().max()
+        assert float(row) <= 1e-2 * float(b[:, :, prompt].float().abs().max())
+    held = [t.clone() for t in got]
+    again = decode(*args(int(got[0].argmax()), prompt + 1, got[1], got[2]))
+    torch.cuda.synchronize()
+    for a, b in zip(got, held):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(again[1], got[1])  # the second call wrote its own row
+    assert graphs.launches()["dense_decode_attention"] == 2 * layers

@@ -106,7 +106,9 @@ def test_bench_scripts_and_modules_import_no_jax():
 
 DEPLOY_AND_AB_SCRIPTS = ("run_server_torch", "run_dataset_bench_torch", "bench_first_chunk_torch",
                          "bench_paged_ab_torch", "bench_long_stream_torch",
-                         "bench_dispatch_scaling_torch", "bench_speculative_torch")
+                         "bench_dispatch_scaling_torch", "bench_speculative_torch",
+                         "bench_decode_step_torch", "bench_decode_ablate_torch",
+                         "bench_vocoder_torch", "time_torch_export")
 
 _IMPORT_SCRIPTS = """
 import importlib.util, json, sys
@@ -119,8 +121,9 @@ print(json.dumps(bad))
 
 
 def test_deploy_and_ab_scripts_import_no_jax():
-    """The deploy script and the serving A/B scripts (imported as modules:
-    their work runs in `main`) import nothing of JAX or the JAX package."""
+    """The deploy script, the serving A/B scripts and the attribution scripts
+    (imported as modules: their work runs in `main`) import nothing of JAX or
+    the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_SCRIPTS], cwd=REPO, capture_output=True, text=True,
         timeout=120,

@@ -218,3 +218,146 @@ def test_bench_speculative_draft_equal_to_target_accepts_at_the_ceiling():
             assert {"config", "tok_s", "ms_total", "acceptance", "tokens_out"} <= set(row)
             assert row["first_diff_vs_vanilla"] is None
     assert rows["self_spec_draft8_k4"]["acceptance"] == 0.75  # (k - 1) / k
+
+
+def _jax_row_keys(script: str, name: str) -> set:
+    """The keys of the dict literals a JAX script assigns to `name[...]`
+    (its per-row results)."""
+    keys = set()
+    for node in ast.walk(ast.parse((REPO / "scripts" / script).read_text())):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict):
+            for target in node.targets:
+                if isinstance(target, ast.Subscript) and isinstance(target.value, ast.Name) \
+                        and target.value.id == name:
+                    keys |= {k.value for k in node.value.keys if isinstance(k, ast.Constant)}
+    assert keys, f"no row keys of {name} in {script}"
+    return keys
+
+
+def _jax_default(script: str, option: str):
+    """The default of `option` in a JAX script's argparse."""
+    for node in ast.walk(ast.parse((REPO / "scripts" / script).read_text())):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "add_argument" and node.args and \
+                getattr(node.args[0], "value", None) == option:
+            return next(k.value.value for k in node.keywords if k.arg == "default")
+    raise AssertionError(f"no {option} in {script}")
+
+
+def test_bench_decode_step_units_give_the_eager_greedy_ids(capsys):
+    """Every unit size's greedy ids equal the eager loop's; each row holds
+    the JAX script's keys and prints its line."""
+    doc = _script("bench_decode_step_torch").main([
+        "--tiny", "--device", "cpu", "--n_steps", "8", "--iters", "1", "--units", "1,2,8",
+        "--t_pad", "32", "--cache_len", "128"])
+    row_keys = _jax_row_keys("bench_decode_step.py", "results")
+    assert row_keys == {"ms_per_token", "tok_s", "compile_s"}
+    names = [f"{u}_{m}" for u in ("eager", "unit1", "unit2", "unit8")
+             for m in ("sampled", "greedy")]
+    for name in names:
+        assert set(doc[name]) == row_keys and doc[name]["ms_per_token"] > 0
+    assert doc["greedy_first_diff"] == {"unit1_greedy": None, "unit2_greedy": None,
+                                        "unit8_greedy": None}
+    assert re.search(r"^unit2_greedy \{\"ms_per_token\": ", capsys.readouterr().out, re.M)
+
+
+def test_bench_decode_step_sweep_fits_its_rows():
+    doc = _script("bench_decode_step_torch").main([
+        "--tiny", "--device", "cpu", "--iters", "1", "--sweep_steps", "8,16,24",
+        "--t_pad", "16", "--cache_len", "64"])
+    assert _jax_keys("bench_decode_step.py", "doc") <= set(doc)
+    assert [r["scan_steps"] for r in doc["rows"]] == [8, 16, 24]
+    for r in doc["rows"]:
+        assert set(r) == _jax_keys("bench_decode_step.py", "rows")
+    slope, tax = np.polyfit([8, 16, 24], [r["ms_total"] for r in doc["rows"]], 1)
+    assert doc["fit"]["dispatch_tax_ms"] == pytest.approx(tax)
+    assert doc["fit"]["per_step_floor_ms"] == pytest.approx(slope)
+
+
+def test_bench_decode_ablate_times_the_six_variants():
+    doc = _script("bench_decode_ablate_torch").main(["--tiny", "--device", "cpu", "--n_steps",
+                                                     "4", "--iters", "1"])
+    variants = _jax_default("bench_decode_ablate.py", "--variants").split(",")
+    assert len(variants) == 6
+    for v in variants:
+        assert doc[v] > 0 and doc["launches_per_replay"][v] == {}  # the CPU: plain versions
+
+
+def _jax_vocoder_stages(cfg, batch, t_in):
+    """The JAX script's stage list and `flops` for `cfg`: the statements of
+    its `main` from `stages = [` through `def flops`, run with stand-ins for
+    the functions the stages name (none is called)."""
+    tree = ast.parse((REPO / "scripts" / "bench_vocoder.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    first = next(i for i, n in enumerate(main.body) if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "stages")
+    last = next(i for i, n in enumerate(main.body) if isinstance(n, ast.FunctionDef)
+                and n.name == "flops")
+    ns = {"cfg": cfg, "B": batch, "T": t_in}
+    ns.update(dict.fromkeys(("conv1d_apply", "snake_apply", "_decoder_block_apply",
+                             "wave_generator_apply", "jnp")))
+    module = ast.Module(body=main.body[first:last + 1], type_ignores=[])
+    exec(compile(module, "bench_vocoder.py", "exec"), ns)
+    return ns["stages"], ns["flops"]
+
+
+def test_bench_vocoder_stages_and_flops_are_the_jax_scripts():
+    from sparktts_tpu.config import WaveGeneratorConfig as JaxWaveGeneratorConfig
+
+    script = _script("bench_vocoder_torch")
+    doc = script.main(["--tiny", "--device", "cpu"])
+    stages, flops = _jax_vocoder_stages(JaxWaveGeneratorConfig(
+        input_channel=32, channels=48, rates=(2, 2), kernel_sizes=(4, 4)), 1, 16)
+    assert script.TINY == dict(input_channel=32, channels=48, rates=(2, 2), kernel_sizes=(4, 4))
+    for mode in ("kernel", "plain"):
+        assert list(doc[mode]) == [name for name, _, _ in stages]
+        for name, _, shape in stages:
+            row = doc[mode][name]
+            assert set(row) == {"ms", "gflop", "tflops"} and row["ms"] > 0
+            assert row["gflop"] == flops(name, shape) / 1e9
+
+
+def test_bench_vocoder_full_stage_is_the_vocoder():
+    """Each mode's `full` stage is `wave_generator_apply` of the same
+    params and input; `_decoder_block_apply` without a unit is the block as
+    the codec runs it (the kernel module for float weights, the unfused unit
+    for an int8 tree)."""
+    from sparktts_tpu_torch.codec import wave_generator as wg
+    from sparktts_tpu_torch.codec.quant import quantize_bicodec_int8
+    from sparktts_tpu_torch.config import WaveGeneratorConfig
+    from sparktts_tpu_torch.kernels.vocoder_fusion import fused_residual_unit_plain
+    from sparktts_tpu_torch.nn.layers import conv_transpose1d_apply, snake_apply
+    from sparktts_tpu_torch.weights import init_wave_generator
+
+    script = _script("bench_vocoder_torch")
+    cfg = WaveGeneratorConfig(**script.TINY)
+    params = init_wave_generator(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(1, 16, cfg.input_channel, generator=torch.Generator().manual_seed(1))
+    want = wg.wave_generator_apply(params, x, cfg)
+    for unit in (None, script.unit_fn("kernel"), script.unit_fn("plain")):
+        full = {name: fn for name, fn, _ in script.stages(cfg, 1, 16, unit)}["full"]
+        torch.testing.assert_close(full(params, x), want, rtol=0, atol=0)
+
+    def block_as_before(p, y, k, s):
+        y = conv_transpose1d_apply(p["upsample"], snake_apply(p["snake"], y), stride=s,
+                                   padding=(k - s) // 2).contiguous()
+        for ru, dil in zip(p["res_units"], wg.DILATIONS):
+            y = fused_residual_unit_plain(ru, y, dil)
+        return y
+
+    y = torch.randn(1, 16, cfg.channels, generator=torch.Generator().manual_seed(2))
+    block = params["blocks"][0]
+    int8_block = quantize_bicodec_int8({"decoder": params})["decoder"]["blocks"][0]
+    for p in (block, int8_block):
+        torch.testing.assert_close(wg._decoder_block_apply(p, y, 4, 2),
+                                   block_as_before(p, y, 4, 2), rtol=0, atol=0)
+
+
+def test_time_torch_export_replays_the_eager_ids():
+    doc = _script("time_torch_export").main([
+        "--tiny", "--device", "cpu", "--lm", "int8", "--new_tokens", "3", "--prompt_len", "16",
+        "--decode_len", "4"])
+    row = doc["int8"]
+    assert row["ops"] == {"dense_decode_attention": 2, "int8_mlp_matvec": 2}
+    assert row["first_apart"] is None and row["logits_rel_err"] == 0.0
+    assert row["capture_ms"] == []  # the CPU captures nothing
