@@ -20,7 +20,7 @@ fixed token budget so that random weights cannot stop early at EOS:
     and the audio to the host.
 
 The codec runs in fp32, as the port's `bicodec_detokenize` pins it
-(`nn/layers.full_fp32`), not in bf16 as `bench.py` casts it: the port has
+(`nn/layers.codec_fp32`), not in bf16 as `bench.py` casts it: the port has
 no bf16 codec path.  The decode replays the port's captured decode units
 (`lm/graphs.py`), so the first run captures its unit; two warm runs come
 first, and the result is the median of `--runs` timed runs.

@@ -10,7 +10,7 @@ launches plus each unit's replays times its launches a unit (its warm-up
 and capture are set-up, counted apart).
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the main paths from
+2. build every CUDA kernel of the main paths (eight sources) from
    sparktts_tpu_torch/kernels/csrc/ for sm_90a, one nvcc per source, in
    parallel (nvcc's register/shared-memory report goes to chiprun_out/);
 3. voice creation end to end at the full Spark-TTS-0.5B widths through
@@ -148,9 +148,10 @@ and capture are set-up, counted apart).
    that clone again, which hits the voice cache, a clone of a 4 s prompt,
    which takes the fused admission, a streamed clone), counts 0 just before
    and read after: 8 completed, no failure, finite waveforms of 320 samples
-   a semantic id, every stream window within WINDOW_REL_TOL of the
-   full-prefix vocode at its end and every speculative first chunk of the
-   plain vocode path at its chain's batch, fused and voice-cache admissions,
+   a semantic id, every stream window bit-equal to the full-prefix vocode
+   at its end and every speculative first chunk to the plain vocode path at
+   its chain's batch (each within WINDOW_REL_TOL too), fused and
+   voice-cache admissions,
    no decode unit captured in the burst, the TF32 flags as the caller set
    them; aggregate tokens/s beside phase 13's bare engine, first-chunk ms,
    stages; the same burst traced for the device's idle share;
@@ -225,8 +226,10 @@ and capture are set-up, counted apart).
    tokenize ids of the live path, the vocoder within WINDOW_REL_TOL of the
    live detokenize, greedy ids of the LM programs the live generate's or
    apart at a near tie, the `sparktts_torch::` ops in the vocoder and decode
-   programs, and kernels 2, 3 and 4 launched by the programs; export seconds
-   and artifact MiB printed.
+   programs (kernels 7 and 8 in the mel, tokenize and vocoder programs),
+   the codec programs' replays bit-equal to their eager runs, and kernels
+   2, 3, 4, 7 and 8 launched by the programs; export seconds and artifact
+   MiB printed.
 34. tensor parallelism (`sparktts_tpu_torch/parallel/`), the full-width LM
    cut into two shards of 7 q / 1 KV heads: (a) two gloo ranks on the one
    card through the launcher (`worker.serve`): on each, kernels 1 and 2 at
@@ -277,6 +280,21 @@ and capture are set-up, counted apart).
    offline ones 320 samples a semantic id), kernels 1, 2 and 3 launched;
    then stopped through its `control` and phase 28's leak check.  The load,
    warm-up and per-request seconds are printed.
+38. the codec's own kernels (7: `kernels/codec_gemm.py`, 8:
+   `kernels/depthwise_conv.py`), run after phase 9 on a 500-token vocode
+   (random ids, seed 0) and a 6 s tokenize of phase 4's prompt wav (its
+   features and ids): (a) every distinct call of either kernel in the two
+   (recorded from the calls `nn/layers.py` makes) against its plain version
+   in float64 on the card within CODEC_REL_TOL (1e-4) of max|plain|, two
+   calls bit-equal, timed beside the plain version in fp32 (one cuDNN or
+   cuBLAS call, TF32 off, also the library yardstick) and its bound
+   (3xTF32 products at the TF32 peak for kernel 7, FFMA at the fp32 peak
+   for kernel 8, or bytes); (b) both calls again with 80% of the free card
+   memory allocated between the runs, and under the TF32 flags (True,
+   True) and (False, False): bit-equal to the first run, the flags as set
+   after each call; (d) a profiler trace of each: no cuDNN or cuBLAS
+   convolution or product among its device kernels.  Phases 3, 4, 6 and 7
+   also require kernels 7 and 8 launched by each request.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
@@ -287,8 +305,9 @@ launches are the sum over the main-path runs of phases 3, 4, 6, 7, 12, 13,
 37's requests), its
 times those of the voice-creation shapes, for the int8 MLP one call at one
 row, for the int4 matvec the four calls of one layer at
-one row, for the paged kernel one layer at the paged engine's state; the
-flash, decode, vocoder and paged entries list every timed shape in
+one row, for the paged kernel one layer at the paged engine's state, for
+kernels 7 and 8 the sums over phase 38's vocode and tokenize; the
+flash, decode, vocoder, paged and codec entries list every timed shape in
 `by_shape`: both requests' and the B = 4 batch's and, for decode, the dense
 engine's state, for paged the engine's and the late state, and the
 servers' shapes); the last line
@@ -296,10 +315,11 @@ is {"ok": true, "device": {...}}; before the kernels line, the seconds of
 each group of phases.  Without a CUDA card, or run from a directory without
 the sparktts_tpu_torch package, it exits 2 and prints no result.
 `--front-only`, `--servers-only`, `--spec-only`, `--bench-only`,
-`--train-only`, `--tp-only`, `--pp-only` and `--deploy-only` run phase 28,
-phases 24-27, phase 29, phase 30, phases 31-33, phases 34-35, phase 36 or
-phase 37 (over a checkpoint written as phase 19 writes it) alone (after the
-build), with no kernels line and no result line.
+`--train-only`, `--tp-only`, `--pp-only`, `--deploy-only` and
+`--codec-only` run phase 28, phases 24-27, phase 29, phase 30, phases
+31-33, phases 34-35, phase 36, phase 37 (over a checkpoint written as phase
+19 writes it) or phase 38 alone (after the build), with no kernels line and
+no result line.
 """
 
 from __future__ import annotations
@@ -954,6 +974,9 @@ def _check_request(label, pipe, wav, launches, summary, mlp_per_layer=0, int4_pe
         raise AssertionError(f"{label}: expected {VOCODER_UNITS} vocoder launches for one vocode")
     if launches["paged_decode_attention"] != 0:
         raise AssertionError(f"{label}: the pipeline launched the paged kernel")
+    if not (launches["codec_gemm"] and launches["depthwise_conv"]):
+        raise AssertionError(f"{label}: the codec's own kernels (codec_gemm, depthwise_conv) "
+                             f"did not launch")
     for name, per_layer in (("int8_mlp_matvec", mlp_per_layer), ("int4_matvec", int4_per_layer)):
         if launches[name] != per_layer * n_layers * steps:
             raise AssertionError(f"{label}: {launches[name]} {name} launches, expected "
@@ -1084,6 +1107,275 @@ def check_int8_codec(pipe, tokens):
         raise AssertionError(f"int8 codec: waveform off the fp32 one (relative L2 {rel})")
     if unit_launches != 0:
         raise AssertionError("int8 codec: an int8 ResidualUnit went to the fp32 vocoder kernel")
+
+
+# ---------------------------------------------------------------------------
+# phase 38: the codec's own kernels (7: codec_gemm, 8: depthwise_conv)
+# ---------------------------------------------------------------------------
+
+# Kernels 7 and 8 vs their plain versions run in float64 on the card,
+# relative to max|plain|: 3xTF32 drops lo x lo (~2^-22 a product) and sums in
+# another order (kernel 3's tolerance).
+CODEC_REL_TOL = 1e-4
+CODEC_VOCODE_TOKENS = 500
+# device kernels whose names say cuDNN or cuBLAS ran a convolution or a
+# product; the port's own kernels are named apart (CODEC_OWN_KERNELS)
+LIBRARY_KERNEL_MARKS = ("cudnn", "gemm", "gemv", "xmma", "cutlass", "conv_depthwise",
+                        "convolve", "winograd")
+CODEC_OWN_KERNELS = ("codec_gemm_kernel", "depthwise_kernel", "unit_gemm")
+
+
+def _codec_wrappers():
+    """{name: (module, attribute, plain version)} of the codec's kernel
+    entry points, as `nn/layers.py` calls them."""
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+    from sparktts_tpu_torch.kernels import depthwise_conv as dw
+
+    return {"linear": (cg, "linear", cg.linear_plain),
+            "conv1d": (cg, "conv1d", cg.conv1d_plain),
+            "conv_transpose1d": (cg, "conv_transpose1d", cg.conv_transpose1d_plain),
+            "bmm": (cg, "bmm", cg.bmm_plain),
+            "depthwise conv1d": (dw, "conv1d", dw.conv1d_plain_dw),
+            "depthwise conv_transpose1d": (dw, "conv_transpose1d", dw.conv_transpose1d_plain_dw)}
+
+
+def _record_codec_calls(fn) -> dict:
+    """Run fn() with the codec's kernel entry points recorded: {signature:
+    [name, args, calls]}, one entry for each distinct (entry point, tensor
+    shapes and strides, scalars), with the first call's arguments."""
+    import torch
+
+    seen = {}
+    wrappers = _codec_wrappers()
+    saved = {name: getattr(mod, attr) for name, (mod, attr, _) in wrappers.items()}
+
+    def recorder(name, real):
+        def call(*args):
+            key = (name,) + tuple((tuple(a.shape), a.stride()) if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+            seen.setdefault(key, [name, args, 0])[2] += 1
+            return real(*args)
+        return call
+
+    try:
+        for name, (mod, attr, _) in wrappers.items():
+            setattr(mod, attr, recorder(name, saved[name]))
+        fn()
+    finally:
+        for name, (mod, attr, _) in wrappers.items():
+            setattr(mod, attr, saved[name])
+    return seen
+
+
+def _codec_work(name, args):
+    """(bytes, flops, shape text) of one call: each input read once, the
+    output written once; the multiply-adds the function needs."""
+    import torch
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    x, w = tensors[0], tensors[1]
+    nbytes = 4 * sum(t.numel() for t in tensors)
+    if name == "linear":
+        rows = x.numel() // x.shape[-1]
+        flops, out = 2 * rows * w.shape[0] * w.shape[1], rows * w.shape[1]
+        text = f"linear {rows}x{w.shape[0]} -> {w.shape[1]}"
+    elif name == "bmm":
+        batch = torch.broadcast_shapes(x.shape[:-2], w.shape[:-2])
+        g = math.prod(batch)
+        flops, out = 2 * g * x.shape[-2] * x.shape[-1] * w.shape[-1], g * x.shape[-2] * w.shape[-1]
+        text = f"bmm {tuple(batch)} {x.shape[-2]}x{x.shape[-1]} @ {x.shape[-1]}x{w.shape[-1]}"
+    else:
+        b, t, cin = x.shape
+        k, cg, cout = w.shape
+        stride, pad = args[4], args[5]
+        if name.endswith("conv_transpose1d"):  # every input row meets every tap once
+            t_out = (t - 1) * stride - 2 * pad + k + args[6]
+            flops = 2 * b * t * k * cg * cout
+        else:
+            t_out = (t + 2 * pad - args[6] * (k - 1) - 1) // stride + 1
+            flops = 2 * b * t_out * k * cg * cout
+        out = b * t_out * cout
+        groups = args[7] if name == "conv1d" else 1
+        text = (f"{name} B={b} T={t}->{t_out} {cin}->{cout} k{k} s{stride} p{pad}"
+                + (f" g{groups}" if groups > 1 else ""))
+    return nbytes + 4 * out, flops, text
+
+
+def check_codec_kernels(pipe, vocode, tokenize):
+    """Phase 38 (a): every distinct call of kernels 7 and 8 in one vocode
+    and one tokenize (recorded from the main path's own calls), against its
+    plain version in float64 on the card within CODEC_REL_TOL of
+    max|plain|, two calls bit-equal, each timed beside its plain version in
+    fp32 (one cuDNN or cuBLAS call, TF32 off: main sets the flags; it is
+    also the library call).  Returns the two kernels-line entries (without
+    launches): ms, plain_ms, library_ms and bound_ms are sums over one vocode
+    and one tokenize (each distinct call's time times its calls), every
+    distinct call a `by_shape` item."""
+    import torch
+
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+    from sparktts_tpu_torch.kernels import depthwise_conv as dw
+
+    dev = pipe.device
+    calls = {}
+    for label, fn in (("vocode", vocode), ("tokenize", tokenize)):
+        for key, (name, args, n) in _record_codec_calls(fn).items():
+            calls.setdefault(key, [name, args, 0, label])[2] += n
+    wrappers = _codec_wrappers()
+    kernels = {"codec_gemm": dict(module=cg, peak=TF32_FLOPS, products=3),
+               "depthwise_conv": dict(module=dw, peak=FP32_FLOPS, products=1)}
+    for k in kernels.values():
+        k.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by_shape=[],
+                 bound_by={"bytes": 0.0, "operations": 0.0})
+    t0 = time.perf_counter()
+    for name, args, n, label in calls.values():
+        mod, attr, plain = wrappers[name]
+        kernel = kernels["depthwise_conv" if name.startswith("depthwise") else "codec_gemm"]
+        fn = getattr(mod, attr)
+        got = fn(*args)
+        if not torch.equal(got, fn(*args)):
+            raise AssertionError(f"codec kernels: two calls of {name} differ")
+        want = plain(*[a.double() if isinstance(a, torch.Tensor) else a for a in args])
+        _sync(dev)
+        nbytes, flops, text = _codec_work(name, args)
+        err, scale = float((got.double() - want).abs().max()), float(want.abs().max())
+        if not (got.shape == want.shape and bool(torch.isfinite(got).all())
+                and err <= CODEC_REL_TOL * scale):
+            raise AssertionError(f"codec kernels: {text} off its float64 plain version: "
+                                 f"{err:.3e} of max {scale:.3e} (tol {CODEC_REL_TOL})")
+        ms = _time_ms(lambda: fn(*args), dev, iters=3, reps=3)
+        plain_ms = _time_ms(lambda: plain(*args), dev, iters=3, reps=3)
+        bound_ms, by = _bound(nbytes, kernel["products"] * flops, kernel["peak"])
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            kernel[key] += n * v
+        kernel["bound_by"][by] += n * bound_ms
+        kernel["by_shape"].append(dict(shape=f"{label}: {text}", calls=n, ms=ms,
+                                       plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=by, rel_err=err / scale))
+        print(f"{name} ({label}, {n} calls): {text}: relative {err / scale:.3e} "
+              f"(tol {CODEC_REL_TOL}); device {ms:.4f} ms, plain (cuDNN/cuBLAS fp32) "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    print(f"codec kernels: {len(calls)} distinct calls checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    entries = []
+    for name, k in kernels.items():
+        if not k["by_shape"]:
+            raise AssertionError(f"codec kernels: {name} had no call in a vocode or a tokenize")
+        print(f"{name} over one {CODEC_VOCODE_TOKENS}-token vocode and one {PROMPT_SECONDS:.0f} s "
+              f"tokenize: device {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_ms'] / k['ms']:.3f} of it)")
+        mod = k["module"]
+        entries.append(dict(name=name, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
+                            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+                            bound_ms=k["bound_ms"], bound_by=max(k["bound_by"],
+                                                                 key=k["bound_by"].get),
+                            library_ms=k["plain_ms"], by_shape=k["by_shape"]))
+    return entries
+
+
+def _tf32_flags():
+    import torch
+
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def check_codec_determinism(pipe, vocode, tokenize):
+    """Phase 38 (b): a vocode and a tokenize (features and ids), each run
+    again with most of the free card memory allocated between the runs, and
+    under the caller's TF32 flags at (True, True) and at (False, False):
+    every run bit-equal to the first, and the flags as the caller set them
+    after each call."""
+    import torch
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    base = (vocode(), tokenize())
+    free, _ = torch.cuda.mem_get_info(pipe.device)
+    hog = torch.empty(int(free * 0.8), dtype=torch.uint8, device=pipe.device)
+    held = hog.numel() / 2**30
+    again = (vocode(), tokenize())
+    del hog
+    torch.cuda.empty_cache()
+    if not (same(base[0], again[0]) and same(base[1], again[1])):
+        raise AssertionError("codec determinism: a vocode or a tokenize changed when "
+                             f"{held:.1f} GiB were allocated between the runs")
+    saved = _tf32_flags()
+    try:
+        for flags in ((True, True), (False, False)):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            got_v = vocode()
+            after_v = _tf32_flags()
+            got_t = tokenize()
+            if (after_v, _tf32_flags()) != (flags, flags):
+                raise AssertionError(f"codec determinism: a codec call changed the TF32 flags "
+                                     f"{flags} to {after_v} / {_tf32_flags()}")
+            if not (same(base[0], got_v) and same(base[1], got_t)):
+                raise AssertionError(f"codec determinism: TF32 flags {flags} changed a vocode "
+                                     f"or a tokenize")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"codec determinism: a {CODEC_VOCODE_TOKENS}-token vocode and a "
+          f"{PROMPT_SECONDS:.0f} s tokenize (features and ids) bit-equal across {held:.1f} GiB "
+          f"allocated between runs and across the TF32 flags (True, True) and (False, False), "
+          f"the flags unchanged by the calls")
+
+
+def check_codec_profile(pipe, vocode, tokenize):
+    """Phase 38 (d): the device kernels of one vocode and one tokenize from a
+    profiler trace: no cuDNN or cuBLAS convolution or product among them
+    (names with LIBRARY_KERNEL_MARKS), the port's own kernels there."""
+    names = {}
+    for label, fn in (("codec_vocode", vocode), ("codec_tokenize", tokenize)):
+        names[label] = _device_kernels(fn, pipe.device, label)
+        if not names[label]:
+            raise AssertionError(f"codec profile: {label}: the profiler recorded no device "
+                                 f"kernel in three sessions")
+        library = sorted({n for n in names[label] if not any(o in n for o in CODEC_OWN_KERNELS)
+                          and any(m in n.lower() for m in LIBRARY_KERNEL_MARKS)})
+        own = {o: sum(o in n for n in names[label]) for o in CODEC_OWN_KERNELS}
+        print(f"codec profile, {label}: {len(names[label])} device kernels, the port's own "
+              f"{own}, library convolutions or products {library}")
+        if library:
+            raise AssertionError(f"codec profile: {label} ran library kernels {library}")
+        if not own["codec_gemm_kernel"]:
+            raise AssertionError(f"codec profile: {label} ran no codec_gemm kernel")
+
+
+def run_codec(pipe, wav_path: Path):
+    """Phase 38: the codec's own kernels on a 500-token vocode and a 6 s
+    tokenize of the prompt wav, (a) checked and timed at every distinct call,
+    (b) bit for bit across memory pressure and TF32 flags, (d) from a
+    profiler trace.  Returns the two kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from sparktts_tpu_torch.codec.bicodec import bicodec_tokenize
+    from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
+
+    cfg = pipe.config
+    rng = np.random.default_rng(SEED)
+    sem = rng.integers(0, cfg.bicodec.quantizer.codebook_size, (1, CODEC_VOCODE_TOKENS))
+    glob = rng.integers(0, int(math.prod(cfg.bicodec.speaker_encoder.fsq_levels)),
+                        (1, cfg.bicodec.speaker_encoder.token_num))
+    _, tok_args, _, _ = pipe.tokenize_host_prep(wav_path)
+    w2v, bc, wav, mask, ref = tok_args
+
+    def vocode():
+        return (torch.from_numpy(pipe.detokenize(glob, sem)),)
+
+    @torch.inference_mode()
+    def tokenize():
+        feat = wav2vec2_features(w2v, wav, cfg.wav2vec2, mask)  # codec_tokenize's two calls
+        sem_ids, glob_ids = bicodec_tokenize(bc, cfg.bicodec, feat, ref)
+        _sync(pipe.device)
+        return feat, glob_ids, sem_ids
+
+    entries = check_codec_kernels(pipe, vocode, tokenize)
+    check_codec_determinism(pipe, vocode, tokenize)
+    check_codec_profile(pipe, vocode, tokenize)
+    return entries
 
 
 def _rotating(fns):
@@ -3020,7 +3312,8 @@ def check_server_burst(label, pipe, run, requests, kernel):
     within WINDOW_REL_TOL of the full-prefix vocode at its render end, and
     every validated speculative chunk within it of the plain vocode path at
     its chain's batch (`detokenize_batch` of the same rows padded the same
-    way), whether bit-equal printed; no decode unit captured in the burst;
+    way), and each bit-equal (the codec's own kernels give every sample the
+    same bits at any window, batch or length); no decode unit captured in the burst;
     the engine's attention kernel launched n_layers times a decode step, no
     other attention kernel, the vocoder kernel launched.  Prints the run's
     numbers."""
@@ -3079,6 +3372,9 @@ def check_server_burst(label, pipe, run, requests, kernel):
           f"the peak (tol {WINDOW_REL_TOL}), bit-equal: {bit_equal}")
     if not window_gap <= WINDOW_REL_TOL:
         raise AssertionError(f"{label}: a stream window differs from the full-prefix vocode")
+    if not bit_equal:
+        raise AssertionError(f"{label}: a stream window is not bit-equal to the full-prefix "
+                             f"vocode (largest gap {window_gap:.3e} of the peak)")
     n_spec, spec_gap, spec_equal = 0, 0.0, True
     for sp in run["specs"]:
         n_spec += sum(r["consumed"] for r in sp["rows"])
@@ -3095,6 +3391,9 @@ def check_server_burst(label, pipe, run, requests, kernel):
           f"their chain's batch: largest gap {spec_gap:.3e} of the peak (tol {WINDOW_REL_TOL}), "
           f"bit-equal: {spec_equal}; batched vocode shapes (batch, t_pad): "
           f"{ {str(k): v for k, v in run['groups'].items()} }")
+    if not spec_equal:
+        raise AssertionError(f"{label}: a speculative first chunk is not bit-equal to the plain "
+                             f"vocode path (largest gap {spec_gap:.3e} of the peak)")
     launches = run["launches"]
     steps = launches[kernel] / n_layers
     other = ("dense_decode_attention" if kernel == "paged_decode_attention"
@@ -4429,6 +4728,7 @@ def run_export(pipe, prompt, int8_params, smi):
                 programs[f"{name} {lm}"] = E.load_program(out / lm / f"{name}.pt2")
         ops = {name: p.ops for name, p in programs.items()}
         rows, launches, peak = {}, {}, float(live["vocoder"].abs().max())
+        codec_out = {}  # the codec programs' outputs, eager and replayed
         pipe.config = cut_cfg  # the near-tie rule's forward runs the cut LM
         t0 = time.perf_counter()
         for how in ("eager", "replayed"):
@@ -4445,6 +4745,7 @@ def run_export(pipe, prompt, int8_params, smi):
                                          for a, b in zip(tokens, live["tokenize"])]
             wav_art = run("vocoder")(sem, glob)
             row["vocoder_rel_err"] = float((wav_art - live["vocoder"]).abs().max()) / peak
+            codec_out[how] = [mel, *tokens, wav_art]
             del mel, tokens, wav_art
             for lm, params in lms.items():
                 got, ms = _artifact_greedy(run(f"lm_prefill {lm}"), run(f"lm_decode {lm}"), ids,
@@ -4463,10 +4764,16 @@ def run_export(pipe, prompt, int8_params, smi):
                     and row["vocoder_rel_err"] <= WINDOW_REL_TOL):
                 raise AssertionError(f"export: a codec program ({how}) disagrees with the live "
                                      f"path: {row}")
-            for name in ("dense_decode_attention", "fused_residual_unit", "int8_mlp_matvec"):
+            for name in ("dense_decode_attention", "fused_residual_unit", "int8_mlp_matvec",
+                         "codec_gemm", "depthwise_conv"):
                 if not launches[how][name]:
                     raise AssertionError(f"export: {name} did not launch from the programs ({how})")
         pipe.config = cfg
+        # the codec programs hold kernels 7 and 8, whose arithmetic is fixed:
+        # a replay gives the eager walk's bits
+        if not all(torch.equal(a, b) for a, b in zip(codec_out["eager"], codec_out["replayed"])):
+            raise AssertionError("export: a codec program's replay differs from its eager run")
+        del codec_out
         rows["load_and_run_s"] = time.perf_counter() - t0
         rows["captured"] = {name: [round(c.capture_ms, 1) for c in p.captured.values()]
                             for name, p in programs.items()}
@@ -4481,13 +4788,25 @@ def run_export(pipe, prompt, int8_params, smi):
               f"| {smi}")
         launches = {k: launches["eager"][k] + launches["replayed"][k] for k in launches["eager"]}
         print("export launches (phase 33, the programs' runs): " + json.dumps(launches))
-        want_ops = {"vocoder": {"fused_residual_unit": VOCODER_UNITS},
-                    "lm_decode bf16": {"dense_decode_attention": EXPORT_LM_LAYERS},
+        want_ops = {"lm_decode bf16": {"dense_decode_attention": EXPORT_LM_LAYERS},
                     "lm_decode int8": {"dense_decode_attention": EXPORT_LM_LAYERS,
                                        "int8_mlp_matvec": EXPORT_LM_LAYERS}}
         for name, want in want_ops.items():
             if ops[name] != want:
                 raise AssertionError(f"export: the {name} program holds {ops[name]}, want {want}")
+        # the codec programs: kernel 3 in every unit, kernels 7 and 8 in place
+        # of every convolution and product
+        codec_ops = {"vocoder": ("codec_linear", "codec_conv1d", "codec_conv_transpose1d",
+                                 "depthwise_conv1d"),
+                     "audio_tokenize": ("codec_linear", "codec_conv1d", "codec_bmm",
+                                        "depthwise_conv1d"),
+                     "mel": ("codec_bmm",)}
+        for name, want in codec_ops.items():
+            if not all(ops[name].get(op) for op in want):
+                raise AssertionError(f"export: the {name} program holds {ops[name]}, want {want}")
+        if ops["vocoder"].get("fused_residual_unit") != VOCODER_UNITS:
+            raise AssertionError(f"export: the vocoder program holds {ops['vocoder']}, want "
+                                 f"{VOCODER_UNITS} fused_residual_unit")
         if leak_mib > LEAK_MARGIN_MIB:
             raise AssertionError(f"export: dropping the loaded programs left {leak_mib:.1f} MiB "
                                  f"allocated (limit {LEAK_MARGIN_MIB})")
@@ -5416,7 +5735,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all(["flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp",
-                            "int4_matmul", "paged_attention"])
+                            "int4_matmul", "paged_attention", "codec_gemm", "depthwise_conv"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernel_build.log").write_text(
@@ -5493,6 +5812,10 @@ def main() -> int:
         del pipe
         run_bench(make_prompt_wav(OUT_DIR / "clone_prompt.wav"), smi)
         return 0
+    if "--codec-only" in sys.argv[1:]:
+        # phase 38 alone, no kernels line and no result line
+        run_codec(pipe, make_prompt_wav(OUT_DIR / "clone_prompt.wav"))
+        return 0
     if "--servers-only" in sys.argv[1:]:
         # a shorter run for working on the server phases: no other phase, no
         # bare-engine yardstick, no kernels line and no result line
@@ -5558,6 +5881,8 @@ def main() -> int:
     entries.append(check_int8_mlp(dev, unstack_layers(int8_params["layers"])))
     entries.append(check_int4(dev, unstack_layers(int4_params["layers"])))
     mark("9 kernels vs plain, timed")
+    entries += run_codec(pipe, wav_path)
+    mark("38 the codec's own kernels")
     # the continuous-batching server over both engines, after the launch
     # traces above: when it ran before them, on an H100, none of their later
     # profiler sessions recorded device activity

@@ -193,8 +193,9 @@ def main(argv=None):
     if args.sanity:
         # the cycler teacher (greedy map i -> i + 1 mod h): non-constant and
         # fully predictable, so a distilled 1-layer draft must clear 0.5
-        # in-domain acceptance where a random one scores about the floor;
-        # TF32 off (the pass rides greedy argmax agreement)
+        # in-domain acceptance where a random one scores about the floor
+        # (fp32 matmuls in full fp32, PyTorch's default: the pass rides
+        # greedy argmax agreement)
         from sparktts_tpu_torch.lm.distill import (
             corpus_stats,
             distill_draft,
@@ -202,27 +203,25 @@ def main(argv=None):
             measure_acceptance,
             sample_target_corpus,
         )
-        from sparktts_tpu_torch.nn.layers import full_fp32
 
         heads = (dict(num_attention_heads=14, num_key_value_heads=2, head_dim=64,
                       dtype=torch.bfloat16) if dev.type == "cuda" else {})
-        with full_fp32():
-            steacher, scfg = make_cycler_teacher(32, shift=1, device=dev, **heads)
-            sdcfg = dataclasses.replace(scfg, num_hidden_layers=1)
-            s_corpus = sample_target_corpus(steacher, scfg, torch.Generator(device=dev)
-                                            .manual_seed(12), 32, 4, 28, greedy=True)
-            s_stats = corpus_stats(s_corpus, prompt_len=4)
-            t0 = time.perf_counter()
-            sdraft, s_losses = distill_draft(steacher, scfg, sdcfg, steps=args.sanity_steps,
-                                             batch=8, prompt_len=4, gen_len=24, corpus_seqs=128,
-                                             learning_rate=5e-3, seed=5, device=dev)
-            s_train_s = time.perf_counter() - t0
-            srand = init_qwen(sdcfg, torch.Generator(device=dev).manual_seed(13), torch.float32,
-                              dev)
-            acc_rand = measure_acceptance(steacher, srand, scfg, sdcfg, n_prompts=8,
-                                          prompt_len=4, gen_len=32, k=4, seed=6, device=dev)
-            acc_dist = measure_acceptance(steacher, sdraft, scfg, sdcfg, n_prompts=8,
-                                          prompt_len=4, gen_len=32, k=4, seed=6, device=dev)
+        steacher, scfg = make_cycler_teacher(32, shift=1, device=dev, **heads)
+        sdcfg = dataclasses.replace(scfg, num_hidden_layers=1)
+        s_corpus = sample_target_corpus(steacher, scfg, torch.Generator(device=dev)
+                                        .manual_seed(12), 32, 4, 28, greedy=True)
+        s_stats = corpus_stats(s_corpus, prompt_len=4)
+        t0 = time.perf_counter()
+        sdraft, s_losses = distill_draft(steacher, scfg, sdcfg, steps=args.sanity_steps,
+                                         batch=8, prompt_len=4, gen_len=24, corpus_seqs=128,
+                                         learning_rate=5e-3, seed=5, device=dev)
+        s_train_s = time.perf_counter() - t0
+        srand = init_qwen(sdcfg, torch.Generator(device=dev).manual_seed(13), torch.float32,
+                          dev)
+        acc_rand = measure_acceptance(steacher, srand, scfg, sdcfg, n_prompts=8,
+                                      prompt_len=4, gen_len=32, k=4, seed=6, device=dev)
+        acc_dist = measure_acceptance(steacher, sdraft, scfg, sdcfg, n_prompts=8,
+                                      prompt_len=4, gen_len=32, k=4, seed=6, device=dev)
         s_curve = [round(s_losses[i], 4) for i in sorted({0, 1, len(s_losses) // 2,
                                                           len(s_losses) - 1})]
         rec = {"config": f"sanity_distill_cycler32_L1_steps{args.sanity_steps}",

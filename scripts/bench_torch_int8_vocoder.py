@@ -102,7 +102,6 @@ def _time_vocoder(smoke, dev, tokens, result):
     import torch
 
     from sparktts_tpu_torch.kernels import vocoder_fusion as vf
-    from sparktts_tpu_torch.nn.layers import full_fp32
 
     gen = torch.Generator(device=dev).manual_seed(1)
     t, total = tokens, 0.0
@@ -113,8 +112,8 @@ def _time_vocoder(smoke, dev, tokens, result):
             p = _unit(c, gen, dev)
             x = torch.randn((1, t, c), generator=gen, device=dev)
             got = vf.fused_residual_unit(p, x, dil)
-            with full_fp32():
-                want = vf.fused_residual_unit_plain(p, x, dil)
+            p64 = {k: {n: v.double() for n, v in d.items()} for k, d in p.items()}
+            want = vf.fused_residual_unit_plain(p64, x.double(), dil)  # no TF32 in float64
             rel = float((got - want).abs().max() / want.abs().max())
             if not rel <= 1e-4:
                 raise AssertionError(f"unit C={c} T={t} dilation={dil}: relative error {rel}")
@@ -172,8 +171,6 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     result = {"card": smi, "device": torch.cuda.get_device_name(0), "tree": str(tree),
               "int8_mlp_ms": {}, "unit_ms": {}, "ptxas": {}, "sass": {}}

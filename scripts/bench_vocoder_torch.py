@@ -16,9 +16,11 @@ JAX's `xla`, `carry` and `tiles` modes and its SPARKTTS_VOCODER_KERNEL have
 no counterpart: the mode is passed to `codec/wave_generator` as its `unit`.
 
 Precision differs from the JAX script, which casts the vocoder to bf16: the
-port's codec runs in fp32 with TF32 off and kernel 3 takes fp32 only, so
-every stage runs in fp32 inside `nn/layers.full_fp32()`, as `detokenize`
-does.  Each stage runs `--iters` calls captured in one CUDA graph
+port's codec runs in fp32 and kernel 3 takes fp32 only, so every stage runs
+in fp32 inside `nn/layers.codec_fp32()`, as `detokenize` does: its
+convolutions are kernels 7 and 8 (`kernels/codec_gemm.py`,
+`kernels/depthwise_conv.py`), in both modes (the plain unit's two
+convolutions too).  Each stage runs `--iters` calls captured in one CUDA graph
 (`graphs.CapturedCall`); the time is the host wall from the replay to a
 `torch.cuda.synchronize()`, the minimum over `--reps`, per call.  Output a
 stage: `ms`, `gflop`, `tflops` (unrounded).  `bound` gives kernel 3's
@@ -143,7 +145,7 @@ def main(argv=None):
 
     from sparktts_tpu_torch.config import WaveGeneratorConfig
     from sparktts_tpu_torch.lm import graphs
-    from sparktts_tpu_torch.nn.layers import full_fp32
+    from sparktts_tpu_torch.nn.layers import codec_fp32
     from sparktts_tpu_torch.utils.platform import apply_platform_env, require_device
     from sparktts_tpu_torch.weights import init_wave_generator
 
@@ -165,7 +167,7 @@ def main(argv=None):
             torch.cuda.synchronize(dev)
 
     results, launches = {}, {}
-    with torch.inference_mode(), full_fp32():
+    with torch.inference_mode(), codec_fp32():
         for mode in args.modes.split(","):
             stage_list = stages(cfg, args.batch, args.t_in, unit_fn(mode))
             res = {}

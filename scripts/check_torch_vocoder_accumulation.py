@@ -9,9 +9,10 @@ them on the tensor cores in fp32.  At each of the 12 (channels, length,
 dilation) of a 350-token vocode, on random fp32 params and input (seed 3),
 this prints the largest gap, relative to max|plain|, of:
 
-* the kernel, cuDNN's fp32 unit (`fused_residual_unit_plain`, TF32 off) and
+* the kernel, the unfused fp32 unit (`fused_residual_unit_plain` in a
+  `codec_fp32()` scope: its convolutions on kernel 7) and
   `residual_unit_3xtf32_plain` (the kernel's three products, summed by
-  cuBLAS in fp32 with TF32 off) to the same unit in float64;
+  cuBLAS in full fp32, PyTorch's default) to the same unit in float64;
 * the kernel to `residual_unit_3xtf32_plain` and to two step-by-step
   emulations of its sums: the kernel's mma order (8 input channels a step;
   for each, the taps in order; for each tap lo.hi, hi.lo, hi.hi), each
@@ -99,14 +100,13 @@ def main() -> int:
         print("no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     from sparktts_tpu_torch.kernels import vocoder_fusion as vf
+    from sparktts_tpu_torch.nn.layers import codec_fp32
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -125,7 +125,8 @@ def main() -> int:
                  "conv2": {"w": rnd(1, c, c, scale=0.02), "b": rnd(c, scale=0.1)}}
             x = torch.randn((1, t, c), generator=gen, device=dev)
             got = vf.fused_residual_unit(p, x, dil)
-            plain = vf.fused_residual_unit_plain(p, x, dil)
+            with codec_fp32():
+                plain = vf.fused_residual_unit_plain(p, x, dil)
             model = vf.residual_unit_3xtf32_plain(p, x, dil)
             p64 = {k: {n: v.double() for n, v in d.items()} for k, d in p.items()}
             exact = vf.fused_residual_unit_plain(p64, x.double(), dil)

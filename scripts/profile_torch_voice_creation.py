@@ -130,8 +130,6 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     pipe = SparkTTSPipeline(device=dev, seed=smoke.SEED)
     if args.lm == "int8":

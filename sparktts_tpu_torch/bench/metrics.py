@@ -12,7 +12,8 @@ these metrics make it measurable:
   * `semantic_consistency`: the share of semantic ids one synthesis round
     trip keeps.
 
-They run in fp32 under `full_fp32` (no TF32 on the card), on the device of
+They run in fp32 in a `codec_fp32()` scope (the codec's own kernels on the
+card, whatever the TF32 flags), on the device of
 the pipeline they are given, or for `mel_distance` on `device` (the card
 unless the caller asks for the CPU).
 """
@@ -26,7 +27,7 @@ import torch
 
 from sparktts_tpu_torch.config import MelParams
 from sparktts_tpu_torch.dsp.mel import make_mel_basis, mel_spectrogram
-from sparktts_tpu_torch.nn.layers import full_fp32
+from sparktts_tpu_torch.nn.layers import codec_fp32
 
 
 def _device(device) -> torch.device:
@@ -53,7 +54,7 @@ def mel_distance(
     basis = make_mel_basis(mel_params)
     wavs = torch.from_numpy(np.stack([np.asarray(wav_a[:n], np.float32),
                                       np.asarray(wav_b[:n], np.float32)])).to(_device(device))
-    with torch.inference_mode(), full_fp32():
+    with torch.inference_mode(), codec_fp32():
         log_mels = torch.log(torch.clamp(mel_spectrogram(wavs, basis), min=log_floor))
         diff = log_mels[0] - log_mels[1]
         if order == 1:
@@ -68,7 +69,7 @@ def x_vector(pipeline, wav: np.ndarray) -> np.ndarray:
     cfg = pipeline.config.bicodec
     basis = make_mel_basis(cfg.mel_params)
     x = torch.from_numpy(np.asarray(wav, np.float32))[None, :].to(pipeline.device)
-    with torch.inference_mode(), full_fp32():
+    with torch.inference_mode(), codec_fp32():
         mel = mel_spectrogram(x, basis)
         vec, _ = ecapa_tdnn_apply(pipeline.bicodec_params["speaker_encoder"]["speaker_encoder"],
                                   mel)

@@ -4,8 +4,10 @@ ids <-> waveform.
 Port of `bicodec_tokenize`, `bicodec_detokenize`, the eval forward
 `bicodec_forward` (reconstruction and codebook statistics) and
 `detokenize_receptive_field` of `sparktts_tpu/codec/bicodec.py`.  The first
-three run in fp32 under `full_fp32`, so their numbers do not depend on the
-caller's TF32 settings.
+three run in a `codec_fp32()` scope: on the card every convolution and
+matrix product in them is one of the port's own fp32 kernels, so their
+numbers depend neither on the caller's TF32 settings nor on the batch, the
+length or another thread.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from sparktts_tpu_torch.codec.speaker_encoder import (
 from sparktts_tpu_torch.codec.wave_generator import wave_generator_apply
 from sparktts_tpu_torch.config import BiCodecConfig
 from sparktts_tpu_torch.dsp.mel import make_mel_basis, mel_spectrogram
-from sparktts_tpu_torch.nn.layers import full_fp32
+from sparktts_tpu_torch.nn.layers import codec_fp32
 
 
-@full_fp32()
+@codec_fp32()
 def bicodec_tokenize(
     p, cfg: BiCodecConfig, feat: torch.Tensor, ref_wav: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -40,7 +42,7 @@ def bicodec_tokenize(
     return semantic, speaker_encoder_tokenize(p["speaker_encoder"], mel, cfg.speaker_encoder)
 
 
-@full_fp32()
+@codec_fp32()
 def bicodec_detokenize(
     p, cfg: BiCodecConfig, semantic_tokens: torch.Tensor, global_tokens: torch.Tensor
 ) -> torch.Tensor:
@@ -52,7 +54,7 @@ def bicodec_detokenize(
     return wave_generator_apply(p["decoder"], x, cfg.decoder)[..., 0]
 
 
-@full_fp32()
+@codec_fp32()
 def bicodec_forward(
     p, cfg: BiCodecConfig, feat: torch.Tensor, ref_wav: torch.Tensor
 ) -> Dict[str, torch.Tensor]:

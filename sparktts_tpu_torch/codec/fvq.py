@@ -12,7 +12,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from sparktts_tpu_torch.nn.layers import linear_apply
+from sparktts_tpu_torch.nn.layers import linear_apply, matmul
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -27,7 +27,7 @@ def fvq_nearest_indices(p, z_e: torch.Tensor) -> torch.Tensor:
     a tie goes to the first maximum, as `jnp.argmax` does."""
     enc = _l2_normalize(z_e.float())
     cb = _l2_normalize(p["codebook"].float())
-    sim = torch.einsum("btd,kd->btk", enc, cb)
+    sim = matmul(enc, cb.t())
     return torch.argmax(sim, dim=-1)
 
 

@@ -3,7 +3,8 @@
 Port of `sparktts_tpu/dsp/mel.py`: the reference's torchaudio
 MelSpectrogram (power 1, slaney norm and mel scale, center=True with reflect
 padding) as frame -> window -> RFFT by two fp32 matmuls -> magnitude -> mel
-filterbank matmul.  The matmul form is kept rather than `torch.stft`, so the
+filterbank matmul (`nn/layers.matmul`: the codec's kernel inside a
+`codec_fp32()` scope).  The matmul form is kept rather than `torch.stft`, so the
 port does the same arithmetic as the JAX package.  The constants are built in
 numpy, as there.
 """
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from sparktts_tpu_torch.config import MelParams
+from sparktts_tpu_torch.nn.layers import matmul
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -110,7 +112,7 @@ def mel_spectrogram(wav: torch.Tensor, basis: MelBasis) -> torch.Tensor:
     dev = wav.device
     frames = frame_signal(wav.float(), basis.n_fft, basis.hop_length)
     frames = frames * torch.from_numpy(basis.window).to(dev)
-    real = frames @ torch.from_numpy(basis.rfft_real).to(dev)
-    imag = frames @ torch.from_numpy(basis.rfft_imag).to(dev)
+    real = matmul(frames, torch.from_numpy(basis.rfft_real).to(dev))
+    imag = matmul(frames, torch.from_numpy(basis.rfft_imag).to(dev))
     magnitude = torch.sqrt(real * real + imag * imag + 1e-12)
-    return magnitude @ torch.from_numpy(basis.mel_fb).to(dev)
+    return matmul(magnitude, torch.from_numpy(basis.mel_fb).to(dev))

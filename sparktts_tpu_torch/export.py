@@ -15,11 +15,15 @@ place of a launch, and a loaded program runs the op, whose CUDA
 implementation launches the kernel (its CPU one runs the plain version).
 `export_program` raises when a program lacks an op it was expected to
 hold, so no export records a plain version in a kernel's place.  Programs
-of the codec (mel, tokenize, vocoder) record that they run in full fp32,
-and `load_program` runs them under `nn/layers.full_fp32` (a program does
-not carry PyTorch's TF32 flags).  On the card a loaded program replays a
-CUDA graph captured at its first call (`LoadedProgram`), as the live decode
-replays its units.
+of the codec (mel, tokenize, vocoder) are traced in a `codec_fp32()` scope,
+so they hold the codec's own ops (kernels 7 and 8) in place of every
+convolution and matrix product, and run in fp32 whatever the TF32 flags of
+the caller: a loaded program opens no scope and sets no flag.  The
+manifest's `fp32` key still marks a codec program; an artifact written
+before the codec had kernels of its own holds PyTorch's convolutions, which
+run at the caller's precision: export it again.  On the card a loaded
+program replays a CUDA graph captured at its first call (`LoadedProgram`),
+as the live decode replays its units.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 from sparktts_tpu_torch.kernels import ops
 from sparktts_tpu_torch.lm import graphs
 from sparktts_tpu_torch.lm.qwen import int8_mlp_fusable
-from sparktts_tpu_torch.nn.layers import full_fp32
+from sparktts_tpu_torch.nn.layers import codec_fp32
 
 META = "sparktts.json"
 GRAPHS = ("mel", "audio_tokenize", "vocoder", "lm_prefill", "lm_decode")
@@ -54,9 +58,9 @@ def export_program(fn, args: Tuple, path: str | Path, kernels: Iterable[str] = (
                    fp32: bool = False) -> Dict[str, int]:
     """Export fn(*args) (tensors closed over are embedded) and write it to
     `path`.  `kernels`: the ops (`kernels/ops.py` names) the program must
-    hold; it raises if one is missing.  `fp32`: trace, and later run, under
-    `full_fp32`.  Returns {op: count} of the program's kernel ops."""
-    with torch.no_grad(), (full_fp32() if fp32 else contextlib.nullcontext()):
+    hold; it raises if one is missing.  `fp32`: trace in a `codec_fp32()`
+    scope (a codec program).  Returns {op: count} of the program's kernel ops."""
+    with torch.no_grad(), (codec_fp32() if fp32 else contextlib.nullcontext()):
         program = torch.export.export(_Program(fn), tuple(args), strict=False)
     found = ops.graph_ops(program.graph)
     missing = sorted(set(kernels) - set(found))
@@ -94,13 +98,13 @@ class LoadedProgram:
     def eager(self, *args):
         """The module walked op by op, on any device (what a call runs on the
         CPU; on the card, the reference a replay is held to)."""
-        with torch.no_grad(), (full_fp32() if self.fp32 else contextlib.nullcontext()):
+        with torch.no_grad():
             return self.module(*args)
 
     def __call__(self, *args):
         if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
             return self.eager(*args)
-        with torch.no_grad(), (full_fp32() if self.fp32 else contextlib.nullcontext()):
+        with torch.no_grad():
             key = tuple((a.shape, a.dtype, a.device) for a in args)
             with self._lock:
                 call = self.captured.get(key)
@@ -247,12 +251,15 @@ def export_pipeline_artifacts(
     kv_shape = (cfg.llm.num_hidden_layers, 1, cache_len, cfg.llm.num_key_value_heads,
                 cfg.llm.head_dim)
     float_units = "w" in bc["decoder"]["blocks"][0]["res_units"][0]["conv1"]
+    codec_ops = ("codec_linear", "codec_conv1d", "depthwise_conv1d")
     specs = {
-        "mel": (mel, (zeros(1, ref_len),), (), True),
-        "audio_tokenize": (tokenize, (zeros(1, wav_len), zeros(1, ref_len)), (), True),
+        "mel": (mel, (zeros(1, ref_len),), ("codec_bmm",), True),
+        "audio_tokenize": (tokenize, (zeros(1, wav_len), zeros(1, ref_len)),
+                           codec_ops + ("codec_bmm",), True),
         "vocoder": (vocode, (zeros(1, vocoder_tokens, dtype=torch.long),
                              zeros(1, cfg.bicodec.speaker_encoder.token_num, dtype=torch.long)),
-                    ("fused_residual_unit",) if float_units else (), True),
+                    codec_ops + ("codec_conv_transpose1d",)
+                    + (("fused_residual_unit",) if float_units else ()), True),
         "lm_prefill": (lm_prefill, (zeros(1, prompt_len, dtype=torch.long),
                                     torch.ones((1, prompt_len), dtype=torch.bool, device=dev)),
                        (), False),

@@ -2,8 +2,8 @@
 
 `torch.export` traces Python, and a kernel launched through `ctypes` is
 invisible to it: a trace would record nothing on the card, or on the CPU
-the plain version in the kernel's place.  So kernels 2 to 5 are registered
-here under the `sparktts_torch::` namespace, and their wrappers call the op
+the plain version in the kernel's place.  So kernels 2 to 5, 7 and 8 are
+registered here under the `sparktts_torch::` namespace, and their wrappers call the op
 instead of launching while `torch.compiler.is_exporting()` is true: an
 exported graph holds the op node, and a loaded program runs the op.
 
@@ -11,12 +11,14 @@ Each op's CUDA implementation calls the wrapper (which launches the kernel,
 counts the launch, and raises on failure); its CPU implementation is the
 plain version; its fake implementation gives the output's shape and dtype.
 Arguments are tensors and scalars only (kernel 3's param dict travels as
-its seven tensors).  Serving paths call the wrappers directly and never pay
+its seven tensors; an absent bias or scale is None).  Serving paths call the wrappers directly and never pay
 the dispatcher.  Importing this module builds nothing: kernels are built at
 their first launch.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -132,6 +134,140 @@ def _(x, packed, gscale):
 @int4_matvec.register_fake
 def _(x, packed, gscale):
     return x.new_empty((x.shape[0], packed.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: the codec's fp32 convolutions and matrix products
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::codec_linear", mutates_args=(), device_types="cuda")
+def codec_linear(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                 scale: Optional[torch.Tensor]) -> torch.Tensor:
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.linear(x, w, bias, scale)
+
+
+@codec_linear.register_kernel("cpu")
+def _(x, w, bias, scale):
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.linear_plain(x, w, bias, scale)
+
+
+@codec_linear.register_fake
+def _(x, w, bias, scale):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]), dtype=w.dtype)
+
+
+def _conv_len(t: int, k: int, stride: int, padding: int, dilation: int) -> int:
+    return (t + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+@torch.library.custom_op(f"{NAMESPACE}::codec_conv1d", mutates_args=(), device_types="cuda")
+def codec_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                 scale: Optional[torch.Tensor], stride: int, padding: int, dilation: int,
+                 groups: int) -> torch.Tensor:
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.conv1d(x, w, bias, scale, stride, padding, dilation, groups)
+
+
+@codec_conv1d.register_kernel("cpu")
+def _(x, w, bias, scale, stride, padding, dilation, groups):
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.conv1d_plain(x, w, bias, scale, stride, padding, dilation,
+                                   groups).contiguous()
+
+
+@codec_conv1d.register_fake
+def _(x, w, bias, scale, stride, padding, dilation, groups):
+    t = _conv_len(x.shape[1], w.shape[0], stride, padding, dilation)
+    return x.new_empty((x.shape[0], t, w.shape[2]), dtype=w.dtype)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::codec_conv_transpose1d", mutates_args=(),
+                         device_types="cuda")
+def codec_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                           scale: Optional[torch.Tensor], stride: int, padding: int,
+                           output_padding: int) -> torch.Tensor:
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.conv_transpose1d(x, w, bias, scale, stride, padding, output_padding)
+
+
+@codec_conv_transpose1d.register_kernel("cpu")
+def _(x, w, bias, scale, stride, padding, output_padding):
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.conv_transpose1d_plain(x, w, bias, scale, stride, padding,
+                                             output_padding).contiguous()
+
+
+@codec_conv_transpose1d.register_fake
+def _(x, w, bias, scale, stride, padding, output_padding):
+    t = (x.shape[1] - 1) * stride - 2 * padding + w.shape[0] + output_padding
+    return x.new_empty((x.shape[0], t, w.shape[2]), dtype=w.dtype)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::codec_bmm", mutates_args=(), device_types="cuda")
+def codec_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.bmm(a, b)
+
+
+@codec_bmm.register_kernel("cpu")
+def _(a, b):
+    from sparktts_tpu_torch.kernels import codec_gemm
+
+    return codec_gemm.bmm_plain(a, b).contiguous()
+
+
+@codec_bmm.register_fake
+def _(a, b):
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return a.new_empty((*batch, a.shape[-2], b.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: the codec's depthwise convolutions
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::depthwise_conv1d", mutates_args=(), device_types="cuda")
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                     scale: Optional[torch.Tensor], stride: int, padding: int, dilation: int,
+                     transposed: bool, output_padding: int) -> torch.Tensor:
+    from sparktts_tpu_torch.kernels import depthwise_conv
+
+    if transposed:
+        return depthwise_conv.conv_transpose1d(x, w, bias, scale, stride, padding,
+                                               output_padding)
+    return depthwise_conv.conv1d(x, w, bias, scale, stride, padding, dilation)
+
+
+@depthwise_conv1d.register_kernel("cpu")
+def _(x, w, bias, scale, stride, padding, dilation, transposed, output_padding):
+    from sparktts_tpu_torch.kernels import depthwise_conv
+
+    if transposed:
+        y = depthwise_conv.conv_transpose1d_plain_dw(x, w, bias, scale, stride, padding,
+                                                     output_padding)
+    else:
+        y = depthwise_conv.conv1d_plain_dw(x, w, bias, scale, stride, padding, dilation)
+    return y.contiguous()
+
+
+@depthwise_conv1d.register_fake
+def _(x, w, bias, scale, stride, padding, dilation, transposed, output_padding):
+    if transposed:
+        t = (x.shape[1] - 1) * stride - 2 * padding + w.shape[0] + output_padding
+    else:
+        t = _conv_len(x.shape[1], w.shape[0], stride, padding, dilation)
+    return x.new_empty((x.shape[0], t, x.shape[2]), dtype=w.dtype)
 
 
 def graph_ops(graph: torch.fx.Graph) -> dict:

@@ -79,7 +79,9 @@ from torch.utils import _pytree as pytree
 from sparktts_tpu_torch.kernels import (
     arrivals,
     build,
+    codec_gemm,
     decode_attention,
+    depthwise_conv,
     flash_attention,
     int4_matmul,
     int8_mlp,
@@ -96,6 +98,8 @@ KERNELS = {
     "int8_mlp_matvec": int8_mlp,
     "int4_matvec": int4_matmul,
     "paged_decode_attention": paged_attention,
+    "codec_gemm": codec_gemm,
+    "depthwise_conv": depthwise_conv,
 }
 
 #: Kernel launches made by graph replays since the last `reset_launches`.

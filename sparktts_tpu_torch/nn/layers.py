@@ -1,8 +1,9 @@
 """Functional NN primitives on channels-last `(B, T, C)` tensors.
 
-Port of `sparktts_tpu/nn/layers.py`, plus `full_fp32`, which pins the
-codec's precision on the card.  Params are plain dicts of tensors with the
-JAX package's keys and layouts:
+Port of `sparktts_tpu/nn/layers.py`, plus `codec_fp32`, the scope in which
+the codec's convolutions and matrix products run on kernels of the port's
+own.  Params are plain dicts of tensors with the JAX package's keys and
+layouts:
 
   * linear weights are `(in, out)`;
   * conv kernels are WIO `(K, Cin // groups, Cout)`;
@@ -14,18 +15,64 @@ serves both packages.  Weight-only quantized params (`lm/quant.py`,
 `codec/quant.py`) take their own paths: int8 `{"w_q", "scale"}` computes in
 the activation dtype with the scale on the output, before the bias; int4
 `{"w_p4", "gscale"}` linears go through `kernels/int4_matmul.py`.
+
+Inside a `codec_fp32()` scope, `linear_apply`, `conv1d_apply`,
+`conv_transpose1d_apply` and `matmul` send float and int8 weights to the
+codec's kernels (`kernels/codec_gemm.py`, `kernels/depthwise_conv.py`): on
+the card fixed fp32-accurate arithmetic whatever the TF32 flags, on the CPU
+the same PyTorch code as outside.  Outside the scope nothing changes (the
+LM and its training call the same functions, with autograd).
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
+from sparktts_tpu_torch.kernels import codec_gemm, depthwise_conv
+from sparktts_tpu_torch.kernels.codec_gemm import conv1d_plain, conv_transpose1d_plain
 from sparktts_tpu_torch.kernels.int4_matmul import MAX_ROWS as INT4_MATVEC_ROWS
 from sparktts_tpu_torch.kernels.int4_matmul import int4_matvec, int4_matvec_plain
+
+_CODEC_SCOPE = contextvars.ContextVar("codec_fp32", default=False)
+
+
+@contextlib.contextmanager
+def codec_fp32():
+    """Run the codec's convolutions and matrix products inside the block (or
+    the decorated function) on the port's own fp32 kernels.  The scope is a
+    context variable: it holds for this thread (or asyncio task) alone and
+    assigns no `torch.backends` flag, so work in other threads keeps its own
+    precision, and a codec call's numbers depend on its inputs alone.  On
+    the card a shape the kernels do not take raises; nothing falls back to
+    cuDNN or cuBLAS."""
+    token = _CODEC_SCOPE.set(True)
+    try:
+        yield
+    finally:
+        _CODEC_SCOPE.reset(token)
+
+
+def in_codec_scope() -> bool:
+    """Whether this thread (or asyncio task) is inside a `codec_fp32()` scope."""
+    return _CODEC_SCOPE.get()
+
+
+def _float_or_int8(p, x: torch.Tensor):
+    """(weights, bias, scale) of a codec layer: float weights as stored, an
+    int8 kernel cast to x's dtype with its scale in x's dtype."""
+    if "w_q" in p:
+        return p["w_q"].to(x.dtype), p.get("b"), p["scale"].to(x.dtype)
+    return p["w"], p.get("b"), None
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b; inside a `codec_fp32()` scope by the codec's kernel
+    (`codec_gemm.bmm`, at most two batch dims)."""
+    return codec_gemm.bmm(a, b) if _CODEC_SCOPE.get() else torch.matmul(a, b)
 
 
 def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +82,10 @@ def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
     matvec kernel module, which streams the packed weights; wider x
     (prefill) unpacks once and sums fp32 group partials times the fp32
     group scales.  int8: x times the weights cast to x's dtype, times the
-    per-column scale in x's dtype."""
+    per-column scale in x's dtype.  Inside a `codec_fp32()` scope, float and
+    int8 weights go through `codec_gemm.linear`."""
+    if "w_p4" not in p and _CODEC_SCOPE.get():
+        return codec_gemm.linear(x, *_float_or_int8(p, x))
     if "w_p4" in p:
         packed, gscale = p["w_p4"], p["gscale"]
         rows = x.numel() // x.shape[-1]
@@ -54,51 +104,20 @@ def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _conv_weight(p, x: torch.Tensor):
-    """(kernel, bias for F.conv*) of a conv's params; the kernel's dtype is
-    the compute dtype.  A float kernel carries its bias; an int8 kernel is
-    cast to x's dtype and leaves the bias to `_conv_output`, after the
-    scale."""
-    if "w_q" in p:
-        return p["w_q"].to(x.dtype), None
-    return p["w"], p.get("b")
-
-
-def _conv_output(p, y: torch.Tensor) -> torch.Tensor:
-    """(B, Cout, T') conv output -> (B, T', Cout), with an int8 kernel's
-    per-out-channel scale and then its bias."""
-    y = y.transpose(1, 2)
-    if "w_q" in p:
-        y = y * p["scale"].to(y.dtype)
-        if "b" in p:
-            y = y + p["b"]
-    return y
-
-
 def conv1d_apply(
     p, x: torch.Tensor, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1
 ) -> torch.Tensor:
-    """x: (B, T, C) -> (B, T', Cout).  `padding` is symmetric, torch-style."""
-    w, b = _conv_weight(p, x)
-    y = F.conv1d(
-        x.to(w.dtype).transpose(1, 2),
-        w.permute(2, 1, 0),  # WIO -> (Cout, Cin // groups, K)
-        b,
-        stride=stride,
-        padding=padding,
-        dilation=dilation,
-        groups=groups,
-    )
-    return _conv_output(p, y)
-
-
-def _torch_transposed_kernel(w: torch.Tensor, groups: int) -> torch.Tensor:
-    """Stored flipped forward kernel (K, Cin // g, Cout) -> torch
-    ConvTranspose1d weight (Cin, Cout // g, K): torch tap m is w[K-1-m], and
-    input channel g*(Cin//g)+i feeds output g*(Cout//g)+j."""
-    k, cin_g, cout = w.shape
-    w = w.flip(0).reshape(k, cin_g, groups, cout // groups)
-    return w.permute(2, 1, 3, 0).reshape(groups * cin_g, cout // groups, k)
+    """x: (B, T, C) -> (B, T', Cout).  `padding` is symmetric, torch-style.
+    An int8 kernel is cast to x's dtype, its scale and then its bias applied
+    to the output.  Inside a `codec_fp32()` scope a depthwise conv (groups =
+    C, one channel each) goes through `depthwise_conv.conv1d`, any other
+    through `codec_gemm.conv1d`."""
+    w, b, scale = _float_or_int8(p, x)
+    if _CODEC_SCOPE.get():
+        if groups > 1 and w.shape[1] == 1 and groups == x.shape[-1] == w.shape[2]:
+            return depthwise_conv.conv1d(x, w, b, scale, stride, padding, dilation)
+        return codec_gemm.conv1d(x, w, b, scale, stride, padding, dilation, groups)
+    return conv1d_plain(x, w, b, scale, stride, padding, dilation, groups)
 
 
 def conv_transpose1d_apply(
@@ -110,18 +129,19 @@ def conv_transpose1d_apply(
     groups: int = 1,
 ) -> torch.Tensor:
     """Torch-semantics ConvTranspose1d on (B, T, C):
-    out_len = (T - 1) * stride - 2 * padding + K + output_padding."""
-    w, b = _conv_weight(p, x)
-    y = F.conv_transpose1d(
-        x.to(w.dtype).transpose(1, 2),
-        _torch_transposed_kernel(w, groups),
-        b,
-        stride=stride,
-        padding=padding,
-        output_padding=output_padding,
-        groups=groups,
-    )
-    return _conv_output(p, y)
+    out_len = (T - 1) * stride - 2 * padding + K + output_padding.  Inside a
+    `codec_fp32()` scope groups = 1 goes through `codec_gemm`, a depthwise
+    one through `depthwise_conv`; other groupings raise there."""
+    w, b, scale = _float_or_int8(p, x)
+    if _CODEC_SCOPE.get():
+        if groups == 1:
+            return codec_gemm.conv_transpose1d(x, w, b, scale, stride, padding, output_padding)
+        if w.shape[1] == 1 and groups == x.shape[-1] == w.shape[2]:
+            return depthwise_conv.conv_transpose1d(x, w, b, scale, stride, padding,
+                                                   output_padding)
+        raise ValueError(f"conv_transpose1d_apply: no codec kernel for groups = {groups} "
+                         f"of {x.shape[-1]} channels")
+    return conv_transpose1d_plain(x, w, b, scale, stride, padding, output_padding, groups)
 
 
 def layer_norm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -160,48 +180,6 @@ def l2norm_scale_apply(p, x: torch.Tensor, scale: float) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x, approximate="none")
-
-
-_fp32_lock = threading.Lock()
-_fp32_depth = 0  # full_fp32 blocks open, in all threads
-_fp32_saved = None  # (cudnn, matmul) TF32 flags when the first of them opened
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """Run fp32 convolutions and matmuls in full fp32 inside the block (or
-    the decorated function), and restore the caller's settings after it.
-    PyTorch's default lets cuDNN run fp32 convolutions in TF32 (about three
-    decimal digits); the codec is meant to be fp32 whoever calls it.
-
-    The two TF32 flags are process-wide, and PyTorch has no per-call fp32
-    precision.  So blocks that overlap in several threads share one
-    bookkeeping, under a lock: the first to open saves the flags, every
-    one that opens clears both, and the last to close restores a flag only
-    where it is still False.  So a flag that another thread set to True
-    while blocks were open keeps True, unless a block opened after that
-    and cleared it again; a flag that another thread set to False cannot be
-    told from this one's clearing, and gets the saved value back.  What
-    this cannot fix: while any block is open, TF32 work in other threads
-    runs in full fp32."""
-    global _fp32_depth, _fp32_saved
-    with _fp32_lock:
-        if _fp32_depth == 0:
-            _fp32_saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        _fp32_depth += 1
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        with _fp32_lock:
-            _fp32_depth -= 1
-            if _fp32_depth == 0:
-                cudnn_saved, matmul_saved = _fp32_saved
-                if torch.backends.cudnn.allow_tf32 is False:
-                    torch.backends.cudnn.allow_tf32 = cudnn_saved
-                if torch.backends.cuda.matmul.allow_tf32 is False:
-                    torch.backends.cuda.matmul.allow_tf32 = matmul_saved
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from sparktts_tpu_torch.nn.layers import gelu, l2norm_scale_apply, linear_apply
+from sparktts_tpu_torch.nn.layers import gelu, l2norm_scale_apply, linear_apply, matmul
 
 
 def attention_apply(p, x: torch.Tensor, context: torch.Tensor, heads: int) -> torch.Tensor:
@@ -23,8 +23,8 @@ def attention_apply(p, x: torch.Tensor, context: torch.Tensor, heads: int) -> to
     def split(t):
         return t.reshape(b, -1, heads, dim_head).transpose(1, 2)
 
-    sim = torch.einsum("bhid,bhjd->bhij", split(q), split(k)) * dim_head**-0.5
-    out = torch.einsum("bhij,bhjd->bhid", torch.softmax(sim, dim=-1), split(v))
+    sim = matmul(split(q), split(k).transpose(-1, -2)) * dim_head**-0.5
+    out = matmul(torch.softmax(sim, dim=-1), split(v))
     return linear_apply(p["to_out"], out.transpose(1, 2).reshape(b, n, inner))
 
 

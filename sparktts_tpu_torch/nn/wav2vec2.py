@@ -5,7 +5,9 @@ a grouped positional conv (k=128, 16 groups, trailing sample trimmed for
 the even kernel), and a pre-LN transformer whose `hidden_states` follow
 Hugging Face's indexing: entry i is the input to layer i, and the last entry
 is the final layer-normed output.  The features are the mean of hidden
-states 11, 14 and 16.  Everything runs in fp32.
+states 11, 14 and 16.  Everything runs in fp32; `wav2vec2_features` runs
+in a `codec_fp32()` scope, so on the card its convolutions and matrix
+products are the codec's own kernels.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import torch
 
 from sparktts_tpu_torch.config import Wav2Vec2Config
 from sparktts_tpu_torch.nn.layers import (
+    codec_fp32,
     conv1d_apply,
-    full_fp32,
     gelu,
     layer_norm_apply,
     linear_apply,
+    matmul,
 )
 
 
@@ -69,11 +72,11 @@ def _attention(layer, x: torch.Tensor, cfg: Wav2Vec2Config, mask_bias) -> torch.
         return linear_apply(layer[name], x).reshape(b, t, nh, hd).transpose(1, 2)
 
     q = heads("q") * hd**-0.5
-    scores = torch.einsum("bhid,bhjd->bhij", q, heads("k"))
+    scores = matmul(q, heads("k").transpose(-1, -2))
     if mask_bias is not None:
         scores = scores + mask_bias
     attn = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhij,bhjd->bhid", attn, heads("v")).transpose(1, 2).reshape(b, t, h)
+    out = matmul(attn, heads("v")).transpose(1, 2).reshape(b, t, h)
     return linear_apply(layer["o"], out)
 
 
@@ -106,7 +109,7 @@ def wav2vec2_hidden_states(
     return hidden_states
 
 
-@full_fp32()
+@codec_fp32()
 def wav2vec2_features(
     p, wav: torch.Tensor, cfg: Wav2Vec2Config, feature_mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

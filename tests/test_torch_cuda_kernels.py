@@ -19,6 +19,8 @@ projection), the int4 matvec
 within 1e-2 of max|plain| (bf16 output rounding plus summation order).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -31,13 +33,25 @@ from sparktts_tpu_torch.kernels import int4_matmul as i4
 from sparktts_tpu_torch.kernels import int8_mlp as i8
 from sparktts_tpu_torch.kernels import paged_attention as pa
 from sparktts_tpu_torch.kernels import vocoder_fusion as vf
-from sparktts_tpu_torch.nn.layers import full_fp32
 from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features
 from sparktts_tpu_torch.weights import init_wav2vec2, to_torch
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 HQ, HKV, D = 14, 2, 64  # Qwen2.5-0.5B attention heads
 HIDDEN, INTER = 896, 4864  # Qwen2.5-0.5B hidden and intermediate widths
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """PyTorch's two TF32 flags off for a plain fp32 reference (cuDNN and
+    cuBLAS in full fp32), the caller's back after it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def _cuda():
@@ -277,7 +291,7 @@ def test_vocoder_kernel_matches_plain(c, t, dilation):
     before = vf.launches
     got = vf.fused_residual_unit(p, x, dilation)
     assert vf.launches == before + 1
-    with full_fp32():
+    with _no_tf32():
         want = vf.fused_residual_unit_plain(p, x, dilation)
         model = vf.residual_unit_3xtf32_plain(p, x, dilation)
     torch.cuda.synchronize()
@@ -299,17 +313,18 @@ def test_vocoder_kernel_repeats_bit_equal(c, t, dilation):
     got = vf.fused_residual_unit(p, x, dilation)
     for _ in range(2):
         assert torch.equal(got, vf.fused_residual_unit(p, x, dilation))
-    with full_fp32():
+    with _no_tf32():
         want = vf.fused_residual_unit_plain(p, x, dilation)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda
 def test_codec_is_full_fp32_under_pytorch_defaults():
-    """wav2vec2's convs on the card, with PyTorch's default flags (cuDNN may
-    use TF32), against a float64 CPU run of the same function (its
-    LayerNorms normalise in fp32): 1e-5 of the peak.  TF32 would miss by
-    ~1e-3.  The caller's flags are restored after the call."""
+    """wav2vec2's convs and matmuls on the card, with PyTorch's default
+    flags (cuDNN may use TF32), against a float64 CPU run of the same
+    function (its LayerNorms normalise in fp32): 1e-5 of the peak.  TF32
+    would miss by ~1e-3; the codec's own kernels (3xTF32) read no flag.
+    The caller's flags are as they were after the call."""
     dev = _cuda()
     assert torch.backends.cudnn.allow_tf32  # PyTorch's default, left as it is
     cfg = Wav2Vec2Config(conv_dim=(256, 256, 256), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
@@ -581,7 +596,7 @@ def test_kernels_launch_on_the_card_of_their_tensors():
     assert _rel_err(i4.int4_matvec(x, packed, gscale), i4.int4_matvec_plain(x, packed,
                                                                             gscale)) <= 1e-2
     assert _rel_err(i8.int8_mlp_matvec(x8, *w8), i8.int8_mlp_matvec_plain(x8, *w8)) <= 2e-2
-    with full_fp32():
+    with _no_tf32():
         want_u = vf.fused_residual_unit_plain(unit, xu, 1)
     got_u = vf.fused_residual_unit(unit, xu, 1)
     torch.cuda.synchronize(dev)
@@ -961,7 +976,7 @@ def test_vocoder_kernel_at_the_servers_batched_windows(b, c, t):
     x = torch.randn((b, t, c), generator=torch.Generator().manual_seed(b + c)).to(dev)
     got = vf.fused_residual_unit(p, x, 3)
     assert torch.equal(got, vf.fused_residual_unit(p, x, 3))
-    with full_fp32():
+    with _no_tf32():
         want = vf.fused_residual_unit_plain(p, x, 3)
         model = vf.residual_unit_3xtf32_plain(p, x, 3)
     scale = float(want.abs().max())
@@ -1072,7 +1087,7 @@ def test_custom_op_launches_its_kernel_and_matches_plain(name):
     before = module.launches
     got = op(*args)
     assert module.launches == before + 1
-    with full_fp32():
+    with _no_tf32():
         want = plain()
     tol = 1e-4 if name == "fused_residual_unit" else 2e-2
     assert _rel_err(got, want) <= tol
@@ -1104,3 +1119,208 @@ def test_program_exported_on_the_card_launches_its_kernel(tmp_path):
     got = program(q, ck, cv, start, pos)
     assert graphs.launches()["dense_decode_attention"] == before + 1
     assert _rel_err(got, 2 * da.dense_decode_plain(q, ck, cv, 1, start, pos, 0.125)) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# kernels 7 and 8: the codec's own fp32 convolutions and matrix products
+# ---------------------------------------------------------------------------
+# Held to their plain versions run in float64 on the card (no TF32 there):
+# 1e-4 of max|plain|, as kernel 3 (3xTF32 drops lo x lo, ~2^-22 a product,
+# and sums in another order).  The point of the kernels is their fixed
+# arithmetic: repeats, other batch rows and other windows of the same input
+# give the same bits.
+
+CODEC_TOL = 1e-4
+
+# (name, B, T, Cin, Cout, K, stride, padding, dilation, groups)
+CODEC_CONVS = [
+    ("conv_in k7 1024-1536", 1, 500, 1024, 1536, 7, 1, 3, 1, 1),
+    ("conv_out Cout 1", 1, 16000, 96, 1, 7, 1, 3, 1, 1),
+    ("wav2vec2 conv0 Cin 1 k10 s5", 1, 16000, 1, 512, 10, 5, 0, 1, 1),
+    ("wav2vec2 k3 s2", 2, 999, 512, 512, 3, 2, 0, 1, 1),
+    ("pos_conv k128 16 groups", 1, 299, 1024, 1024, 128, 1, 64, 1, 16),
+    ("ecapa k3 dil 3", 1, 301, 64, 64, 3, 1, 3, 3, 1),
+    ("ragged", 3, 77, 40, 33, 5, 2, 2, 2, 1),
+]
+
+
+def _f64(*ts):
+    return [None if t is None else t.double() for t in ts]
+
+
+def _codec_rel(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.dtype == torch.float32
+    return float((got.double() - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CODEC_CONVS, ids=[c[0] for c in CODEC_CONVS])
+def test_codec_gemm_conv_matches_float64_and_repeats_bit_equal(case):
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    _, b, t, cin, cout, k, s, pad, dil, g = case
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(t + cout)
+    wide = torch.randn((b, t, cin + 3), generator=gen, device=dev)
+    x = wide[..., 1:cin + 1]  # a strided view: the kernel reads by strides
+    w = 0.05 * torch.randn((k, cin // g, cout), generator=gen, device=dev)
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    before = cg.launches
+    got = cg.conv1d(x, w, bias, None, s, pad, dil, g)
+    assert cg.launches == before + 1
+    want = cg.conv1d_plain(*_f64(x, w, bias), None, s, pad, dil, g)
+    assert _codec_rel(got, want) <= CODEC_TOL
+    assert torch.equal(got, cg.conv1d(x.contiguous(), w, bias, None, s, pad, dil, g))
+    # a batch row alone, and a later window of the input, give the same bits
+    # wherever the window's outputs read no padding
+    assert torch.equal(got[-1:], cg.conv1d(x[-1:], w, bias, None, s, pad, dil, g))
+    a = s * 8  # tail row r reads the inputs of full row r + 8
+    tail = cg.conv1d(x[:, a:], w, bias, None, s, pad, dil, g)
+    lo, hi = -(-pad // s), (t - a - 1 - dil * (k - 1) + pad) // s + 1
+    assert hi > lo and torch.equal(got[:, lo + 8:hi + 8], tail[:, lo:hi])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,cin,cout,t", [(16, 8, 1536, 768, 100), (11, 5, 768, 384, 200),
+                                            (8, 4, 384, 192, 400), (4, 2, 192, 96, 800)])
+def test_codec_gemm_transposed_matches_float64(k, s, cin, cout, t):
+    """Every upsampler of the WaveGenerator at its channels."""
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn((2, t, cin), generator=gen, device=dev)
+    w = 0.05 * torch.randn((k, cin, cout), generator=gen, device=dev)
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    pad = (k - s) // 2
+    got = cg.conv_transpose1d(x, w, bias, None, s, pad)
+    want = cg.conv_transpose1d_plain(*_f64(x, w, bias), None, s, pad)
+    assert got.shape == want.shape == (2, (t - 1) * s - 2 * pad + k, cout)
+    assert _codec_rel(got, want) <= CODEC_TOL
+    assert torch.equal(got, cg.conv_transpose1d(x, w, bias, None, s, pad))
+    assert torch.equal(got[1:], cg.conv_transpose1d(x[1:], w, bias, None, s, pad))
+    scale = 0.5 + torch.rand(cout, generator=gen, device=dev)  # an int8 kernel's, then the bias
+    got = cg.conv_transpose1d(x, w, bias, scale, 3, 1, 2)
+    want = cg.conv_transpose1d_plain(*_f64(x, w, bias, scale), 3, 1, 2)
+    assert _codec_rel(got, want) <= CODEC_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,din,dout", [(299, 1024, 4096), (299, 4096, 1024), (1, 1024, 1024),
+                                           (500, 384, 2048), (2, 1024, 8)])
+def test_codec_gemm_linear_matches_float64(rows, din, dout):
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(din + dout)
+    x = torch.randn((1, rows, din), generator=gen, device=dev)
+    w = 0.03 * torch.randn((din, dout), generator=gen, device=dev)
+    bias = 0.1 * torch.randn(dout, generator=gen, device=dev)
+    scale = 0.5 + torch.rand(dout, generator=gen, device=dev)
+    got = cg.linear(x, w, bias, scale)
+    assert got.shape == (1, rows, dout)
+    assert _codec_rel(got, cg.linear_plain(*_f64(x, w, bias, scale))) <= CODEC_TOL
+    assert torch.equal(got[:, -1:], cg.linear(x[:, -1:], w, bias, scale))
+
+
+@pytest.mark.cuda
+def test_codec_gemm_bmm_takes_strided_operands():
+    """wav2vec2's attention at 16 heads of 64 (q and k as the layer lays
+    them out), the FVQ similarities against the 8192-code book read
+    transposed, and the mel's frames as an unfold view."""
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((2, 299, 3, 16, 64), generator=gen, device=dev)
+    q, k = qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2)
+    cb = torch.randn((8192, 8), generator=gen, device=dev)
+    enc = torch.randn((1, 500, 8), generator=gen, device=dev)
+    frames = torch.randn((1, 96640), generator=gen, device=dev).unfold(1, 1024, 320)
+    basis = torch.randn((1024, 513), generator=gen, device=dev)
+    for a, b in ((q, k.transpose(-1, -2)), (enc, cb.t()), (frames, basis)):
+        got = cg.bmm(a, b)
+        assert _codec_rel(got, cg.bmm_plain(a.double(), b.double())) <= CODEC_TOL
+        assert torch.equal(got, cg.bmm(a.contiguous(), b.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c,k,s,pad,transposed", [(500, 384, 7, 1, 3, False),
+                                                    (301, 64, 4, 2, 1, False),
+                                                    (120, 64, 4, 2, 1, True),
+                                                    (77, 40, 6, 3, 2, True)])
+def test_depthwise_matches_float64_and_repeats_bit_equal(t, c, k, s, pad, transposed):
+    from sparktts_tpu_torch.kernels import depthwise_conv as dw
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn((2, t, c), generator=gen, device=dev)
+    w = 0.2 * torch.randn((k, 1, c), generator=gen, device=dev)
+    bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+    before = dw.launches
+    if transposed:
+        got = dw.conv_transpose1d(x, w, bias, None, s, pad)
+        want = dw.conv_transpose1d_plain_dw(*_f64(x, w, bias), None, s, pad)
+        again = dw.conv_transpose1d(x[1:], w, bias, None, s, pad)
+    else:
+        got = dw.conv1d(x, w, bias, None, s, pad)
+        want = dw.conv1d_plain_dw(*_f64(x, w, bias), None, s, pad)
+        again = dw.conv1d(x[1:], w, bias, None, s, pad)
+    assert dw.launches == before + 2
+    assert _codec_rel(got, want) <= CODEC_TOL
+    assert torch.equal(got[1:], again)
+
+
+def _small_codec(dev):
+    """A BiCodec at small widths that every codec kernel takes: the tiny
+    config with a WaveGenerator of 384 channels (kernel 3 takes C a multiple
+    of 96) and its prenet's depthwise upsamplers."""
+    import dataclasses
+
+    from sparktts_tpu_torch.config import WaveGeneratorConfig, tiny_test_config
+    from sparktts_tpu_torch.weights import init_bicodec
+
+    cfg = tiny_test_config().bicodec
+    cfg = dataclasses.replace(cfg, decoder=WaveGeneratorConfig(
+        input_channel=cfg.decoder.input_channel, channels=384, rates=(4, 2),
+        kernel_sizes=(8, 4)))
+    return cfg, init_bicodec(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+@pytest.mark.cuda
+def test_stream_window_equals_its_full_prefix_vocode_bit_for_bit():
+    """A window that starts a receptive field before what it emits gives,
+    there, the full-prefix vocode's bits, at B = 1 and as a row of a batch,
+    and under either setting of the TF32 flags (restored after)."""
+    from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, detokenize_receptive_field
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+    from sparktts_tpu_torch.kernels import depthwise_conv as dw
+
+    dev = _cuda()
+    cfg, p = _small_codec(dev)
+    hop = int(np.prod(cfg.decoder.rates) * np.prod(cfg.prenet.sample_ratios))
+    rf = detokenize_receptive_field(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sem = torch.randint(0, cfg.quantizer.codebook_size, (1, 160), generator=gen, device=dev)
+    glob = torch.randint(0, 8, (1, cfg.speaker_encoder.token_num), generator=gen, device=dev)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with torch.inference_mode():
+        before = (cg.launches, dw.launches, vf.launches)
+        full = bicodec_detokenize(p, cfg, sem, glob)
+        assert all(n > b for n, b in zip((cg.launches, dw.launches, vf.launches), before))
+        start = 60
+        win = bicodec_detokenize(p, cfg, sem[:, start - rf:], glob)
+        both = bicodec_detokenize(p, cfg, torch.cat([sem[:, start - rf:]] * 2),
+                                  torch.cat([glob] * 2))
+        with _no_tf32():
+            off = bicodec_detokenize(p, cfg, sem, glob)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            on = bicodec_detokenize(p, cfg, sem, glob)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    emitted = full[:, start * hop:]
+    assert torch.equal(win[:, rf * hop:], emitted)
+    assert torch.equal(both[1:, rf * hop:], emitted)
+    assert torch.equal(off, full) and torch.equal(on, full)

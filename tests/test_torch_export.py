@@ -139,7 +139,10 @@ def test_pipeline_artifacts_and_their_ops(artifacts):
         assert (out / rel).stat().st_size > 0
     assert (out / "manifest.json").exists()
     vocode = EXP.load_program(out / "vocoder.pt2")
-    assert vocode.ops == {"fused_residual_unit": 6} and vocode.fp32
+    # the codec's own kernels (7 and 8) stand in every convolution and linear
+    assert vocode.ops == {"fused_residual_unit": 6, "codec_linear": 23, "codec_conv1d": 5,
+                          "codec_conv_transpose1d": 2, "depthwise_conv1d": 8} and vocode.fp32
+    assert EXP.load_program(out / "mel.pt2").ops == {"codec_bmm": 3}
     decode = EXP.load_program(out / "lm_decode.pt2")
     assert decode.ops == {"dense_decode_attention": 2} and not decode.fp32
     assert graph_ops(decode.module.graph) == decode.ops
@@ -171,7 +174,8 @@ def test_vocoder_artifact_equals_live_and_jax(pipe, artifacts):
 
 def test_codec_artifacts_equal_live(pipe, artifacts):
     """mel and audio_tokenize (wav2vec2 + BiCodec) reloaded: the live
-    path's numbers (the same fp32 ops, run under `full_fp32`)."""
+    path's numbers (the same fp32 ops, the codec's kernel ops in the
+    program, whose CPU implementations are the plain versions)."""
     from sparktts_tpu_torch.codec.bicodec import bicodec_tokenize
     from sparktts_tpu_torch.dsp.mel import make_mel_basis, mel_spectrogram
     from sparktts_tpu_torch.nn.wav2vec2 import wav2vec2_features

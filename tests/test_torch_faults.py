@@ -1,6 +1,7 @@
 """Repairs of the port's faults, held on the CPU: the per-stream arrival
 counters of the kernels that merge across blocks (`kernels/arrivals.py`), and
-`nn/layers.full_fp32` under threads that overlap.  The launch guard (every
+the codec's precision scope `nn/layers.codec_fp32` (which replaced a
+process-wide TF32-flag bookkeeping) under threads that overlap.  The launch guard (every
 wrapper launches on its tensor's card) is in `test_torch_guards.py`; the card
 tests of both are in `test_torch_cuda_kernels.py`."""
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from sparktts_tpu_torch.kernels import arrivals
-from sparktts_tpu_torch.nn.layers import full_fp32
+from sparktts_tpu_torch.nn.layers import codec_fp32, in_codec_scope
 
 
 def test_arrival_registry_gives_each_stream_its_own_zeroed_counters():
@@ -90,29 +91,33 @@ def tf32_flags():
 
 
 def test_full_fp32_overlapping_threads_restore_once_and_keep_a_flag_set_meanwhile(tf32_flags):
-    """Thread A enters, B enters, C sets the matmul flag, A leaves, B leaves.
-    A's exit restores nothing (B is still inside); B's, the last, restores
-    cuDNN's flag and leaves C's matmul flag as C set it."""
+    """Thread A enters the codec scope, B enters, C sets the matmul flag, A
+    leaves, B leaves.  The scope is each thread's own and assigns no TF32
+    flag: C is outside it all along, A and B inside theirs until each leaves,
+    and the flags are what C left them at every point."""
     a_in, b_in, c_done, a_out = (threading.Event() for _ in range(4))
     seen = {}
 
     def thread_a():
-        with full_fp32():
-            seen["a inside"] = tf32_flags()
+        with codec_fp32():
+            seen["a inside"] = (in_codec_scope(), tf32_flags())
             a_in.set()
             b_in.wait(30)
             c_done.wait(30)
+        seen["a after"] = in_codec_scope()
         a_out.set()
 
     def thread_b():
         a_in.wait(30)
-        with full_fp32():
+        with codec_fp32():
             b_in.set()
             a_out.wait(30)
-            seen["b after a left"] = tf32_flags()
+            seen["b after a left"] = (in_codec_scope(), tf32_flags())
+        seen["b after"] = in_codec_scope()
 
     def thread_c():
         b_in.wait(30)
+        seen["c"] = in_codec_scope()
         torch.backends.cuda.matmul.allow_tf32 = True
         c_done.set()
 
@@ -122,19 +127,25 @@ def test_full_fp32_overlapping_threads_restore_once_and_keep_a_flag_set_meanwhil
     for t in threads:
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads)
-    assert seen["a inside"] == (False, False)
-    assert seen["b after a left"] == (False, True)  # still pinned; C's flag in force
-    assert tf32_flags() == (True, True)  # cuDNN's restored, C's matmul flag survives
+    assert seen["a inside"] == (True, (True, False))  # the caller's flags, untouched
+    assert seen["c"] is False  # two scopes open in other threads
+    assert seen["b after a left"] == (True, (True, True))  # C's flag in force
+    assert seen["a after"] is False and seen["b after"] is False
+    assert tf32_flags() == (True, True) and not in_codec_scope()
 
 
 def test_full_fp32_nested_and_raising_blocks_restore_at_the_outermost_exit(tf32_flags):
-    @full_fp32()
+    """Nested scopes (a decorated codec call inside a block) and a raising
+    block: each exit closes its own scope, the outermost one closes it all,
+    and no flag moves at any point."""
+    @codec_fp32()
     def codec_call():
-        return tf32_flags()
+        return in_codec_scope(), tf32_flags()
 
     with pytest.raises(ValueError):
-        with full_fp32():
-            assert codec_call() == (False, False)
-            assert tf32_flags() == (False, False)  # the inner exit restored nothing
+        with codec_fp32():
+            assert codec_call() == (True, (True, False))
+            assert in_codec_scope()  # the inner exit closed the inner scope only
             raise ValueError("a codec error")
+    assert not in_codec_scope()
     assert tf32_flags() == (True, False)

@@ -176,7 +176,7 @@ def test_front_doors_import_no_jax_grpc_or_protobuf():
 
 
 WRAPPERS = ("flash_attention", "decode_attention", "vocoder_fusion", "int8_mlp", "int4_matmul",
-            "paged_attention")
+            "paged_attention", "codec_gemm", "depthwise_conv")
 
 
 def _cuda_stream_reads(tree):
@@ -206,6 +206,41 @@ def test_kernel_wrappers_launch_inside_the_launch_helper():
     inside = {id(n) for n in _cuda_stream_reads(helper)}
     assert inside and all(id(n) in inside for n in _cuda_stream_reads(build))
     assert "torch.cuda.device" in ast.unparse(helper)
+
+
+def _tf32_writes(tree):
+    """Assignments to an attribute named allow_tf32, and calls that pass one
+    as a keyword (`torch.backends.cudnn.flags(allow_tf32=...)`)."""
+    out = []
+    for n in ast.walk(tree):
+        targets = (n.targets if isinstance(n, ast.Assign) else [n.target]
+                   if isinstance(n, (ast.AugAssign, ast.AnnAssign)) else [])
+        for t in targets:
+            for sub in ast.walk(t):
+                if isinstance(sub, ast.Attribute) and sub.attr == "allow_tf32":
+                    out.append(ast.unparse(n))
+        if isinstance(n, ast.Call) and any(k.arg == "allow_tf32" for k in n.keywords):
+            out.append(ast.unparse(n))
+        if isinstance(n, ast.Call) and ast.unparse(n.func).endswith("setattr") and any(
+                isinstance(a, ast.Constant) and a.value == "allow_tf32" for a in n.args):
+            out.append(ast.unparse(n))
+    return out
+
+
+def test_port_sets_no_tf32_flag_and_full_fp32_is_gone():
+    """The codec pins its own precision per call (`nn/layers.codec_fp32`, a
+    context variable): no module of the port, and no script of it, assigns
+    a TF32 flag, and the process-wide `full_fp32` bookkeeping is gone."""
+    import sparktts_tpu_torch.nn.layers as layers
+
+    files = sorted((REPO / "sparktts_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "scripts").glob("*_torch*.py")) + [REPO / "bench_torch.py"]
+    found = {str(f.relative_to(REPO)): w for f in files
+             if (w := _tf32_writes(ast.parse(f.read_text())))}
+    assert found == {}
+    assert not hasattr(layers, "full_fp32")
+    assert not any("full_fp32" in f.read_text() for f in files)
+    assert _tf32_writes(ast.parse("torch.backends.cudnn.allow_tf32 = False"))  # the probe sees one
 
 
 def test_pipeline_without_device_needs_a_card(monkeypatch):

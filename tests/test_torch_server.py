@@ -581,9 +581,11 @@ def tf32_flags():
 def test_tf32_flags_come_back_with_a_vocode_and_a_tokenize_open_at_once(pipe, monkeypatch,
                                                                        tf32_flags):
     """The vocode worker renders a window while the loop thread admits a
-    clone (its audio tokenize): both codec calls are inside `full_fp32` at
-    once, each sees full fp32, and the flags are the caller's after both."""
+    clone (its audio tokenize): both codec calls are inside their own
+    `codec_fp32` scope at once, the caller's TF32 flags never change while
+    they run, and the flags are the caller's after both."""
     from sparktts_tpu_torch.codec import bicodec
+    from sparktts_tpu_torch.nn.layers import in_codec_scope
 
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
     both, met = threading.Barrier(2, timeout=30), threading.Event()
@@ -594,7 +596,7 @@ def test_tf32_flags_come_back_with_a_vocode_and_a_tokenize_open_at_once(pipe, mo
             if not met.is_set():  # the first two calls meet; later ones pass
                 both.wait()
                 met.set()
-                seen.append((torch.backends.cudnn.allow_tf32,
+                seen.append((in_codec_scope(), torch.backends.cudnn.allow_tf32,
                              torch.backends.cuda.matmul.allow_tf32))
             return real(*a, **k)
         return inner
@@ -611,8 +613,9 @@ def test_tf32_flags_come_back_with_a_vocode_and_a_tokenize_open_at_once(pipe, mo
     server._vocode_pool.shutdown()
     server._fetch_pool.shutdown()
     assert res[0]["error"] is None and res[0]["wav"].size
-    assert seen == [(False, False), (False, False)]
+    assert seen == [(True, True, True), (True, True, True)]
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    assert not in_codec_scope()
 
 
 def test_launch_tally_counts_the_launches_of_its_own_thread():
