@@ -425,6 +425,17 @@ ENGINE_CLONE_TEXTS = (TEXT, "One card serves eight voices here.")
 _capture = {}
 
 
+def library_in_fp32():
+    """fp32 stays fp32 for the plain versions this script (and
+    scripts/bench_torch_codec_tiles.py) times as the library yardstick:
+    TF32 off for cuBLAS and cuDNN (the codec's entry points pin their own
+    precision)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _capture_stream():
     """The one stream that every timing graph is captured on (and warmed up
     on).  Kernels 2, 4, 5 and 6 merge on per-stream arrival counters
@@ -1122,7 +1133,7 @@ CODEC_VOCODE_TOKENS = 500
 # product; the port's own kernels are named apart (CODEC_OWN_KERNELS)
 LIBRARY_KERNEL_MARKS = ("cudnn", "gemm", "gemv", "xmma", "cutlass", "conv_depthwise",
                         "convolve", "winograd")
-CODEC_OWN_KERNELS = ("codec_gemm_kernel", "depthwise_kernel", "unit_gemm")
+CODEC_OWN_KERNELS = ("codec_gemm_kernel", "codec_fold_kernel", "depthwise_", "unit_gemm")
 
 
 def _codec_wrappers():
@@ -1243,8 +1254,8 @@ def check_codec_kernels(pipe, vocode, tokenize):
                 and err <= CODEC_REL_TOL * scale):
             raise AssertionError(f"codec kernels: {text} off its float64 plain version: "
                                  f"{err:.3e} of max {scale:.3e} (tol {CODEC_REL_TOL})")
-        ms = _time_ms(lambda: fn(*args), dev, iters=3, reps=3)
-        plain_ms = _time_ms(lambda: plain(*args), dev, iters=3, reps=3)
+        ms = _time_ms(lambda: fn(*args), dev)  # 200 launches: >= ~1 ms at 5 us a call
+        plain_ms = _time_ms(lambda: plain(*args), dev)
         bound_ms, by = _bound(nbytes, kernel["products"] * flops, kernel["peak"])
         kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
@@ -1255,16 +1266,21 @@ def check_codec_kernels(pipe, vocode, tokenize):
                                        bound_by=by, rel_err=err / scale))
         print(f"{name} ({label}, {n} calls): {text}: relative {err / scale:.3e} "
               f"(tol {CODEC_REL_TOL}); device {ms:.4f} ms, plain (cuDNN/cuBLAS fp32) "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+              f"{plain_ms:.4f} ms ({ms / plain_ms:.2f}x), bound {bound_ms:.4f} ms ({by}, "
+              f"{bound_ms / ms:.3f} of it)")
     print(f"codec kernels: {len(calls)} distinct calls checked and timed in "
           f"{time.perf_counter() - t0:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "codec_shapes.json").write_text(json.dumps(
+        {name: k["by_shape"] for name, k in kernels.items()}, indent=1))
     entries = []
     for name, k in kernels.items():
         if not k["by_shape"]:
             raise AssertionError(f"codec kernels: {name} had no call in a vocode or a tokenize")
         print(f"{name} over one {CODEC_VOCODE_TOKENS}-token vocode and one {PROMPT_SECONDS:.0f} s "
-              f"tokenize: device {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_ms'] / k['ms']:.3f} of it)")
+              f"tokenize: device {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms "
+              f"({k['ms'] / k['plain_ms']:.3f}x), bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_ms'] / k['ms']:.3f} of it)")
         mod = k["module"]
         entries.append(dict(name=name, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
@@ -5727,10 +5743,7 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    # fp32 stays fp32 for the plain versions this script calls directly (the
-    # codec's entry points pin it themselves)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    library_in_fp32()
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()

@@ -14,7 +14,10 @@ audio tokenize at the full Spark-TTS-0.5B widths (random weights, seed 0).
   in the way.
 
 Each is host clock around a call that ends in `torch.cuda.synchronize()`,
-after one warm-up, the median of `--runs`.  `--tree DIR` imports the port
+after one warm-up, the median of `--runs`.  `--trace` adds one profiled
+call of each (torch.profiler): its device kernels' summed time (`busy_ms`)
+beside their span from the first kernel's start to the last one's end, so
+a wall set by the host's launches shows as a span well above busy.  `--tree DIR` imports the port
 from another checkout (an older commit, unpacked), so two commits are
 compared in one call, each in a process of its own: run parent, change,
 change, parent.  Prints the card's `nvidia-smi` line, one line a call, and
@@ -51,6 +54,29 @@ def prompt_signal(seconds: float, sr: int = 16000, seed: int = 0):
     return 0.4 * envelope * voice + 0.003 * rng.standard_normal(t.size)
 
 
+def device_busy(fn, sync, cuda: bool):
+    """(summed device-kernel ms, kernels, ms from the first kernel's start to
+    the last one's end) of one profiled call of `fn`."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        fn()
+        sync()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if not kernels:
+        return 0.0, 0, 0.0
+    span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+    return sum(e["dur"] for e in kernels) / 1e3, len(kernels), span / 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=None, help="time the port of the checkout in DIR")
@@ -60,6 +86,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true", help="the tiny test config (CPU rehearsal)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--trace", action="store_true", help="one profiled call: device busy ms")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -109,6 +136,12 @@ def main(argv=None) -> int:
         result[f"{name}_ms"] = statistics.median(times)
         result[f"{name}_ms_all"] = times
         print(f"{name}: median {result[f'{name}_ms']} ms of {times} | {smi}", flush=True)
+        if args.trace:
+            result[f"{name}_busy_ms"], result[f"{name}_kernels"], result[f"{name}_span_ms"] = (
+                device_busy(fn, sync, dev.type == "cuda"))
+            print(f"{name}: {result[f'{name}_kernels']} device kernels, busy "
+                  f"{result[f'{name}_busy_ms']} ms over a span of {result[f'{name}_span_ms']} ms",
+                  flush=True)
     wav = vocode()
     if not (np.isfinite(wav).all() and wav.size == args.tokens * pipe._wave_upsample):
         raise AssertionError(f"vocode: {wav.shape} samples, finite {np.isfinite(wav).all()}")

@@ -65,6 +65,7 @@ CONVS = [
     ("ecapa k3 dil 4", 2, 33, 16, 16, 3, 1, 4, 4, 1),
     ("ecapa k5", 1, 30, 20, 24, 5, 1, 2, 1, 1),
     ("sampler downsampler k4 s2 groups 2", 1, 30, 16, 16, 4, 2, 1, 1, 2),
+    ("k7 across three k segments", 1, 20, 160, 24, 7, 1, 3, 1, 1),
 ]
 
 
@@ -96,7 +97,7 @@ def test_codec_gemm_int8_conv_and_linear_models_apply_the_scale_before_the_bias(
     _close(codec_gemm.linear_plain(xt, w[0], bias, scale), want)
 
 
-@pytest.mark.parametrize("din,dout", [(24, 40), (40, 24), (8, 1)])
+@pytest.mark.parametrize("din,dout", [(24, 40), (40, 24), (8, 1), (1300, 6)])
 def test_codec_gemm_linear_is_the_k1_conv(din, dout):
     x, p = _conv_inputs(4, 3, 5, din, 1, din, dout)
     lin = {"w": p["w"][0], "b": p["b"]}
@@ -118,6 +119,31 @@ def test_codec_gemm_transposed_phase_mapping_matches_jax(k, s):
     _close(codec_gemm.conv_transpose1d_plain(*_torch_args(x, p), s, pad), want)
 
 
+def test_codec_gemm_transposed_across_k_segments():
+    """An upsampler whose reduction (2 taps x 300 channels) spans two of
+    the kernel's k segments."""
+    x, p = _conv_inputs(9, 1, 7, 300, 8, 300, 12)
+    want = jl.conv_transpose1d_apply(_jax(p), jnp.asarray(x), stride=4, padding=2)
+    _close(codec_gemm.conv_transpose1d_model(*_torch_args(x, p), 4, 2), want)
+
+
+def test_codec_gemm_segments_are_summed_from_zero_and_added_in_order():
+    """The model's order of sums: each K_SEGMENT of the reduction summed
+    from zero over chunks of K_CHUNK, the segments' sums added in order
+    (checked against that order written out in float32)."""
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.standard_normal((3, 1100)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((1100, 5)).astype(np.float32))
+    segs = []
+    for s0 in range(0, 1100, codec_gemm.K_SEGMENT):
+        acc = torch.zeros((3, 5))
+        for k0 in range(s0, min(s0 + codec_gemm.K_SEGMENT, 1100), codec_gemm.K_CHUNK):
+            acc = acc + a[:, k0:k0 + codec_gemm.K_CHUNK] @ b[k0:k0 + codec_gemm.K_CHUNK]
+        segs.append(acc)
+    assert len(segs) == 3
+    assert torch.equal(codec_gemm.bmm_model(a, b), segs[0] + segs[1] + segs[2])
+
+
 def test_codec_gemm_transposed_output_padding_and_int8():
     x, p = _conv_inputs(6, 1, 7, 8, 6, 8, 8, int8=True)
     want = jl.conv_transpose1d_apply(_jax(p), jnp.asarray(x), stride=3, padding=2,
@@ -132,6 +158,7 @@ BMMS = [
     ("values", (2, 4, 11, 13), (2, 4, 13, 16), "bhij,bhjd->bhid"),
     ("fvq", (2, 9, 8), (64, 8), "btd,kd->btk"),
     ("mel", (1, 6, 32), (32, 17), "bfn,nk->bfk"),
+    ("mel across k segments", (1, 6, 1100), (1100, 17), "bfn,nk->bfk"),
 ]
 
 
@@ -259,3 +286,34 @@ def test_codec_timing_script_runs_on_the_cpu(capsys):
                         "--runs", "1"]) == 0
     doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert doc["card"] == "cpu" and doc["vocode_ms"] > 0 and doc["tokenize_ms"] > 0
+
+
+def _script(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+def test_codec_timing_script_traces_the_device_on_request(capsys):
+    """`--trace` adds each call's device-kernel time and span (on the CPU
+    no device kernel runs: zeros)."""
+    import json
+
+    assert _script("time_torch_codec").main(
+        ["--tiny", "--device", "cpu", "--tokens", "24", "--seconds", "0.5", "--runs", "1",
+         "--trace"]) == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for name in ("vocode", "tokenize"):
+        assert doc[f"{name}_kernels"] == 0 and doc[f"{name}_busy_ms"] == 0.0
+
+
+def test_codec_tile_bench_needs_a_card(monkeypatch):
+    """`scripts/bench_torch_codec_tiles.py` times kernel 7 on the card
+    only: without one it exits 2 before building anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _script("bench_torch_codec_tiles").main(["--top", "1"]) == 2

@@ -1245,11 +1245,96 @@ def test_codec_gemm_bmm_takes_strided_operands():
         assert torch.equal(got, cg.bmm(a.contiguous(), b.contiguous()))
 
 
+# (name, entry, arguments): the heaviest calls of a vocode and a tokenize
+# (wav2vec2's linears at 299 rows, its attention, an upsampler), a k cut
+# into segments (the positional conv's K = 8192 a group), a 1-row linear
+# and conv_out's one column; (B, T, Cin) / (K, Cg, Cout) or (rows, in, out)
+CODEC_PLAN_CASES = [
+    ("linear 299x4096->1024", "linear", (299, 4096, 1024)),
+    ("linear 299x1024->1024", "linear", (299, 1024, 1024)),
+    ("linear 1x1024->384", "linear", (1, 1024, 384)),
+    ("linear 500x2048->384", "linear", (500, 2048, 384)),
+    ("pos_conv k128 16 groups", "conv1d", (1, 299, 1024, 1024, 128, 1, 64, 1, 16)),
+    ("conv_out Cout 1", "conv1d", (1, 4000, 96, 1, 7, 1, 3, 1, 1)),
+    ("wav2vec2 conv0 Cin 1", "conv1d", (1, 4000, 1, 512, 10, 5, 0, 1, 1)),
+    ("upsampler k11 s5", "conv_transpose1d", (1, 400, 768, 384, 11, 5, 3)),
+    ("scores q k^T", "bmm", None),
+]
+
+
+def _plan_case(dev, entry, shape):
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if entry == "linear":
+        rows, din, dout = shape
+        x = torch.randn((1, rows, din), generator=gen, device=dev)
+        w = 0.03 * torch.randn((din, dout), generator=gen, device=dev)
+        bias = 0.1 * torch.randn(dout, generator=gen, device=dev)
+        return cg.linear, cg.linear_plain, (x, w, bias, None)
+    if entry == "bmm":
+        qkv = torch.randn((1, 299, 3, 16, 64), generator=gen, device=dev)
+        q, k = qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2)
+        return cg.bmm, cg.bmm_plain, (q, k.transpose(-1, -2))
+    b, t, cin, cout, k = shape[:5]
+    g = shape[8] if entry == "conv1d" else 1
+    x = torch.randn((b, t, cin), generator=gen, device=dev)
+    w = 0.05 * torch.randn((k, cin // g, cout), generator=gen, device=dev)
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    if entry == "conv1d":
+        s, pad, dil = shape[5:8]
+        return cg.conv1d, cg.conv1d_plain, (x, w, bias, None, s, pad, dil, g)
+    s, pad = shape[5:7]
+    return cg.conv_transpose1d, cg.conv_transpose1d_plain, (x, w, bias, None, s, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CODEC_PLAN_CASES, ids=[c[0] for c in CODEC_PLAN_CASES])
+def test_codec_gemm_every_plan_gives_the_same_bits(case):
+    """Every tile and path the launcher can choose (each tile, with and
+    without a block a k segment and the second pass over the partials)
+    gives the plan by shape's bits, which are within CODEC_TOL of float64."""
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    _, entry, shape = case
+    dev = _cuda()
+    fn, plain, args = _plan_case(dev, entry, shape)
+    got = fn(*args)
+    want = plain(*[a.double() if isinstance(a, torch.Tensor) else a for a in args])
+    assert _codec_rel(got, want) <= CODEC_TOL
+    for config in range(cg.configs()):
+        with cg.forced_plan(config):
+            before = cg.launches
+            other = fn(*args)
+            assert cg.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, other), f"plan {config}"
+
+
+@pytest.mark.cuda
+def test_codec_mma_probe_settles_mma_sync_against_wgmma():
+    """One 64 x 256 x 8 product by the kernel's 3xTF32 chunks through
+    `wgmma` and through `mma.sync`: the same bits (an H100 gives them), both
+    within CODEC_TOL of float64."""
+    from sparktts_tpu_torch.kernels import codec_gemm as cg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((64, 256), generator=gen, device=dev)
+    b = torch.randn((256, 8), generator=gen, device=dev)
+    via_wgmma, via_mma = cg.mma_probe(a, b)
+    want = a.double() @ b.double()
+    assert _codec_rel(via_wgmma, want) <= CODEC_TOL
+    assert torch.equal(via_wgmma, via_mma)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,c,k,s,pad,transposed", [(500, 384, 7, 1, 3, False),
                                                     (301, 64, 4, 2, 1, False),
                                                     (120, 64, 4, 2, 1, True),
-                                                    (77, 40, 6, 3, 2, True)])
+                                                    (77, 40, 6, 3, 2, True),
+                                                    (77, 42, 7, 1, 3, False),
+                                                    (64, 42, 4, 2, 1, True)])
 def test_depthwise_matches_float64_and_repeats_bit_equal(t, c, k, s, pad, transposed):
     from sparktts_tpu_torch.kernels import depthwise_conv as dw
 
