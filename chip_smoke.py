@@ -54,8 +54,9 @@ and capture are set-up, counted apart).
    tensor cores and that of fp32 on the CUDA cores; the int8 MLP at 1, 4, 8
    and 16 rows (also against its tiled model; one device kernel a call, from
    a profiler trace; beside the library's int8 matmul and a bf16 MLP as
-   yardsticks) and the int4 matvec at the four layer shapes at 1 and 8 rows,
-   down also at 32 (two calls bit-equal), bf16, on the quantized LMs' own
+   yardsticks) and the int4 matvec at the four layer shapes at 1, 8 and 32
+   rows (also against the CPU model of its runs; two calls bit-equal; one
+   device kernel a call, from a profiler trace), bf16, on the quantized LMs' own
    weights, timed over all 24 layers' weights in turn (as a decode step
    streams them from HBM);
 10. one prefill of the full-width LM (Qwen2.5-0.5B, random weights) on each
@@ -1565,37 +1566,46 @@ def int4_library_call(x, packed, gscale):
 
 
 def check_int4(dev, int4_layers):
-    """The int4 matvec kernel vs its plain version at the four layer shapes
-    of the int4 LM (its own weights) at B = 1 and 8 (the engines' eight
-    slots), down also at B = 32 (the most rows it takes), and one ragged
-    `out`, two calls of each bit-equal; each timed over the 24 layers beside
-    the library's int4 matmul (`int4_library_call`, held to the plain
-    version first).  Returns the kernels-line entry (without launches):
-    times summed over one layer's four calls at B = 1."""
+    """The int4 matvec kernel vs its plain version and the CPU model of its
+    runs (`int4_matvec_split_plain`) at the four layer shapes of the int4
+    LM (its own weights) at B = 1, 8 (the engines' eight slots) and 32 (the
+    most rows it takes), and one ragged `out`, two calls of each bit-equal;
+    one call is one device kernel (profiler trace); each timed over the 24
+    layers beside the library's int4 matmul (`int4_library_call`, held to
+    the plain version first).  Returns the kernels-line entry (without
+    launches): times summed over one layer's four calls at B = 1, and the
+    same sums at each row count in `by_shape`."""
     import torch
 
     from sparktts_tpu_torch.kernels import int4_matmul as i4
 
     gen = torch.Generator(device=dev).manual_seed(6)
     max_err = 0.0
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    layer = {b: dict(rows=b, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, calls={})
+             for b in (1, 8, 32)}
 
     def check(label, x, packed, gscale):
         got = i4.int4_matvec(x, packed, gscale)
         if not torch.equal(got, i4.int4_matvec(x, packed, gscale)):
             raise AssertionError(f"int4 kernel: two calls differ ({label})")
+        _check_close(f"{label}, vs the CPU model of its runs", got,
+                     i4.int4_matvec_split_plain(x, packed, gscale), INT4_REL_TOL)
         return _check_close(f"{label}, two calls bit-equal", got,
                             i4.int4_matvec_plain(x, packed, gscale), INT4_REL_TOL)
 
     for name in ("qkv", "o", "gateup", "down"):
         weights = [(lay[name]["w_p4"], lay[name]["gscale"]) for lay in int4_layers]
         (half, d_out), groups = weights[0][0].shape, weights[0][1].shape[0]
-        batches = (1, 8, 32) if name == "down" else (1, 8)
-        for b in batches:
+        for b in layer:
             x = torch.randn((b, 2 * half), generator=gen, device=dev).to(torch.bfloat16)
+            label = f"int4_matvec {name} B={b} in={2 * half} out={d_out} groups={groups}"
             for w in (weights[0], weights[-1]):
-                max_err = max(max_err, check(
-                    f"int4_matvec {name} B={b} in={2 * half} out={d_out} groups={groups}", x, *w))
+                max_err = max(max_err, check(label, x, *w))
+            if dev.type == "cuda":
+                kernels = _device_kernels(functools.partial(i4.int4_matvec, x, *weights[0]), dev,
+                                          f"int4_{name}_B{b}")
+                if len(kernels) != 1 or "int4_mma_kernel" not in kernels[0]:
+                    raise AssertionError(f"{label}: one call launched {kernels}, not one kernel")
             ms = _time_ms(_rotating([functools.partial(i4.int4_matvec, x, *w) for w in weights]),
                           dev, iters=len(weights), reps=10)
             plain_ms = _time_ms(_rotating([functools.partial(i4.int4_matvec_plain, x, *w)
@@ -1603,31 +1613,37 @@ def check_int4(dev, int4_layers):
             nbytes = half * d_out + 4 * groups * d_out + 2 * b * (2 * half + d_out)
             bound_ms, bound_by = _bound(nbytes, 4 * b * half * d_out)
             line = (f"int4_matvec {name} B={b}: device {ms:.4f} ms per call over {len(weights)} "
-                    f"layers' weights (plain {plain_ms:.4f}, bound {bound_ms:.5f} by {bound_by}, "
-                    f"{nbytes / ms / 1e6:.1f} GB/s)")
+                    f"layers' weights, one kernel a call (plain {plain_ms:.4f}, bound "
+                    f"{bound_ms:.5f} by {bound_by}, {nbytes / ms / 1e6:.1f} GB/s)")
             calls = [int4_library_call(x, *w) for w in weights]
             _check_close(f"torch._weight_int4pack_mm {name} B={b} (bf16 scales) vs plain",
                          calls[0](), i4.int4_matvec_plain(x, *weights[0]), INT4_LIBRARY_REL_TOL)
             library_ms = _time_ms(_rotating(calls), dev, iters=len(weights), reps=10)
             line += f"; torch._weight_int4pack_mm {library_ms:.4f}"
-            if b == 1:
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total["bound_ms"] += bound_ms
-                total["library_ms"] += library_ms
             print(line)
+            row = layer[b]
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += bound_ms
+            row["library_ms"] += library_ms
+            row["calls"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=library_ms)
     g = torch.Generator(device=dev).manual_seed(7)
     packed = torch.randint(-128, 128, (448, 1000), generator=g, device=dev, dtype=torch.int8)
     gscale = 0.01 * (1 + torch.rand((7, 1000), generator=g, device=dev))
     x = torch.randn((3, 896), generator=g, device=dev).to(torch.bfloat16)
     max_err = max(max_err, check("int4_matvec B=3 in=896 out=1000 (ragged)", x, packed, gscale))
-    print(f"int4_matvec, one layer's four calls at B=1: device {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f} ms, torch._weight_int4pack_mm {total['library_ms']:.4f} ms, "
-          f"bound {total['bound_ms']:.5f} ms")
-    if total["library_ms"] < total["ms"]:
-        print("int4_matvec: the library call is faster than the kernel")
+    for b, row in layer.items():
+        print(f"int4_matvec, one layer's four calls at B={b}: device {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, torch._weight_int4pack_mm {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms")
+        if row["library_ms"] < row["ms"]:
+            print(f"int4_matvec: the library call is faster than the kernel at B={b}")
+    one = {key: v for key, v in layer[1].items() if key in ("ms", "plain_ms", "bound_ms",
+                                                              "library_ms")}
+    by_shape = [dict(row, bound_by="bytes") for row in layer.values()]
     return dict(name="int4_matvec", route="cuda", source=i4.SOURCE, replaces=i4.REPLACES,
-                max_abs_err=max_err, bound_by="bytes", **total)
+                max_abs_err=max_err, bound_by="bytes", by_shape=by_shape, **one)
 
 
 def check_decode_step_on_cpu(pipe, params, label, prompt, mode, near_tie_ok=False):

@@ -1,7 +1,7 @@
 """Arrival counters for the kernels that merge across blocks in one launch.
 
-Kernels 2, 4, 5 and 6 (`decode_attention`, `int8_mlp`, `int4_matmul`,
-`paged_attention`) split one output over several blocks.  Each block writes
+Kernels 2, 4 and 6 (`decode_attention`, `int8_mlp`, `paged_attention`)
+split one output over several blocks.  Each block writes
 its partial to scratch and counts its arrival on an int32 counter; the block
 that arrives last merges the partials in a fixed order and sets the counter
 back to 0.

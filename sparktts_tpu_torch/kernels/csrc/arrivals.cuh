@@ -1,6 +1,5 @@
 // The arrival rendezvous of the kernels that merge across blocks within one
-// launch: kernels 2 and 6 (split_decode.cuh), 4 (int8_mlp.cu) and 5
-// (int4_matmul.cu).
+// launch: kernels 2 and 6 (split_decode.cuh) and 4 (int8_mlp.cu).
 //
 // Each block writes its partial first, then counts its arrival on an int32
 // counter; the block that arrives last reads every partial and merges them in

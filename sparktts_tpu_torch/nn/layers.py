@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from sparktts_tpu_torch.kernels import codec_gemm, depthwise_conv
 from sparktts_tpu_torch.kernels.codec_gemm import conv1d_plain, conv_transpose1d_plain
 from sparktts_tpu_torch.kernels.int4_matmul import MAX_ROWS as INT4_MATVEC_ROWS
-from sparktts_tpu_torch.kernels.int4_matmul import int4_matvec, int4_matvec_plain
+from sparktts_tpu_torch.kernels.int4_matmul import int4_matvec
+from sparktts_tpu_torch.lm.quant import unpack_int4
 
 _CODEC_SCOPE = contextvars.ContextVar("codec_fp32", default=False)
 
@@ -75,6 +76,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return codec_gemm.bmm(a, b) if _CODEC_SCOPE.get() else torch.matmul(a, b)
 
 
+def int4_linear_wide(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """x (..., in) times nibble-packed int4 weights (in/2, out) with group
+    scales (G, out), for more rows than the int4 matvec kernel takes (the
+    prefill): the weights unpacked once, each group's fp32 partial dot times
+    its fp32 scale, summed over the groups; in x's dtype.  The JAX
+    package's XLA branch of `linear_apply`."""
+    g = gscale.shape[-2]
+    d_in = 2 * packed.shape[-2]
+    xg = x.float().reshape(*x.shape[:-1], g, d_in // g)
+    wg = unpack_int4(packed).reshape(g, d_in // g, packed.shape[-1])
+    partial = torch.einsum("...gi,gio->...go", xg, wg)
+    return (partial * gscale).sum(dim=-2).to(x.dtype)
+
+
 def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
     """Float weights define the compute dtype (bf16 params -> bf16 matmul).
 
@@ -93,7 +108,7 @@ def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
             y = int4_matvec(x.reshape(rows, x.shape[-1]).contiguous(), packed, gscale)
             y = y.reshape(*x.shape[:-1], packed.shape[-1])
         else:
-            y = int4_matvec_plain(x, packed, gscale)
+            y = int4_linear_wide(x, packed, gscale)
     elif "w_q" in p:
         y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
     else:

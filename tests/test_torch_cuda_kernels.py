@@ -16,7 +16,8 @@ kernels at the full Qwen2.5-0.5B widths, bf16 x: the fused int8 MLP within
 2e-2 of max|plain| and of its tiled model (the two sum in another order, so
 a bf16 value of h may round one ulp apart and carry into the down
 projection), the int4 matvec
-within 1e-2 of max|plain| (bf16 output rounding plus summation order).
+within 1e-2 of max|plain| and of its CPU model (bf16 output rounding plus
+summation order).
 """
 
 import contextlib
@@ -450,47 +451,87 @@ def test_int8_mlp_entry_refuses_a_workspace_or_counters_of_another_size():
     assert _rel_err(out, i8.int8_mlp_matvec_plain(x, gu, gs, down, ds)) <= 2e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d_in,d_out", [(896, 1152), (896, 896), (896, 9728), (4864, 896)])
-@pytest.mark.parametrize("b", (1, 8, 32))
-def test_int4_kernel_matches_plain(d_in, d_out, b):
-    """The four layer shapes of the int4 LM, group 128."""
-    dev = _cuda()
-    g = torch.Generator(device=dev).manual_seed(d_in + d_out + b)
-    packed = torch.randint(-128, 128, (d_in // 2, d_out), generator=g, device=dev,
-                           dtype=torch.int8)
-    gscale = 0.01 * (1 + torch.rand((d_in // 128, d_out), generator=g, device=dev))
-    x = torch.randn((b, d_in), generator=g, device=dev).to(torch.bfloat16)
-    before = i4.launches
-    got = i4.int4_matvec(x, packed, gscale)
-    assert i4.launches == before + 1 and got.dtype == torch.bfloat16
-    assert _rel_err(got, i4.int4_matvec_plain(x, packed, gscale)) <= 1e-2
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d_in,d_out,group,b", [
-    (896, 1000, 128, 3),  # ragged out: no 16-byte row loads, a partial column tile
-    (4864, 896, 128, 9),  # down with a partial tile of 8 x rows
-    (4864, 896, 128, 32),  # down at the most rows: several groups a block, merged
-    (896, 9728, 128, 8),  # gate/up at the engines' 8 rows
-    (896, 9728, 128, 32),  # gate/up at 32 rows: the tiles fill the card, a block walks 7 groups
-    (256, 70, 16, 3),  # out not a multiple of 4: rows byte by byte, the merge without cp.async
-    (896, 1152, 64, 1),  # 14 groups, more than a block holds: one a block, merged through
-    # the workspace
-    (256, 72, 16, 2),  # small groups: rows past a group's end in a lane's walk
-    (256, 80, 16, 1),  # one row, out not a multiple of 16: rows read byte by byte
-])
-def test_int4_kernel_ragged_and_repeats_bit_equal(d_in, d_out, group, b):
-    dev = _cuda()
+def _int4_case(dev, d_in, d_out, group, b):
     g = torch.Generator(device=dev).manual_seed(d_in + d_out + group + b)
     packed = torch.randint(-128, 128, (d_in // 2, d_out), generator=g, device=dev,
                            dtype=torch.int8)
     gscale = 0.01 * (1 + torch.rand((d_in // group, d_out), generator=g, device=dev))
     x = torch.randn((b, d_in), generator=g, device=dev).to(torch.bfloat16)
+    return x, packed, gscale
+
+
+def _device_kernel_names(fn):
+    """Names of the device kernels one call of `fn` launched (profiler
+    trace; a session that recorded no device activity is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+def _check_int4_kernel(dev, d_in, d_out, group, b):
+    """One launch a call, and a single device kernel; within 1e-2 of the
+    plain version and of the CPU model of its runs; three calls and a
+    CUDA-graph replay bit-equal."""
+    x, packed, gscale = _int4_case(dev, d_in, d_out, group, b)
+    before = i4.launches
     got = i4.int4_matvec(x, packed, gscale)
+    assert i4.launches == before + 1 and got.dtype == torch.bfloat16
+    assert got.shape == (b, d_out)
     for _ in range(2):
         assert torch.equal(got, i4.int4_matvec(x, packed, gscale))
     assert _rel_err(got, i4.int4_matvec_plain(x, packed, gscale)) <= 1e-2
+    assert _rel_err(got, i4.int4_matvec_split_plain(x, packed, gscale)) <= 1e-2
+    plan = i4.plan(b, d_in, d_out, d_in // group)
+    assert (plan["run"], plan["split"]) == i4.group_split(d_in // group, b, group)
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = i4.int4_matvec(x, packed, gscale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+    names = _device_kernel_names(lambda: i4.int4_matvec(x, packed, gscale))
+    assert len(names) == 1 and "int4_mma_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out", [(896, 1152), (896, 896), (896, 9728), (4864, 896)])
+@pytest.mark.parametrize("b", (1, 8, 32))
+def test_int4_kernel_matches_plain(d_in, d_out, b):
+    """The four layer shapes of the int4 LM, group 128."""
+    _check_int4_kernel(_cuda(), d_in, d_out, 128, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out,group,b", [
+    (896, 1000, 128, 3),  # ragged out: byte-by-byte rows (out not a multiple of 16)
+    (4864, 896, 128, 9),  # down with a partial n8 tile of x rows
+    (4864, 896, 128, 32),  # down at the most rows: four runs, merged in a cluster
+    (896, 9728, 128, 8),  # gate/up at the engines' 8 rows
+    (896, 9728, 128, 32),  # gate/up at 32 rows
+    (256, 70, 16, 3),  # out not a multiple of 4: rows and scales byte by byte
+    (896, 1152, 64, 1),  # 14 groups: two runs of seven, merged in a cluster
+    (256, 72, 16, 2),  # small groups: sixteen, two runs of eight
+    (256, 80, 16, 1),  # one row, out a multiple of 16 but not of a 32-column tile
+    (896, 1152, 128, 2), (4864, 896, 128, 7), (896, 9728, 128, 16),  # n8 tiles part filled
+    (896, 896, 128, 17), (4864, 896, 128, 31),  # three and four n8 tiles
+    (96, 40, 24, 9), (288, 129, 24, 31),  # groups of 24: the second k step half past the group
+    (48, 8, 24, 1), (256, 8, 16, 16),  # out = 8
+    (128, 33, 64, 8), (896, 1153, 128, 1),  # out one past a tile
+])
+def test_int4_kernel_ragged_and_repeats_bit_equal(d_in, d_out, group, b):
+    _check_int4_kernel(_cuda(), d_in, d_out, group, b)
 
 
 def _decode_streams_case(dev):
@@ -527,7 +568,8 @@ def test_decode_kernel_on_two_streams_at_once():
 
 @pytest.mark.cuda
 def test_merging_kernels_replay_in_a_graph_on_a_prepared_stream():
-    """Kernels 2, 5, 6 and 4 captured in one CUDA graph on a stream whose
+    """Kernels 2, 6 and 4, which merge on arrival counters, and 5, which
+    merges in a cluster, captured in one CUDA graph on a stream whose
     counters were made first (`arrivals.prepare`): replays match eager
     calls bit for bit.  Capture on a stream that has no counters raises."""
     dev = _cuda()

@@ -208,6 +208,21 @@ def test_kernel_wrappers_launch_inside_the_launch_helper():
     assert "torch.cuda.device" in ast.unparse(helper)
 
 
+def test_int4_plain_version_stays_off_the_main_path():
+    """The int4 kernel's plain version is named only by its own module (the
+    wrapper runs it for CPU tensors) and by the op's CPU registration: the
+    prefill on the card takes `nn/layers.int4_linear_wide`."""
+    port = REPO / "sparktts_tpu_torch"
+    users = sorted(str(f.relative_to(port)) for f in port.rglob("*.py")
+                   if "int4_matvec_plain" in f.read_text())
+    assert users == ["kernels/int4_matmul.py", "kernels/ops.py"], users
+    ops = ast.parse((port / "kernels" / "ops.py").read_text())
+    calls = [n for n in ast.walk(ops) if isinstance(n, ast.FunctionDef)
+             and "int4_matvec_plain" in ast.unparse(n)]
+    assert [ast.unparse(d) for n in calls for d in n.decorator_list] == [
+        "int4_matvec.register_kernel('cpu')"]
+
+
 def _tf32_writes(tree):
     """Assignments to an attribute named allow_tf32, and calls that pass one
     as a keyword (`torch.backends.cudnn.flags(allow_tf32=...)`)."""

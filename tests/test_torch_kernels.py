@@ -18,7 +18,11 @@ sum it only reorders, and within 2e-2 of max|ref| of the Pallas kernel,
 whose gate/up sums are in another order too, so that a value of h may round
 one ulp apart and carry into the down projection (measured 4e-3 to 8e-3);
 the ResidualUnit's 3xTF32 arithmetic (`residual_unit_3xtf32_plain`) within
-2e-5 of the Pallas unit and of the plain fp32 unit.
+2e-5 of the Pallas unit and of the plain fp32 unit; the int4 matvec's runs
+of groups (`int4_matvec_split_plain`, the groups in order within a run, the
+runs in order) within the int4 bound above, at the kernel's edges (1 to 32
+rows, groups of 16, 24, 64 and 128, an `out` that is not a multiple of a
+column tile).
 The CUDA kernels themselves are held against the plain versions on the card
 by `test_torch_cuda_kernels.py` (marked `cuda`, skipped without a card) and
 by chip_smoke.py.
@@ -313,9 +317,21 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert vf.tf32_round(v).tolist() == want
 
 
-@pytest.mark.parametrize("d_in,d_out,group,b", [(64, 512, 16, 3), (896, 1152, 128, 1),
-                                                (4864, 896, 128, 2)])
+@pytest.mark.parametrize("d_in,d_out,group,b", [
+    (64, 512, 16, 3), (896, 1152, 128, 1),
+    (4864, 896, 128, 2),  # down: 38 groups in four runs
+    (96, 40, 24, 9),  # groups of 24 (k steps of 16 padded), out not a multiple of a tile
+    (48, 8, 24, 1),  # out = 8, a tile mostly past the edge
+    (128, 33, 64, 8),  # out one past a 32-column tile
+    (1024, 48, 128, 16),  # 8 groups
+    (640, 24, 64, 32),  # 10 groups, 32 rows
+    (1920, 24, 64, 32),  # 30 groups: three runs of ten
+    (256, 72, 16, 17),  # 16 groups: two runs of eight, 17 rows
+])
 def test_int4_matvec_plain_matches_pallas(d_in, d_out, group, b):
+    """The plain version (the wrapper on the CPU) and the CPU model of the
+    kernel's runs (`int4_matvec_split_plain`) against the Pallas kernel and
+    the XLA reference."""
     rng = np.random.default_rng(d_in + d_out)
     q = quantize_linear_int4({"w": jnp.asarray(rng.standard_normal((d_in, d_out)), jnp.float32)},
                              group=group)
@@ -324,7 +340,22 @@ def test_int4_matvec_plain_matches_pallas(d_in, d_out, group, b):
     before = i4.launches
     got = i4.int4_matvec(tx, packed, gscale).float().numpy()
     assert i4.launches == before
+    model = i4.int4_matvec_split_plain(tx, packed, gscale).float().numpy()
     for ref in (jax_int4_matvec(jx, q["w_p4"], q["gscale"], interpret=True),
                 reference_int4_matvec(jx, q["w_p4"], q["gscale"])):
         ref = np.asarray(ref, np.float32)
         assert np.abs(got - ref).max() <= 5e-3 * np.abs(ref).max()
+        assert np.abs(model - ref).max() <= 5e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("groups,b,group,run,split", [
+    (1, 32, 896, 1, 1), (7, 1, 128, 7, 1), (7, 32, 128, 7, 1),  # qkv, o, gate/up: one run
+    (38, 1, 128, 10, 4), (38, 32, 128, 10, 4),  # down: runs of at most 12 groups
+    (14, 1, 64, 7, 2), (30, 32, 64, 10, 3), (10, 32, 64, 10, 1),
+    (304, 32, 16, 38, 8)])  # at most eight runs
+def test_int4_group_split_runs_cover_the_groups_in_order(groups, b, group, run, split):
+    """The kernel's runs: the fewest (at most eight) of at most 12 groups
+    whose staged x fits a block, `run` consecutive groups each, the last
+    possibly shorter and none empty."""
+    assert i4.group_split(groups, b, group) == (run, split)
+    assert split <= i4.MAX_SPLIT and (split - 1) * run < groups <= split * run

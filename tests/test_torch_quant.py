@@ -29,6 +29,7 @@ from sparktts_tpu.lm import qwen as jq
 from sparktts_tpu.nn import layers as jl
 from sparktts_tpu_torch.codec import quant as tcq
 from sparktts_tpu_torch.codec import wave_generator
+from sparktts_tpu_torch.kernels import int4_matmul as i4
 from sparktts_tpu_torch.codec.bicodec import bicodec_detokenize, bicodec_tokenize
 from sparktts_tpu_torch.config import tiny_test_config as torch_tiny_config
 from sparktts_tpu_torch.lm import generate as tgen
@@ -157,7 +158,8 @@ def test_qwen_state_keeps_int8_and_fp32_scales(lm):
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
-@pytest.mark.parametrize("lead", [(2, 3), (40,)])  # 6 rows: the int4 matvec module; 40: prefill
+@pytest.mark.parametrize("lead", [(2, 3), (40,), (2, 33)])  # 6 rows: the int4 matvec module;
+# 40 and 66: the wide path (prefill)
 def test_linear_apply_quantized_matches_jax(kind, lead):
     p = _weights(2, 64, 48, bias=True)
     jp = jax.tree.map(jnp.asarray, p)
@@ -167,6 +169,20 @@ def test_linear_apply_quantized_matches_jax(kind, lead):
     got = tl.linear_apply(to_torch(_np(jp), "cpu"), torch.from_numpy(x)).numpy()
     assert got.shape == (*lead, 48)
     np.testing.assert_allclose(got, want, **LAYER_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_wide_path_is_the_plain_arithmetic(dtype):
+    """`linear_apply`'s path for more rows than the int4 kernel takes
+    (`int4_linear_wide`) gives the int4 kernel's plain version bit for bit:
+    giving the prefill its own function moved no result, and the plain
+    version stays off the main path."""
+    p = jquant.quantize_linear_int4(jax.tree.map(jnp.asarray, _weights(4, 128, 40)), 32)
+    tp = to_torch(_np(p), "cpu")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 17, 128))).to(dtype)
+    want = i4.int4_matvec_plain(x, tp["w_p4"], tp["gscale"])
+    assert torch.equal(tl.int4_linear_wide(x, tp["w_p4"], tp["gscale"]), want)
+    assert torch.equal(tl.linear_apply(tp, x), want)
 
 
 def _conv_int8(rng, k, cin_g, cout):
